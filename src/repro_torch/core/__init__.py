@@ -1,0 +1,51 @@
+"""Core CADDeLaG pipeline on one device: chain, solve, embed, score, sequence."""
+
+from repro_torch.core.cad import CADResult, detect_anomalies, node_anomaly_scores, top_anomalies
+from repro_torch.core.chain import ChainOperator, chain_build_count, chain_product
+from repro_torch.core.distmatrix import (
+    SCHEDULES,
+    add_scaled_identity,
+    build_from_nodes,
+    matmul,
+    matmul_rowblock,
+)
+from repro_torch.core.embedding import (
+    CommuteConfig,
+    Embedding,
+    commute_distance_block,
+    commute_time_embedding,
+    edge_projection,
+    exact_commute_distances,
+    validate_node_indices,
+)
+from repro_torch.core.sequence import SequenceDetector, SequenceResult, detect_sequence_anomalies
+from repro_torch.core.solvers import SolveReport, SolverSpec, estimate_rho, solve
+
+__all__ = [
+    "CADResult",
+    "ChainOperator",
+    "CommuteConfig",
+    "Embedding",
+    "SCHEDULES",
+    "SequenceDetector",
+    "SequenceResult",
+    "SolveReport",
+    "SolverSpec",
+    "add_scaled_identity",
+    "build_from_nodes",
+    "chain_build_count",
+    "chain_product",
+    "commute_distance_block",
+    "commute_time_embedding",
+    "detect_anomalies",
+    "detect_sequence_anomalies",
+    "edge_projection",
+    "estimate_rho",
+    "exact_commute_distances",
+    "matmul",
+    "matmul_rowblock",
+    "node_anomaly_scores",
+    "solve",
+    "top_anomalies",
+    "validate_node_indices",
+]

@@ -1,0 +1,153 @@
+"""Commute-time embedding (paper Algorithm 3, CommuteTimeEmbedding).
+
+Port of :mod:`repro.core.embedding` (resident fields).  For j = 1..k_RP,
+y_j = B^T W^{1/2} q_j is the edge-space Rademacher projection (the
+``edge_projection`` CUDA kernel regenerates q from the counter hash and
+reads only A); the chain solve gives z_j with L z_j = y_j, and
+
+    c(i, j) ~= V_G * || Z_i - Z_j ||^2.
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.core.chain import ChainOperator, chain_product
+from repro_torch.core.solvers import SolveReport, SolverSpec, solve
+from repro_torch.device import resolve_device
+from repro_torch.kernels import edge_projection as _ep
+from repro_torch.obs import REGISTRY, phase
+
+
+@dataclass(frozen=True)
+class CommuteConfig:
+    """Accuracy knobs, named as in the paper (eps_RP, d, q), plus the solver's."""
+
+    eps_rp: float = 1e-3
+    d: int = 6  # inverse-chain length
+    q: int = 10  # Richardson iterations
+    seed: int = 0
+    schedule: str = "cannon"  # accepted for symmetry; one device has no schedule
+    dtype: torch.dtype = torch.float32
+    deflate: bool = True
+    fuse_l: bool = False
+    k_override: int | None = None  # force the embedding width (tests/ablations)
+    solver: str = "richardson"  # "richardson" | "chebyshev" | "cg"
+    solver_tol: float | None = None
+    solver_max_iters: int | None = None
+    delta: float | None = None
+    warm_start: bool = False  # seed sequence solves with the previous solution
+
+    def k_rp(self, n: int) -> int:
+        if self.k_override is not None:
+            return int(self.k_override)
+        return max(1, math.ceil(math.log(n / self.eps_rp)))
+
+    def solver_spec(self) -> SolverSpec:
+        return SolverSpec(
+            method=self.solver,
+            tolerance=self.solver_tol,
+            max_iters=self.solver_max_iters,
+            delta=self.delta,
+        )
+
+
+def edge_projection(a: torch.Tensor, seed: int, k: int) -> torch.Tensor:
+    """Y = B^T W^{1/2} Q / sqrt(k) for k Rademacher columns, (n, k)."""
+    return _ep.edge_projection(a.to(torch.float32), seed=seed, k=k)
+
+
+@dataclass
+class Embedding:
+    z: torch.Tensor  # (n, k)
+    vol: torch.Tensor  # 0-dim V_G
+    op: ChainOperator | None = None
+    report: SolveReport | None = None
+
+
+def commute_time_embedding(
+    a: torch.Tensor,
+    cfg: CommuteConfig,
+    *,
+    op: ChainOperator | None = None,
+    warm_from: torch.Tensor | None = None,
+    device: str | torch.device = "cuda",
+) -> Embedding:
+    """Z (n, k_RP) commute-time embedding of ``a`` (Algorithm 3), on ``device``.
+
+    ``warm_from`` is a previous embedding's ``z``: the solver starts from it
+    instead of the cold start.  A shape mismatch warns, is counted in
+    ``solve.warm_skipped`` and solves cold.
+    """
+    a = a.to(resolve_device(device))
+    n = int(a.shape[0])
+    k = cfg.k_rp(n)
+    if op is None:
+        with phase("chain", n=n, d=cfg.d) as sp:
+            op = chain_product(
+                a, cfg.d, schedule=cfg.schedule, dtype=cfg.dtype,
+                deflate=cfg.deflate, fuse_l=cfg.fuse_l,
+            )
+            sp.fence(op.p2)
+    with phase("ingest", n=n, k=k) as sp:
+        y = edge_projection(a, cfg.seed, k)
+        sp.fence(y)
+    y0 = None
+    if warm_from is not None:
+        if tuple(warm_from.shape) == (n, k):
+            y0 = warm_from
+        else:
+            REGISTRY.inc("solve.warm_skipped")
+            warnings.warn(
+                f"warm_from shape {tuple(warm_from.shape)} does not match the "
+                f"expected ({n}, {k}); solving cold (counted in solve.warm_skipped)",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+    with phase("solve", n=n, k=k, method=cfg.solver, warm=y0 is not None) as sp:
+        z, report = solve(
+            op, y, cfg.solver_spec(), fixed_q=cfg.q, deflate=cfg.deflate, y0=y0
+        )
+        sp.fence(z)
+    return Embedding(z=z, vol=op.vol, op=op, report=report)
+
+
+def validate_node_indices(name: str, idx, n: int) -> None:
+    """Raise ``IndexError`` naming the first index of ``idx`` outside ``[0, n)``."""
+    arr = idx.cpu().numpy() if isinstance(idx, torch.Tensor) else np.asarray(idx)
+    if arr.size == 0:
+        return
+    bad = (arr < 0) | (arr >= n)
+    if bad.any():
+        first = int(arr[bad][0] if arr.ndim else arr)
+        raise IndexError(
+            f"{name} index {first} is out of range for n={n} (valid node ids are 0..n-1)"
+        )
+
+
+def commute_distance_block(emb: Embedding, rows, cols) -> torch.Tensor:
+    """c(i, j) = V_G ||Z_i - Z_j||^2 for an index block."""
+    n = int(emb.z.shape[0])
+    validate_node_indices("rows", rows, n)
+    validate_node_indices("cols", cols, n)
+    dev = emb.z.device
+    zi = emb.z[torch.as_tensor(rows, device=dev)].to(torch.float32)
+    zj = emb.z[torch.as_tensor(cols, device=dev)].to(torch.float32)
+    sq_i = torch.sum(zi * zi, dim=-1)
+    sq_j = torch.sum(zj * zj, dim=-1)
+    return emb.vol * (sq_i[:, None] + sq_j[None, :] - 2.0 * (zi @ zj.T))
+
+
+def exact_commute_distances(a) -> np.ndarray:
+    """O(n^3) eigendecomposition oracle in float64 numpy (tests / baselines)."""
+    a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    a = a.astype(np.float64)
+    deg = a.sum(1)
+    pinv = np.linalg.pinv(np.diag(deg) - a, rcond=1e-12)
+    di = np.diag(pinv)
+    return deg.sum() * (di[:, None] + di[None, :] - 2.0 * pinv)

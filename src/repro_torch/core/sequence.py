@@ -1,0 +1,183 @@
+"""Sequence engine: amortized CADDeLaG over a stream of T graph snapshots.
+
+Port of :mod:`repro.core.sequence` (resident snapshots).  Each snapshot's
+chain operator and embedding are built exactly once and reused as the left
+endpoint of the next transition; only two snapshots are live at a time.
+With ``donate=True`` the outgoing snapshot's device memory (its adjacency,
+embedding and chain matrices) is freed as soon as its last transition is
+scored -- callers must not touch a donated snapshot again.
+
+The sequence-wide top-k is merged on the host from each transition's
+top-k, ties to the lower candidate index as ``lax.top_k`` breaks them.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from repro_torch.core import chain
+from repro_torch.core.cad import CADResult, node_anomaly_scores, top_anomalies
+from repro_torch.core.embedding import CommuteConfig, Embedding, commute_time_embedding
+from repro_torch.device import resolve_device, synchronize
+from repro_torch.obs import REGISTRY, trace
+
+
+@dataclass
+class SequenceResult:
+    """Per-transition results plus the sequence-wide top-k (host numpy)."""
+
+    transitions: list[CADResult]  # transitions[t] scores snapshot t -> t+1
+    global_top_idx: np.ndarray
+    global_top_val: np.ndarray
+    global_top_step: np.ndarray  # transition index of each entry
+    n_snapshots: int
+    chain_builds: int
+    transition_seconds: list[float] = field(default_factory=list)
+    # Registry counter deltas per scored transition; warmup_metrics is the
+    # first push (embedding build only).
+    transition_metrics: list[dict] = field(default_factory=list)
+    warmup_metrics: dict | None = None
+
+
+def _free(t: torch.Tensor) -> None:
+    """Release a tensor's memory now, whoever else still holds it.
+
+    Memory PyTorch did not allocate (a tensor over a numpy array) belongs to
+    its owner and is left alone.
+    """
+    storage = t.untyped_storage()
+    if storage.resizable():
+        storage.resize_(0)
+
+
+class SequenceDetector:
+    """Streaming CADDeLaG over T snapshots with one chain build per snapshot.
+
+    ``det = SequenceDetector(cfg, top_k=20); res = det.run(snapshots)``, or
+    ``push`` each snapshot and ``finalize``.
+    """
+
+    def __init__(
+        self,
+        cfg: CommuteConfig | None = None,
+        *,
+        top_k: int = 10,
+        donate: bool = False,
+        device: str | torch.device = "cuda",
+    ):
+        self.cfg = cfg or CommuteConfig()
+        self.top_k = top_k
+        self.donate = donate
+        self.device = resolve_device(device)
+        self._prev: tuple[torch.Tensor, Embedding] | None = None
+        self._t = 0
+        self._transitions: list[CADResult] = []
+        self._seconds: list[float] = []
+        self._metrics: list[dict] = []
+        self._warmup_metrics: dict | None = None
+        self._builds0 = chain.chain_build_count()
+        self._g_val: np.ndarray | None = None
+        self._g_idx: np.ndarray | None = None
+        self._g_step: np.ndarray | None = None
+
+    def _merge_topk(self, idx: torch.Tensor, val: torch.Tensor, step: int) -> None:
+        """Merge one transition's top-k into the running global top-k, on host."""
+        idx = idx.cpu().numpy()
+        val = val.cpu().numpy()
+        step_arr = np.full_like(idx, step)
+        if self._g_val is None:
+            cand_val, cand_idx, cand_step = val, idx, step_arr
+        else:
+            cand_val = np.concatenate([self._g_val, val])
+            cand_idx = np.concatenate([self._g_idx, idx])
+            cand_step = np.concatenate([self._g_step, step_arr])
+        pos = np.argsort(-cand_val, kind="stable")[: self.top_k]
+        self._g_val = cand_val[pos]
+        self._g_idx = cand_idx[pos]
+        self._g_step = cand_step[pos]
+
+    def _release(self, a: torch.Tensor, emb: Embedding) -> None:
+        """Free the outgoing snapshot's device buffers (``donate=True`` only)."""
+        if not self.donate:
+            return
+        bufs = [a, emb.z]
+        if emb.op is not None:
+            bufs += [emb.op.p1, emb.op.p2]
+        for buf in bufs:
+            _free(buf)
+
+    def push(self, a: torch.Tensor) -> CADResult | None:
+        """Consume snapshot t; returns the CADResult of transition (t-1, t), None at t=0."""
+        t0 = time.perf_counter()
+        m0 = REGISTRY.snapshot()
+        a = a.to(self.device)
+        with trace.span("sequence.push", t=self._t) as push_sp:
+            warm_from = (
+                self._prev[1].z if (self.cfg.warm_start and self._prev is not None) else None
+            )
+            emb = commute_time_embedding(a, self.cfg, warm_from=warm_from, device=self.device)
+            out = None
+            if self._prev is not None:
+                a_prev, e_prev = self._prev
+                scores = node_anomaly_scores(a_prev, a, e_prev, emb)
+                idx, vals = top_anomalies(scores, self.top_k)
+                out = CADResult(scores=scores, top_idx=idx, top_val=vals,
+                                solve_reports=(e_prev.report, emb.report))
+                self._merge_topk(idx, vals, self._t - 1)  # host copy: waits for the scores
+                synchronize(scores)
+                self._transitions.append(out)
+                self._seconds.append(time.perf_counter() - t0)
+                self._metrics.append(REGISTRY.delta(m0))
+                self._release(a_prev, e_prev)
+            else:
+                self._warmup_metrics = REGISTRY.delta(m0)
+            push_sp.annotate(scored=out is not None)
+        self._prev = (a, emb)
+        self._t += 1
+        return out
+
+    def finalize(self) -> SequenceResult:
+        """Package per-transition results and the sequence-wide top-k.
+
+        T=1 gives an empty result; T=0 (nothing pushed) raises.
+        """
+        if self._t == 0:
+            raise ValueError(
+                "finalize() on an empty sequence: 0 snapshots were pushed "
+                "(scoring transitions needs at least 2)"
+            )
+        empty = not self._transitions
+        return SequenceResult(
+            transitions=self._transitions,
+            global_top_idx=np.zeros(0, np.int64) if empty else self._g_idx,
+            global_top_val=np.zeros(0, np.float32) if empty else self._g_val,
+            global_top_step=np.zeros(0, np.int64) if empty else self._g_step,
+            n_snapshots=self._t,
+            chain_builds=chain.chain_build_count() - self._builds0,
+            transition_seconds=self._seconds,
+            transition_metrics=self._metrics,
+            warmup_metrics=self._warmup_metrics,
+        )
+
+    def run(self, snapshots: Iterable[torch.Tensor]) -> SequenceResult:
+        """Consume an iterator of T snapshots, score all T-1 transitions."""
+        for a in snapshots:
+            self.push(a)
+        return self.finalize()
+
+
+def detect_sequence_anomalies(
+    snapshots: Iterable[torch.Tensor],
+    cfg: CommuteConfig | None = None,
+    *,
+    top_k: int = 10,
+    donate: bool = False,
+    device: str | torch.device = "cuda",
+) -> SequenceResult:
+    """One-shot convenience wrapper around :class:`SequenceDetector`."""
+    return SequenceDetector(cfg, top_k=top_k, donate=donate, device=device).run(snapshots)

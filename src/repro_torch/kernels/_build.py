@@ -1,0 +1,141 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+At first use every source is compiled with ``nvcc`` for ``sm_90a`` -- one
+``nvcc`` process per source, all started together -- and the objects are
+linked into one shared library with a plain C interface, loaded with
+``ctypes``.  The library is cached under ``build/repro_torch_kernels/`` (or
+``$REPRO_TORCH_BUILD_DIR``), keyed by a hash of the sources and flags, so a
+later process reuses it and an edited source rebuilds.  Nothing is built at
+import time: the CPU tests import every module without a compiler.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("block_matmul.cu", "edge_projection.cu", "cad_score.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
+SIGNATURES = {
+    "rt_block_matmul_f32": (_P, _P, _P, _I, _I, _I, _P),
+    "rt_block_matmul_bf16": (_P, _P, _P, _I, _I, _I, _P),
+    "rt_edge_projection": (_P, _P, _I, _I, _U, _I, _F, _P),
+    "rt_rademacher_field": (_P, _I, _I, _I, _I, _U, _I, _P),
+    "rt_cad_scores": (_P, _P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+BUILD_INFO: dict = {}  # path, seconds, cached, ptxas log of the loaded library
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(out: Path) -> str:
+    """Compile every source in parallel, link one .so at ``out``; returns the log."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        procs = []
+        for src in SOURCES:
+            obj = Path(tmp) / (src + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for src, _, proc in procs:
+            text, _ = proc.communicate()
+            log.append(f"== {src}\n{text}")
+            if proc.returncode != 0:
+                failed.append(src)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+        tmp_so = Path(tmp) / out.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+             *[str(obj) for _, obj, _ in procs], "-o", str(tmp_so)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_so, out)  # atomic: concurrent builders never see a torn file
+    return "\n".join(log)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        out_dir = build_dir()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        so = out_dir / f"librepro_torch_kernels_{_digest()}.so"
+        t0 = time.perf_counter()
+        cached = so.exists()
+        log = "" if cached else _compile(so)
+        lib = ctypes.CDLL(str(so))
+        for name, args in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_int
+        lib.rt_error_string.argtypes = [ctypes.c_int]
+        lib.rt_error_string.restype = ctypes.c_char_p
+        BUILD_INFO.update(path=str(so), seconds=time.perf_counter() - t0,
+                          cached=cached, log=log)
+        _lib = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a launch returned a CUDA error."""
+    if err != 0:
+        msg = library().rt_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err} ({msg})")
+
+
+def stream_handle(t) -> int:
+    """PyTorch's current stream on ``t``'s device, as a raw handle."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

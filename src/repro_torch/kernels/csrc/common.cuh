@@ -1,0 +1,51 @@
+// Shared helpers for the hand-written Hopper kernels of repro_torch.
+//
+// Every entry point is `extern "C"`, takes raw device pointers and the
+// caller's cudaStream_t, launches on that stream without synchronising,
+// and returns cudaGetLastError() so the Python wrapper can raise.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define RT_WARP 32
+
+// Deterministic warp sum: a fixed shuffle tree, lane 0 holds the result.
+__device__ __forceinline__ float rt_warp_sum(float v) {
+#pragma unroll
+  for (int off = RT_WARP / 2; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// splitmix32 counter hash, bit-identical to repro_torch.core.rng (and to the
+// JAX package's repro.core.rng): uint32_t arithmetic wraps natively.
+// ---------------------------------------------------------------------------
+
+#define RT_HASH_M1 0x7FEB352Du
+#define RT_HASH_M2 0x846CA68Bu
+#define RT_HASH_GOLD 0x9E3779B9u
+#define RT_HASH_INIT 0x243F6A88u
+
+__device__ __forceinline__ uint32_t rt_splitmix32(uint32_t h) {
+  h = (h ^ (h >> 16)) * RT_HASH_M1;
+  h = (h ^ (h >> 15)) * RT_HASH_M2;
+  return h ^ (h >> 16);
+}
+
+// One step of hash_u32: fold the next integer part into the state.
+__device__ __forceinline__ uint32_t rt_hash_fold(uint32_t h, uint32_t part) {
+  return rt_splitmix32(h ^ (part * RT_HASH_GOLD + RT_HASH_GOLD));
+}
+
+// hash_u32(seed, min(i,j), max(i,j)): the per-pair prefix of the edge hash.
+__device__ __forceinline__ uint32_t rt_pair_hash(uint32_t seed_state, uint32_t i, uint32_t j) {
+  uint32_t lo = i < j ? i : j;
+  uint32_t hi = i < j ? j : i;
+  return rt_hash_fold(rt_hash_fold(seed_state, lo), hi);
+}
+
+// Q_c[i, j] sign bit: true when the entry is -1 (top hash bit, flipped for i > j).
+__device__ __forceinline__ bool rt_rademacher_negative(uint32_t pair_state, uint32_t c, bool flip) {
+  return ((rt_hash_fold(pair_state, c) >> 31) != 0u) != flip;
+}

@@ -1,0 +1,156 @@
+"""The port's kernel plain versions against the Pallas kernels and repro.kernels.ref.
+
+The Pallas kernels run in interpret mode on the CPU, as tests/test_kernels.py
+runs them; tolerances are that file's.  The CUDA kernels themselves run only
+on the card (chip_smoke.py and tests/test_torch_cuda.py).
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch import kernels, resolve_device
+from repro_torch.kernels import block_matmul as bm
+from repro_torch.kernels import cad_score as cad
+from repro_torch.kernels import edge_projection as ep
+from repro_torch.kernels import ref as tref
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _arr(rng, shape, positive=False):
+    x = rng.normal(size=shape).astype(np.float32)
+    return np.abs(x) if positive else x
+
+
+@pytest.fixture(autouse=True)
+def _zero_counts():
+    kernels.reset_launch_counts()
+    yield
+    kernels.reset_launch_counts()
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 128, 128), (256, 384, 128), (120, 72, 40)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_matmul_plain_matches_pallas(m, k, n, dtype):
+    rng = np.random.default_rng(42)
+    a, b = _arr(rng, (m, k)), _arr(rng, (k, n))
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    ja, jb = jnp.asarray(a).astype(jdt), jnp.asarray(b).astype(jdt)
+    want = np.asarray(jops.block_matmul(ja, jb, bm=128, bk=128, bn=128, out_dtype=jnp.float32))
+    want_ref = np.asarray(jref.block_matmul(ja, jb, out_dtype=jnp.float32))
+    tdt = getattr(torch, dtype)
+    # the same (bf16-rounded) inputs on both sides
+    ta = torch.from_numpy(np.array(ja.astype(jnp.float32))).to(tdt)
+    tb = torch.from_numpy(np.array(jb.astype(jnp.float32))).to(tdt)
+    got = bm.block_matmul(ta, tb, out_dtype=torch.float32).numpy()
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol * 10)
+    np.testing.assert_allclose(got, want_ref, rtol=tol, atol=tol * 10)
+
+
+@pytest.mark.parametrize("n,k", [(128, 4), (192, 15), (96, 17)])
+def test_edge_projection_plain_matches_pallas(n, k):
+    a = _arr(np.random.default_rng(n), (n, n), positive=True)
+    want = np.asarray(jops.edge_projection(jnp.asarray(a), seed=3, k=k, bm=64, bn=64))
+    want_ref = np.asarray(jref.edge_projection(jnp.asarray(a), seed=3, k=k))
+    got = ep.edge_projection(torch.from_numpy(a), seed=3, k=k).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got, want_ref, rtol=1e-5, atol=1e-4)
+
+
+def test_edge_projection_plain_row_chunks_agree(monkeypatch):
+    """Working in row chunks (as on the card at n=10512) gives the same result."""
+    a = torch.from_numpy(_arr(np.random.default_rng(0), (80, 80), positive=True))
+    whole = tref.edge_projection(a, seed=9, k=6)
+    monkeypatch.setattr(tref, "_CHUNK_ELEMS", 80 * 6 * 7)  # 7-row chunks
+    np.testing.assert_array_equal(tref.edge_projection(a, seed=9, k=6).numpy(), whole.numpy())
+
+
+@pytest.mark.parametrize("n,k", [(128, 8), (96, 17)])
+def test_cad_scores_plain_matches_pallas(n, k):
+    rng = np.random.default_rng(7)
+    a1, a2 = _arr(rng, (n, n), positive=True), _arr(rng, (n, n), positive=True)
+    z1, z2 = _arr(rng, (n, k)), _arr(rng, (n, k))
+    v1, v2 = 10.0, 12.5
+    jargs = [jnp.asarray(x) for x in (a1, a2, z1, z2)]
+    want = np.asarray(jops.cad_scores(*jargs, jnp.float32(v1), jnp.float32(v2), bm=64, bn=64))
+    want_ref = np.asarray(jref.cad_scores(*jargs, jnp.float32(v1), jnp.float32(v2)))
+    targs = [torch.from_numpy(x) for x in (a1, a2, z1, z2)]
+    got = cad.cad_scores(*targs, torch.tensor(v1), torch.tensor(v2)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-2)
+    np.testing.assert_allclose(got, want_ref, rtol=1e-4, atol=1e-2)
+
+
+def test_cad_scores_tile_rectangular():
+    """The rectangular tile form sums the same rows as the square scorer."""
+    rng = np.random.default_rng(3)
+    n, k = 64, 9
+    a1, a2 = (torch.from_numpy(_arr(rng, (n, n), positive=True)) for _ in range(2))
+    z1, z2 = (torch.from_numpy(_arr(rng, (n, k))) for _ in range(2))
+    full = cad.cad_scores(a1, a2, z1, z2, 3.0, 4.0)
+    part = cad.cad_scores_tile(a1[16:40], a2[16:40], z1[16:40], z1, z2[16:40], z2, 3.0, 4.0)
+    np.testing.assert_allclose(part.numpy(), full[16:40].numpy(), rtol=1e-6, atol=1e-4)
+
+
+def test_cpu_tensors_take_the_plain_path():
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(_arr(rng, (32, 32), positive=True))
+    z = torch.from_numpy(_arr(rng, (32, 5)))
+    bm.block_matmul(a, a)
+    ep.edge_projection(a, seed=0, k=5)
+    cad.cad_scores(a, a, z, z, 1.0, 1.0)
+    assert kernels.launch_counts() == {"block_matmul": 0, "edge_projection": 0, "cad_scores": 0}
+
+
+def test_wrappers_reject_bad_inputs():
+    a = torch.zeros((8, 8))
+    with pytest.raises(ValueError):
+        bm.block_matmul(a, torch.zeros((7, 8)))
+    with pytest.raises(TypeError):
+        bm.block_matmul(a, a.double())
+    with pytest.raises(TypeError):
+        ep.edge_projection(a.double(), seed=0, k=3)
+    with pytest.raises(ValueError):
+        cad.cad_scores(a, a, torch.zeros((8, 3)), torch.zeros((8, 4)), 1.0, 1.0)
+
+
+def test_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    from repro_torch.core import detect_anomalies
+
+    a = torch.zeros((8, 8))
+    with pytest.raises(RuntimeError):
+        detect_anomalies(a, a)
+
+
+def test_port_imports_without_jax():
+    """Every repro_torch module imports with jax and the JAX package blocked."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "assert 'repro_torch.kernels.cad_score' in mods\n"
+        "assert 'repro_torch.launch.caddelag_run' in mods\n"
+        "print(len(mods))\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
