@@ -5,21 +5,35 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. the card's name and power limit (nvidia-smi), and the build of the three
-   CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a;
+1. the card's name and power limit (nvidia-smi), and the build of the CUDA
+   kernels from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a;
 2. each kernel held against its plain PyTorch version on the card at the
-   main path's shapes, twice for bitwise repeatability, and timed beside the
+   main paths' shapes, twice for bitwise repeatability (bf16-bit operands
+   also against the same kernel on host-decoded fp32; the row-panel forms
+   of ``edge_projection`` and ``cad_scores`` also against the same rows of
+   the whole-matrix call), and timed beside the
    plain version, the one-call PyTorch yardstick where there is one, and the
-   card's bound for the same work;
-3. the main path: ``SequenceDetector`` over the n=10512 climate sequence
-   (the 2.5-degree NCEP/NCAR Reanalysis 1 grid, 73 x 144), with the kernel
-   launch counts of that run alone;
+   card's bound for the same work; then the pinned host-to-device rate of
+   one out-of-core panel (the ``[h2d]`` line);
+3. the resident main path: ``SequenceDetector`` over the n=10512 climate
+   sequence (the 2.5-degree NCEP/NCAR Reanalysis 1 grid, 73 x 144), with
+   the kernel launch counts of that run alone;
 4. the same pipeline end to end at n=1536 on the card and on the CPU (plain
-   versions): equal top-20 ids and allclose scores.
+   versions): equal top-20 ids and allclose scores;
+5. the out-of-core main path: the same n=10512 sequence written to a tiled
+   on-disk store, scored from it with the chain's working matrices in a
+   host-RAM scratch store and the ``stream_gemm`` / ``fused_panel_matvec``
+   kernels; exact launch counts of that run alone, top-20 ids equal to
+   phase 3's, and the device residency bounds;
+6. the out-of-core pipeline at n=1536 with the bf16 tile codec, on the card
+   and on the CPU: equal top-20 ids and allclose scores.
 
-The line before the last is the JSON ``kernels`` table; the last line is
-``{"ok": true, "device": {...}}``.  It imports neither JAX nor the JAX
-package.  Long logs go to ``chiprun_out/``.
+The line before the last is the JSON ``kernels`` table (``launches`` sums
+the main paths of phases 3 and 5; ``launches_by_path`` splits them); the
+last line is ``{"ok": true, "device": {...}}``.  It imports neither JAX nor
+the JAX package.  Long logs go to ``OUT``, a gitignored directory beside
+the script; the on-disk store of phase 5 lives under ``build/`` and is
+removed at the end of the phase.
 """
 
 from __future__ import annotations
@@ -42,6 +56,11 @@ PEAK_BYTES = 3.35e12  # HBM3 bytes per second
 N_MAIN = 10512  # 73 x 144
 K_MAIN = 17  # ceil(ln(10512 / 1e-3))
 TOP_K = 20
+STORE_GRID = 16  # input store of the out-of-core path: 657-row panels
+PH_OOC = 1314  # its scratch panels (scratch grid 8)
+T_OOC = 3  # snapshots of the out-of-core main path
+CHAIN_GEMMS = 2 * (6 - 1) + 1  # d = 6: T and P per level, then P2
+REFINE_STEPS = 10 - 1  # q = 10
 
 
 def log(msg: str) -> None:
@@ -173,6 +192,19 @@ def phase_kernels(torch, rows: list) -> None:
         time_ms(torch, lambda: ep.edge_projection(a, seed=seed, k=k), reps=5),
         time_ms(torch, lambda: ref.edge_projection(a, seed=seed, k=k), reps=1),
         ops, n * n * 4.0 + n * k * 4.0, None, q_field_bitwise=True))
+    # a streamed panel of the input store hashes its global rows (row0 != 0)
+    r0, h = 5 * (n // STORE_GRID), n // STORE_GRID
+    panel = a[r0 : r0 + h].contiguous()
+    got = ep.edge_projection(panel, seed=seed, k=k, row0=r0)
+    err0, _ = check_close(f"edge_projection row0={r0}", got,
+                          ref.edge_projection(panel, seed=seed, k=k, row0=r0), tol)
+    if not torch.equal(got, ep.edge_projection(a, seed=seed, k=k)[r0 : r0 + h]):
+        fail(f"edge_projection: the panel at row0={r0} differs from the same rows of the "
+             f"resident call")
+    rows[-1]["row0_check"] = {"row0": r0, "rows": h, "max_abs_err": err0}
+    log(f"[kernels] edge_projection panel {h}x{n} at row0={r0}: max_abs_err {err0:.3e} "
+        f"(tol {tol:g} x max|plain|), bitwise equal to those rows of the resident call")
+    del panel, got
 
     # -- cad_scores at n=10512, k=17
     a2 = uniform(n, n)
@@ -189,9 +221,174 @@ def phase_kernels(torch, rows: list) -> None:
         time_ms(torch, lambda: cad.cad_scores(a, a2, z1, z2, v1, v2), reps=10),
         time_ms(torch, lambda: ref.cad_scores(a, a2, z1, z2, v1, v2), reps=3),
         float(n) * n * (4 * k + 12), 2.0 * n * n * 4 + 2 * n * k * 4 + n * 4, None))
+    # a streamed panel scores its rows (z_i a row slice of Z) against the whole Z
+    r0, h = 5 * (n // STORE_GRID), n // STORE_GRID
+    rs = slice(r0, r0 + h)
+    args = (a[rs], a2[rs], z1[rs], z1, z2[rs], z2, v1, v2)
+    got = cad.cad_scores_tile(*args)
+    err0, _ = check_close(f"cad_scores panel at row0={r0}", got, ref.cad_scores_tile(*args), tol)
+    check_bitwise(torch, "cad_scores panel", lambda: cad.cad_scores_tile(*args))
+    if not torch.equal(got, cad.cad_scores(a, a2, z1, z2, v1, v2)[rs]):
+        fail(f"cad_scores: the panel at row0={r0} differs from the same rows of the square call")
+    rows[-1]["panel_check"] = {"row0": r0, "rows": h, "max_abs_err": err0}
+    log(f"[kernels] cad_scores panel {h}x{n} at row0={r0}: max_abs_err {err0:.3e} "
+        f"(tol {tol:g} x max|plain|), bitwise equal to those rows of the square call")
 
 
-def phase_main_path(torch, rows: list) -> None:
+def host_bits(torch, x):
+    """The store's bf16 codec on the host: x's bf16 bits, as int16, on x's device."""
+    import numpy as np
+
+    from repro_torch.store.tilestore import _f32_to_bf16_u16
+
+    return torch.from_numpy(_f32_to_bf16_u16(x.cpu().numpy()).view(np.int16)).to(x.device)
+
+
+def host_decoded(torch, bits):
+    """bf16 bits decoded by the store's host codec, fp32 on the bits' device."""
+    import numpy as np
+
+    from repro_torch.store.tilestore import _bf16_u16_to_f32
+
+    return torch.from_numpy(_bf16_u16_to_f32(bits.cpu().numpy().view(np.uint16))).to(bits.device)
+
+
+def nbytes(*tensors) -> float:
+    return float(sum(t.numel() * t.element_size() for t in tensors if t is not None))
+
+
+def phase_stream_kernels(torch, rows: list) -> dict:
+    """stream_gemm and fused_panel_matvec at the out-of-core path's shapes,
+    then the pinned H2D / D2H rates of one panel.  Returns per-launch times
+    (ms) for the time split of phase 5."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import stream_gemm as sg
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    ph, n, k = PH_OOC, N_MAIN, K_MAIN
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=g, device=dev) * 2.0 - 1.0
+
+    blk, right, init, p1 = uniform(ph, ph), uniform(ph, n), uniform(ph, n), uniform(ph, n)
+    y = torch.randn((n, k), generator=g, device=dev)
+    blk_bits, right_bits, p1_bits = (host_bits(torch, t) for t in (blk, right, p1))
+
+    # -- stream_gemm: the chain's K step (the accumulator as init) and the chi build
+    tol = 2e-5
+    variants = []
+    cases = (
+        ("K step fp32, init, sign +1", blk, right, init, 1.0),
+        ("K step A bits, init, sign +1", blk_bits, right, init, 1.0),
+        ("K step B bits, init, sign +1", blk, right_bits, init, 1.0),
+        ("K step fp32, init, sign -1", blk, right, init, -1.0),
+        ("chi build fp32, no init", p1, y, None, 1.0),
+        ("chi build A bits, no init", p1_bits, y, None, 1.0),
+    )
+    for case, a, b, c0, sign in cases:
+        m_, k_ = a.shape
+        n_ = b.shape[1]
+        name = f"stream_gemm {case} ({m_}x{k_})@({k_}x{n_})"
+        got = sg.stream_gemm(a, b, c0, sign=sign)
+        err, scale = check_close(name, got, ref.stream_gemm(a, b, c0, sign=sign), tol)
+        check_bitwise(torch, name, lambda: sg.stream_gemm(a, b, c0, sign=sign))
+        bits = a.dtype == torch.int16 or b.dtype == torch.int16
+        if bits:
+            da = host_decoded(torch, a) if a.dtype == torch.int16 else a
+            db = host_decoded(torch, b) if b.dtype == torch.int16 else b
+            if not torch.equal(got, sg.stream_gemm(da, db, c0, sign=sign)):
+                fail(f"{name}: the in-kernel decode differs from the kernel on host-decoded fp32")
+        reps = 20
+        ms = time_ms(torch, lambda: sg.stream_gemm(a, b, c0, sign=sign), reps=reps)
+        plain = time_ms(torch, lambda: ref.stream_gemm(a, b, c0, sign=sign), reps=reps)
+        lib = None
+        if not bits:  # one PyTorch call computes the same function (TF32 is off)
+            if c0 is None:
+                lib = time_ms(torch, lambda: torch.mm(a, b), reps=reps)
+            else:
+                lib = time_ms(torch, lambda: torch.addmm(c0, a, b, alpha=sign), reps=reps)
+        bms, by = bound_ms(2.0 * m_ * k_ * n_, nbytes(a, b, c0) + m_ * n_ * 4.0)
+        variants.append(dict(case=case, shape=f"({m_}x{k_})@({k_}x{n_})", max_abs_err=err,
+                             max_abs_plain=scale, ms=ms, plain_ms=plain, library_ms=lib,
+                             bound_ms=bms, bound_by=by, decode_bitwise=bits or None))
+        lib_s = "" if lib is None else f", torch.{'mm' if c0 is None else 'addmm'} {lib:.3f} ms"
+        log(f"[kernels] {name}: max_abs_err {err:.3e} (tol {tol:g} x max|plain| {scale:.3e}), "
+            f"bitwise repeatable{', decode bitwise' if bits else ''}; {ms:.3f} ms, plain "
+            f"{plain:.3f} ms{lib_s}, bound {bms:.3f} ms ({by})")
+    acc = init.clone()  # the chain accumulates in place: out aliases init
+    sg.stream_gemm(blk, right, acc, out=acc)
+    if not torch.equal(acc, sg.stream_gemm(blk, right, init)):
+        fail("stream_gemm: the in-place K step (out=init) differs from the out-of-place one")
+    log("[kernels] stream_gemm K step in place (out=init, as the chain runs it): bitwise equal "
+        "to the out-of-place launch")
+    del acc
+    v0 = variants[0]
+    rows.append(kernel_row(
+        "stream_gemm", "stream_gemm.cu", "src/repro/kernels/stream_gemm.py:96",
+        v0["shape"] + " fp32 + init", (v0["max_abs_err"], v0["max_abs_plain"]), tol,
+        v0["ms"], v0["plain_ms"], 2.0 * ph * ph * n, nbytes(blk, right, init) + ph * n * 4.0,
+        v0["library_ms"], variants=variants))
+    del blk, right, init, blk_bits, right_bits
+
+    # -- fused_panel_matvec: one richardson iteration over a P2 row panel
+    tol = 1e-4
+    chi, yp = uniform(ph, k), uniform(ph, k)
+    fvars = []
+    for case, p in (("P fp32", p1), ("P bf16 bits", p1_bits)):
+        name = f"fused_panel_matvec {case} {ph}x{n}, q={k}"
+        got = sg.fused_panel_matvec(p, y, chi, yp)
+        want = ref.fused_panel_matvec(p, y, chi, yp)
+        errs = [check_close(f"{name} {part}", gt, wt, tol)
+                for part, gt, wt in zip(("gy", "colsum", "sumsq"), got, want)]
+        again = sg.fused_panel_matvec(p, y, chi, yp)
+        if not all(torch.equal(u, v) for u, v in zip(got, again)):
+            fail(f"{name}: two runs on the same input differ")
+        bits = p.dtype == torch.int16
+        if bits:
+            dec = sg.fused_panel_matvec(host_decoded(torch, p), y, chi, yp)
+            if not all(torch.equal(u, v) for u, v in zip(got, dec)):
+                fail(f"{name}: the in-kernel decode differs from the kernel on host-decoded fp32")
+        ms = time_ms(torch, lambda: sg.fused_panel_matvec(p, y, chi, yp), reps=50)
+        plain = time_ms(torch, lambda: ref.fused_panel_matvec(p, y, chi, yp), reps=20)
+        moved = nbytes(p, y, chi, yp) + ph * k * 4.0 + (k + 1) * 4.0
+        bms, by = bound_ms(2.0 * ph * n * k + 5.0 * ph * k, moved)
+        fvars.append(dict(case=case, max_abs_err=errs[0][0], max_abs_plain=errs[0][1],
+                          colsum_err=errs[1][0], sumsq_err=errs[2][0], ms=ms, plain_ms=plain,
+                          bound_ms=bms, bound_by=by, decode_bitwise=bits or None))
+        log(f"[kernels] {name}: max_abs_err gy {errs[0][0]:.3e}, colsum {errs[1][0]:.3e}, "
+            f"sumsq {errs[2][0]:.3e} (tol {tol:g} x max|plain| each), bitwise repeatable"
+            f"{', decode bitwise' if bits else ''}; {ms:.3f} ms, plain {plain:.3f} ms, "
+            f"bound {bms:.3f} ms ({by})")
+    f0 = fvars[0]
+    rows.append(kernel_row(
+        "fused_panel_matvec", "stream_gemm.cu", "src/repro/kernels/stream_gemm.py:189",
+        f"P {ph}x{n} fp32, y {n}x{k}", (f0["max_abs_err"], f0["max_abs_plain"]), tol,
+        f0["ms"], f0["plain_ms"], 2.0 * ph * n * k + 5.0 * ph * k,
+        nbytes(p1, y, chi, yp) + ph * k * 4.0 + (k + 1) * 4.0, None, variants=fvars))
+
+    # -- the panel's trip: pinned H2D (the pipeline's path), D2H of an output panel
+    h2d = {}
+    for label, dt in (("fp32", torch.float32), ("bf16 bits", torch.int16)):
+        host = torch.zeros((ph, n), dtype=dt, pin_memory=True)
+        dbuf = torch.empty((ph, n), dtype=dt, device=dev)
+        ms = time_ms(torch, lambda: dbuf.copy_(host, non_blocking=True), reps=10)
+        h2d[f"h2d_pinned_{label}"] = dict(mb=nbytes(host) / 1e6, ms=ms,
+                                           gb_s=nbytes(host) / ms / 1e6)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        p1.cpu()  # pageable, as _write_panel brings each output panel back
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    h2d["d2h_pageable_fp32"] = dict(mb=nbytes(p1) / 1e6, ms=ms, gb_s=nbytes(p1) / ms / 1e6)
+    f32, b16, d2h = h2d["h2d_pinned_fp32"], h2d["h2d_pinned_bf16 bits"], h2d["d2h_pageable_fp32"]
+    log(f"[h2d] pinned host->device, one {ph}x{n} panel: fp32 {f32['mb']:.1f} MB in "
+        f"{f32['ms']:.3f} ms ({f32['gb_s']:.1f} GB/s), bf16 bits {b16['mb']:.1f} MB in "
+        f"{b16['ms']:.3f} ms ({b16['gb_s']:.1f} GB/s); device->pageable host (.cpu() of an "
+        f"output panel) {d2h['ms']:.3f} ms ({d2h['gb_s']:.1f} GB/s)")
+    return {"kstep_ms": v0["ms"], "chi_ms": variants[4]["ms"], "matvec_ms": f0["ms"], **h2d}
+
+
+def phase_main_path(torch) -> dict:
     from repro_torch import kernels
     from repro_torch.core import CommuteConfig, SequenceDetector
     from repro_torch.graphs import climate_snapshot_sequence
@@ -214,11 +411,10 @@ def phase_main_path(torch, rows: list) -> None:
     disable_tracing()
     peak = torch.cuda.max_memory_allocated() / 1e9
 
-    want = {"block_matmul": 3 * (2 * (cfg.d - 1) + 1), "edge_projection": 3, "cad_scores": 2}
+    want = {"block_matmul": 3 * CHAIN_GEMMS, "edge_projection": 3, "cad_scores": 2,
+            "stream_gemm": 0, "fused_panel_matvec": 0}
     if counts != want:
         fail(f"main-path launch counts {counts} != {want}")
-    for row in rows:
-        row["launches"] = counts[row["name"]]
     event = set(seq.event_nodes.tolist())
 
     def phases(met: dict) -> str:
@@ -238,11 +434,36 @@ def phase_main_path(torch, rows: list) -> None:
     log(f"[main] n={N_MAIN} T=3 d={cfg.d} q={cfg.q} k={K_MAIN}: run wall {wall:.3f} s; "
         f"chain builds {res.chain_builds}; launches {counts}; peak device memory {peak:.2f} GB; "
         f"sequence top-{TOP_K} in event region {g_hits}/{TOP_K}")
+    return {"counts": counts, "peak": peak, "wall": wall,
+            "scores": [r.scores.cpu().numpy() for r in res.transitions],
+            "top_idx": [r.top_idx.tolist() for r in res.transitions]}
+
+
+def check_card_vs_cpu(tag: str, gpu, cpu) -> None:
+    """Equal top-20 ids (per transition and sequence-wide), scores within 1e-3."""
+    import numpy as np
+
+    rtol = 1e-3
+    for t, (rg, rc) in enumerate(zip(gpu.transitions, cpu.transitions)):
+        sg, sc = rg.scores.cpu().numpy(), rc.scores.cpu().numpy()
+        err = float(np.abs(sg - sc).max())
+        scale = float(np.abs(sc).max())
+        if not np.isfinite(sg).all() or err > rtol * scale:
+            fail(f"{tag} transition {t}: card vs CPU max |diff| {err:.3e} > {rtol:g} x "
+                 f"max score {scale:.3e}")
+        if rg.top_idx.tolist() != rc.top_idx.tolist():
+            fail(f"{tag} transition {t}: top-{TOP_K} ids differ: {rg.top_idx.tolist()} "
+                 f"vs {rc.top_idx.tolist()}")
+        srt = np.sort(sc)[::-1]
+        log(f"[e2e] {tag} transition {t}: card vs CPU max |diff| {err:.3e} (tol {rtol:g} x "
+            f"max score {scale:.3e}); top-{TOP_K} ids equal; score gap at rank {TOP_K} "
+            f"{srt[TOP_K - 1] - srt[TOP_K]:.3e}")
+    if gpu.global_top_idx.tolist() != cpu.global_top_idx.tolist():
+        fail(f"{tag}: sequence-wide top-{TOP_K} ids differ between card and CPU")
+    log(f"[e2e] {tag} sequence-wide top-{TOP_K} ids equal on card and CPU")
 
 
 def phase_end_to_end(torch) -> None:
-    import numpy as np
-
     from repro_torch.core import CommuteConfig, SequenceDetector
     from repro_torch.graphs import climate_snapshot_sequence
 
@@ -251,25 +472,145 @@ def phase_end_to_end(torch) -> None:
     for dev in ("cuda", "cpu"):
         seq = climate_snapshot_sequence(32, 48, t_steps=3, device=dev)
         out[dev] = SequenceDetector(cfg, top_k=TOP_K, device=dev).run(seq.snapshots())
-    gpu, cpu = out["cuda"], out["cpu"]
-    rtol = 1e-3
-    for t, (rg, rc) in enumerate(zip(gpu.transitions, cpu.transitions)):
-        sg, sc = rg.scores.cpu().numpy(), rc.scores.cpu().numpy()
-        err = float(np.abs(sg - sc).max())
-        scale = float(np.abs(sc).max())
-        if not np.isfinite(sg).all() or err > rtol * scale:
-            fail(f"n=1536 transition {t}: card vs CPU max |diff| {err:.3e} > {rtol:g} x "
-                 f"max score {scale:.3e}")
-        if rg.top_idx.tolist() != rc.top_idx.tolist():
-            fail(f"n=1536 transition {t}: top-{TOP_K} ids differ: {rg.top_idx.tolist()} "
-                 f"vs {rc.top_idx.tolist()}")
-        srt = np.sort(sc)[::-1]
-        log(f"[e2e] n=1536 transition {t}: card vs CPU max |diff| {err:.3e} (tol {rtol:g} x "
-            f"max score {scale:.3e}); top-{TOP_K} ids equal; score gap at rank {TOP_K} "
-            f"{srt[TOP_K - 1] - srt[TOP_K]:.3e}")
-    if gpu.global_top_idx.tolist() != cpu.global_top_idx.tolist():
-        fail("n=1536: sequence-wide top-20 ids differ between card and CPU")
-    log(f"[e2e] n=1536 sequence-wide top-{TOP_K} ids equal on card and CPU")
+    check_card_vs_cpu("n=1536", out["cuda"], out["cpu"])
+
+
+def phase_oocore(torch, rows: list, resident: dict, per: dict) -> dict:
+    """The out-of-core main path at n=10512, raw codec, host-RAM scratch, kernels on."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.core import CommuteConfig, SequenceDetector, reset_stream_stats, stream_stats
+    from repro_torch.graphs import climate_snapshot_sequence, store_snapshot_sequence
+    from repro_torch.obs import REGISTRY, disable_tracing, enable_tracing
+    from repro_torch.store import TileStore
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_store_", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        seq = climate_snapshot_sequence(73, 144, t_steps=T_OOC, device="cuda")
+        store = TileStore.create(tmp, n=N_MAIN, grid=STORE_GRID, codec="raw")
+        ids = store_snapshot_sequence(store, seq)
+        event = set(seq.event_nodes.tolist())
+        del seq
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[oocore] wrote {T_OOC} snapshots of n={N_MAIN} into a raw {STORE_GRID}x{STORE_GRID} "
+            f"tile store on disk ({T_OOC * store.snapshot_nbytes / 1e9:.2f} GB) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        cfg = CommuteConfig(eps_rp=1e-3, d=6, q=10, oocore=True, use_gemm_kernel=True)
+        det = SequenceDetector(cfg, top_k=TOP_K, device="cuda")
+        handles = [store.snapshot(i) for i in ids]
+        enable_tracing(fence=True)  # phase seconds are device walls
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_stream_stats()
+        m0 = REGISTRY.snapshot()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = det.run(handles)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        disable_tracing()
+        met = REGISTRY.delta(m0)
+        st = stream_stats().snapshot()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    g = N_MAIN // PH_OOC
+    want = {"block_matmul": 0, "edge_projection": T_OOC * STORE_GRID,
+            "cad_scores": (T_OOC - 1) * STORE_GRID,
+            "stream_gemm": T_OOC * (CHAIN_GEMMS * g * g + g),
+            "fused_panel_matvec": T_OOC * REFINE_STEPS * g}
+    if counts != want:
+        fail(f"out-of-core launch counts {counts} != {want}")
+    for t, r in enumerate(res.transitions):
+        s = r.scores.cpu().numpy()
+        s_res = resident["scores"][t]
+        if s.shape != (N_MAIN,) or not np.isfinite(s).all():
+            fail(f"out-of-core transition {t}: scores not finite of shape ({N_MAIN},)")
+        err = float(np.abs(s - s_res).max())
+        scale = float(np.abs(s_res).max())
+        if err > 1e-3 * scale:
+            fail(f"out-of-core transition {t}: max |diff| to the resident run {err:.3e} > "
+                 f"1e-3 x max score {scale:.3e}")
+        if r.top_idx.tolist() != resident["top_idx"][t]:
+            fail(f"out-of-core transition {t}: top-{TOP_K} ids {r.top_idx.tolist()} != resident "
+                 f"{resident['top_idx'][t]}")
+        srt = np.sort(s_res)[::-1]
+        its = "+".join(str(rep.iterations) for rep in r.solve_reports)
+        hits = len(set(r.top_idx.tolist()) & event)
+        log(f"[oocore] transition {t}->{t + 1}: {res.transition_seconds[t]:.3f} s; solver its "
+            f"{its}; max |diff| to the resident run {err:.3e} (tol 1e-3 x max score "
+            f"{scale:.3e}); top-{TOP_K} ids equal to the resident run's; score gap at rank "
+            f"{TOP_K} {srt[TOP_K - 1] - srt[TOP_K]:.3e}; top-{TOP_K} in event region "
+            f"{hits}/{TOP_K}")
+    live_cap = 4 * PH_OOC * N_MAIN * 4
+    if st["peak_live_bytes"] > live_cap:
+        fail(f"stream.peak_live_bytes {st['peak_live_bytes']} > 4 panels ({live_cap})")
+    if peak > 0.25 * resident["peak"]:
+        fail(f"out-of-core peak device memory {peak:.3f} GB > 25% of the resident run's "
+             f"{resident['peak']:.3f} GB")
+
+    # Where the time goes.  Host-clock counters of the run, and two estimates
+    # from phase 2: kernel time = launches x per-launch time, H2D time =
+    # bytes_h2d / the pinned rate of one panel.
+    ms_full = {r["name"]: r["ms"] for r in rows}
+    kern_s = ((counts["stream_gemm"] - T_OOC * g) * per["kstep_ms"] + T_OOC * g * per["chi_ms"]
+              + counts["fused_panel_matvec"] * per["matvec_ms"]
+              + (counts["edge_projection"] * ms_full["edge_projection"]
+                 + counts["cad_scores"] * ms_full["cad_scores"]) / STORE_GRID) / 1e3
+    h2d_s = st["bytes_h2d"] / (per["h2d_pinned_fp32"]["gb_s"] * 1e9)
+    split = {
+        "run_wall_s": wall,
+        **{f"phase_{p}_s": met.get(f"phase.{p}.seconds", 0.0)
+           for p in ("chain", "ingest", "solve", "score")},
+        "d2h_and_sync_wait_s": met.get("oochain.d2h_seconds", 0.0),
+        "store_write_s": met.get("oochain.store_write_seconds", 0.0),
+        "pinned_staging_copy_s": met.get("pipeline.pin_copy_seconds", 0.0),
+        "producer_fetch_s": met.get("pipeline.producer_fetch_seconds", 0.0),
+        "consumer_wait_s": met.get("pipeline.consumer_wait_seconds", 0.0),
+        "kernels_est_s": kern_s,
+        "h2d_est_s": h2d_s,
+    }
+    log(f"[oocore] n={N_MAIN} T={T_OOC} d={cfg.d} q={cfg.q} k={K_MAIN}, store grid "
+        f"{STORE_GRID}, scratch panels {PH_OOC} rows (host RAM, raw): run wall {wall:.3f} s; "
+        f"launches {counts}; peak device memory {peak:.3f} GB ({peak / resident['peak']:.1%} of "
+        f"the resident run's {resident['peak']:.2f} GB); stream.peak_live_bytes "
+        f"{st['peak_live_bytes'] / 1e6:.1f} MB (cap {live_cap / 1e6:.1f} MB)")
+    log(f"[oocore] stream bytes: read {st['bytes_read'] / 1e9:.2f} GB from the stores, decoded "
+        f"{st['bytes_decoded'] / 1e9:.2f} GB, H2D {st['bytes_h2d'] / 1e9:.2f} GB in "
+        f"{st['panels']} panels ({st['bytes_h2d_saved'] / 1e9:.2f} GB saved by stored-form "
+        f"shipping)")
+    log("[oocore] time split (s, host clock unless marked): " + ", ".join(
+        f"{k[:-2]} {v:.3f}" for k, v in split.items())
+        + " (kernels_est and h2d_est are estimates from phase 2's per-launch times and pinned "
+          "rate; d2h_and_sync_wait includes the wait for the kernels and copies queued before "
+          "each .cpu(); producer_fetch runs on the prefetch thread, overlapped)")
+    return {"counts": counts, "wall": wall, "peak_gb": peak, "stream": st, "split": split}
+
+
+def phase_oocore_end_to_end(torch) -> None:
+    """The out-of-core pipeline at n=1536 with the bf16 codec: card against CPU."""
+    from repro_torch.core import CommuteConfig, SequenceDetector
+    from repro_torch.graphs import climate_snapshot_sequence, store_snapshot_sequence
+    from repro_torch.store import TileStore
+
+    cfg = CommuteConfig(eps_rp=1e-3, d=6, q=10, oocore=True, tile_codec="bf16",
+                        use_gemm_kernel=True)
+    store = TileStore.create(None, n=1536, grid=STORE_GRID, codec="bf16")
+    ids = store_snapshot_sequence(store, climate_snapshot_sequence(32, 48, t_steps=3,
+                                                                   device="cpu"))
+    out = {dev: SequenceDetector(cfg, top_k=TOP_K, device=dev).run(store.snapshot(i) for i in ids)
+           for dev in ("cuda", "cpu")}
+    check_card_vs_cpu("out-of-core bf16 n=1536", out["cuda"], out["cpu"])
 
 
 def main() -> int:
@@ -310,8 +651,20 @@ def main() -> int:
 
     rows: list = []
     phase_kernels(torch, rows)
-    phase_main_path(torch, rows)
+    per_launch = phase_stream_kernels(torch, rows)
+    torch.cuda.empty_cache()
+    resident = phase_main_path(torch)
+    torch.cuda.empty_cache()
     phase_end_to_end(torch)
+    oocore = phase_oocore(torch, rows, resident, per_launch)
+    phase_oocore_end_to_end(torch)
+    for row in rows:
+        by_path = {"resident": resident["counts"][row["name"]],
+                   "oocore": oocore["counts"][row["name"]]}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
+    (OUT / "chip_smoke_oocore.json").write_text(json.dumps(
+        {"card": smi, "per_launch": per_launch, **oocore}, indent=1))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -20,6 +20,7 @@ from repro_torch.core.embedding import (
 )
 from repro_torch.core.sequence import SequenceDetector, SequenceResult, detect_sequence_anomalies
 from repro_torch.core.solvers import SolveReport, SolverSpec, estimate_rho, solve
+from repro_torch.core.tiles import is_streamable, reset_stream_stats, stream_stats, tile_stream
 
 __all__ = [
     "CADResult",
@@ -42,10 +43,14 @@ __all__ = [
     "edge_projection",
     "estimate_rho",
     "exact_commute_distances",
+    "is_streamable",
     "matmul",
     "matmul_rowblock",
     "node_anomaly_scores",
+    "reset_stream_stats",
     "solve",
+    "stream_stats",
+    "tile_stream",
     "top_anomalies",
     "validate_node_indices",
 ]

@@ -4,7 +4,8 @@ Single-device counterpart of :mod:`repro.core.distmatrix`.  There is no mesh
 here: ``schedule`` is accepted for symmetry with the JAX package and
 ignored.  :func:`matmul` runs the hand-written fp32 CUDA GEMM for CUDA
 tensors (its plain version for CPU tensors); :func:`matmul_rowblock`, the
-solver's skinny mat-vec, is a plain product in both packages.
+solver's skinny mat-vec, is a plain product in both packages, per row panel
+when the matrix streams from a store.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core.tiles import is_streamable, tile_stream
 from repro_torch.kernels import block_matmul as _bm
 
 SCHEDULES = ("xla", "summa", "cannon")
@@ -31,9 +33,23 @@ def matmul(
     return _bm.block_matmul(a, b, out_dtype=out_dtype or a.dtype)
 
 
-def matmul_rowblock(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """(n x n) @ (n x k) with k << n, fp32 accumulation: the solver mat-vec."""
-    return torch.matmul(m, x.to(torch.float32)).to(x.dtype)
+def _rowblock_body(r0: int, blk: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(blk.to(torch.float32), x)
+
+
+def matmul_rowblock(m, x: torch.Tensor, *, prefetch_depth: int | None = None) -> torch.Tensor:
+    """(n x n) @ (n x k) with k << n, fp32 accumulation: the solver mat-vec.
+
+    ``m`` may be a snapshot handle (an out-of-core P1 / P2): its row panels
+    then stream onto ``x``'s device, so the operator is never resident.
+    """
+    xf = x.to(torch.float32)
+    if is_streamable(m):
+        out = tile_stream(_rowblock_body, m, device=x.device, consts=(xf,),
+                          prefetch_depth=prefetch_depth)
+    else:
+        out = _rowblock_body(0, m, xf)
+    return out.to(x.dtype)
 
 
 def add_scaled_identity(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Commute-time embedding (paper Algorithm 3, CommuteTimeEmbedding).
 
-Port of :mod:`repro.core.embedding` (resident fields).  For j = 1..k_RP,
+Port of :mod:`repro.core.embedding`.  For j = 1..k_RP,
 y_j = B^T W^{1/2} q_j is the edge-space Rademacher projection (the
 ``edge_projection`` CUDA kernel regenerates q from the counter hash and
 reads only A); the chain solve gives z_j with L z_j = y_j, and
@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core.chain import ChainOperator, chain_product
 from repro_torch.core.solvers import SolveReport, SolverSpec, solve
+from repro_torch.core.tiles import is_streamable, tile_stream
 from repro_torch.device import resolve_device
 from repro_torch.kernels import edge_projection as _ep
 from repro_torch.obs import REGISTRY, phase
@@ -37,6 +38,19 @@ class CommuteConfig:
     deflate: bool = True
     fuse_l: bool = False
     k_override: int | None = None  # force the embedding width (tests/ablations)
+    # Out-of-core chain: S/T/P/P1/P2 spill through a TileStore scratch, so the
+    # chain build and the solve hold a few row panels on the card, not n^2.
+    oocore: bool = False
+    oocore_dir: str | None = None  # scratch dir; None = host-RAM scratch
+    oocore_panel_rows: int | None = None  # override the streaming unit
+    # Panel I/O: staging depth of the prefetch thread, scratch tile codec
+    # (raw / bf16 / zstd), and solver iterations per store read of P2.
+    prefetch_depth: int = 2
+    tile_codec: str = "raw"
+    solver_batch: int = 1
+    # stream_gemm / fused_panel_matvec kernels for the out-of-core GEMMs and
+    # the streamed solve (panels ship in stored form).
+    use_gemm_kernel: bool = False
     solver: str = "richardson"  # "richardson" | "chebyshev" | "cg"
     solver_tol: float | None = None
     solver_max_iters: int | None = None
@@ -57,9 +71,21 @@ class CommuteConfig:
         )
 
 
-def edge_projection(a: torch.Tensor, seed: int, k: int) -> torch.Tensor:
-    """Y = B^T W^{1/2} Q / sqrt(k) for k Rademacher columns, (n, k)."""
-    return _ep.edge_projection(a.to(torch.float32), seed=seed, k=k)
+def _edge_projection_body(r0: int, blk: torch.Tensor, seed: int, k: int) -> torch.Tensor:
+    return _ep.edge_projection(blk.to(torch.float32).contiguous(), seed=seed, k=k, row0=r0)
+
+
+def edge_projection(a, seed: int, k: int, *, device=None,
+                    prefetch_depth: int | None = None) -> torch.Tensor:
+    """Y = B^T W^{1/2} Q / sqrt(k) for k Rademacher columns, (n, k).
+
+    ``a`` may be a snapshot handle: its row panels then stream onto
+    ``device``, one kernel launch per panel at the panel's global rows.
+    """
+    if is_streamable(a):
+        return tile_stream(_edge_projection_body, a, device=device, consts=(seed, k),
+                           prefetch_depth=prefetch_depth)
+    return _edge_projection_body(0, a, seed, k)
 
 
 @dataclass
@@ -80,22 +106,28 @@ def commute_time_embedding(
 ) -> Embedding:
     """Z (n, k_RP) commute-time embedding of ``a`` (Algorithm 3), on ``device``.
 
-    ``warm_from`` is a previous embedding's ``z``: the solver starts from it
-    instead of the cold start.  A shape mismatch warns, is counted in
-    ``solve.warm_skipped`` and solves cold.
+    ``a`` is a tensor or a snapshot handle; a handle's row panels stream
+    onto the device.  ``warm_from`` is a previous embedding's ``z``: the
+    solver starts from it instead of the cold start.  A shape mismatch
+    warns, is counted in ``solve.warm_skipped`` and solves cold.
     """
-    a = a.to(resolve_device(device))
+    dev = resolve_device(device)
+    if not is_streamable(a):
+        a = a.to(dev)
     n = int(a.shape[0])
     k = cfg.k_rp(n)
     if op is None:
-        with phase("chain", n=n, d=cfg.d) as sp:
+        with phase("chain", n=n, d=cfg.d, oocore=cfg.oocore) as sp:
             op = chain_product(
                 a, cfg.d, schedule=cfg.schedule, dtype=cfg.dtype,
-                deflate=cfg.deflate, fuse_l=cfg.fuse_l,
+                deflate=cfg.deflate, fuse_l=cfg.fuse_l, oocore=cfg.oocore,
+                oocore_work=cfg.oocore_dir, oocore_panel_rows=cfg.oocore_panel_rows,
+                tile_codec=cfg.tile_codec, prefetch_depth=cfg.prefetch_depth,
+                use_gemm_kernel=cfg.use_gemm_kernel, device=dev,
             )
-            sp.fence(op.p2)
+            sp.fence(op.vol)
     with phase("ingest", n=n, k=k) as sp:
-        y = edge_projection(a, cfg.seed, k)
+        y = edge_projection(a, cfg.seed, k, device=dev, prefetch_depth=cfg.prefetch_depth)
         sp.fence(y)
     y0 = None
     if warm_from is not None:
@@ -111,7 +143,8 @@ def commute_time_embedding(
             )
     with phase("solve", n=n, k=k, method=cfg.solver, warm=y0 is not None) as sp:
         z, report = solve(
-            op, y, cfg.solver_spec(), fixed_q=cfg.q, deflate=cfg.deflate, y0=y0
+            op, y, cfg.solver_spec(), fixed_q=cfg.q, deflate=cfg.deflate,
+            solver_batch=cfg.solver_batch, prefetch_depth=cfg.prefetch_depth, y0=y0,
         )
         sp.fence(z)
     return Embedding(z=z, vol=op.vol, op=op, report=report)

@@ -10,10 +10,23 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.tiles import is_streamable, tile_stream
 
-def degrees(a: torch.Tensor) -> torch.Tensor:
-    """d = A @ 1."""
-    return a.to(torch.float32).sum(dim=1)
+
+def _degrees_body(r0: int, blk: torch.Tensor) -> torch.Tensor:
+    return blk.to(torch.float32).sum(dim=1)
+
+
+def degrees(a, *, device=None, prefetch_depth: int | None = None) -> torch.Tensor:
+    """d = A @ 1.
+
+    ``a`` is a resident tensor or a snapshot handle; a handle streams its
+    row panels onto ``device`` (row sums are row-parallel, so the result is
+    the resident one).
+    """
+    if is_streamable(a):
+        return tile_stream(_degrees_body, a, device=device, prefetch_depth=prefetch_depth)
+    return _degrees_body(0, a)
 
 
 def volume(deg: torch.Tensor) -> torch.Tensor:

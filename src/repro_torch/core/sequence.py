@@ -1,11 +1,14 @@
 """Sequence engine: amortized CADDeLaG over a stream of T graph snapshots.
 
-Port of :mod:`repro.core.sequence` (resident snapshots).  Each snapshot's
-chain operator and embedding are built exactly once and reused as the left
-endpoint of the next transition; only two snapshots are live at a time.
-With ``donate=True`` the outgoing snapshot's device memory (its adjacency,
-embedding and chain matrices) is freed as soon as its last transition is
-scored -- callers must not touch a donated snapshot again.
+Port of :mod:`repro.core.sequence`.  Each snapshot's chain operator and
+embedding are built exactly once and reused as the left endpoint of the next
+transition; only two snapshots are live at a time.  A snapshot is a device
+tensor or a store-backed snapshot handle (streamed, never resident).  An
+out-of-core operator's scratch P1 / P2 are removed as the operator leaves
+the two-snapshot window.  With ``donate=True`` the outgoing snapshot's
+device memory (its adjacency, embedding and chain matrices) is freed as soon
+as its last transition is scored -- callers must not touch a donated
+snapshot again.
 
 The sequence-wide top-k is merged on the host from each transition's
 top-k, ties to the lower candidate index as ``lax.top_k`` breaks them.
@@ -23,6 +26,7 @@ import torch
 from repro_torch.core import chain
 from repro_torch.core.cad import CADResult, node_anomaly_scores, top_anomalies
 from repro_torch.core.embedding import CommuteConfig, Embedding, commute_time_embedding
+from repro_torch.core.tiles import is_streamable
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.obs import REGISTRY, trace
 
@@ -101,21 +105,28 @@ class SequenceDetector:
         self._g_idx = cand_idx[pos]
         self._g_step = cand_step[pos]
 
-    def _release(self, a: torch.Tensor, emb: Embedding) -> None:
-        """Free the outgoing snapshot's device buffers (``donate=True`` only)."""
+    def _release(self, a, emb: Embedding) -> None:
+        """Retire the outgoing snapshot: its out-of-core scratch always, its
+        device buffers with ``donate=True`` (store handles are the user's
+        data and are left alone)."""
+        if emb.op is not None:
+            emb.op.release_scratch()
         if not self.donate:
             return
         bufs = [a, emb.z]
         if emb.op is not None:
             bufs += [emb.op.p1, emb.op.p2]
         for buf in bufs:
-            _free(buf)
+            if isinstance(buf, torch.Tensor):
+                _free(buf)
 
-    def push(self, a: torch.Tensor) -> CADResult | None:
-        """Consume snapshot t; returns the CADResult of transition (t-1, t), None at t=0."""
+    def push(self, a) -> CADResult | None:
+        """Consume snapshot t (a tensor or a snapshot handle); returns the
+        CADResult of transition (t-1, t), None at t=0."""
         t0 = time.perf_counter()
         m0 = REGISTRY.snapshot()
-        a = a.to(self.device)
+        if not is_streamable(a):
+            a = a.to(self.device)
         with trace.span("sequence.push", t=self._t) as push_sp:
             warm_from = (
                 self._prev[1].z if (self.cfg.warm_start and self._prev is not None) else None
@@ -124,7 +135,8 @@ class SequenceDetector:
             out = None
             if self._prev is not None:
                 a_prev, e_prev = self._prev
-                scores = node_anomaly_scores(a_prev, a, e_prev, emb)
+                scores = node_anomaly_scores(a_prev, a, e_prev, emb,
+                                             prefetch_depth=self.cfg.prefetch_depth)
                 idx, vals = top_anomalies(scores, self.top_k)
                 out = CADResult(scores=scores, top_idx=idx, top_val=vals,
                                 solve_reports=(e_prev.report, emb.report))
@@ -164,7 +176,7 @@ class SequenceDetector:
             warmup_metrics=self._warmup_metrics,
         )
 
-    def run(self, snapshots: Iterable[torch.Tensor]) -> SequenceResult:
+    def run(self, snapshots: Iterable) -> SequenceResult:
         """Consume an iterator of T snapshots, score all T-1 transitions."""
         for a in snapshots:
             self.push(a)

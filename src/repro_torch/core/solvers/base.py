@@ -80,3 +80,7 @@ class SolveReport:
     residuals: tuple = ()  # per-iteration residual series
     rho_final: float | None = None  # Chebyshev interval after adaptation
     warm_start: bool = False
+    streamed: bool = False  # P1 / P2 were store-backed (out-of-core solve)
+    bytes_read: int = 0  # scratch bytes served during the solve
+    panels: int = 0  # panels staged during the solve
+    bytes_h2d: int = 0  # host-to-device bytes staged during the solve

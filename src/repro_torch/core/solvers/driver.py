@@ -1,11 +1,22 @@
-"""Solve driver for a resident chain operator: richardson, chebyshev, cg.
+"""Solve driver for a chain operator: richardson, chebyshev, cg.
 
-Port of the resident branch of :mod:`repro.core.solvers.driver`.  JAX's
+Port of :mod:`repro.core.solvers.driver`.  Resident operators: JAX's
 ``lax.while_loop`` becomes a Python loop with the same
 ``k < max_steps and res > tol`` condition; the residual comes to the host
 once per step (one small sync), and the scalar recurrences (Chebyshev
 weights, the Manteuffel interval adaptation) run in numpy float32 so they
 round like the JAX program's float32 scalars and the iteration counts match.
+
+Store-backed operators (an out-of-core chain) take the streamed branch
+(:func:`_solve_streamed`): every P2 mat-vec is a pass over the panel stream.
+With the kernel path (``use_gemm_kernel``) the chi build is one
+``stream_gemm`` pass over P1, each richardson / chebyshev iteration is one
+``fused_panel_matvec`` pass over P2, and CG's direction product is a
+``stream_gemm`` pass.  Every streamed iteration measures its residual from
+``gy - y`` (the JAX kernel path reduces it from the kernel's fp32 moments,
+which cancel near convergence; see :func:`_kernel_stream_pass`).  ``solver_batch`` > 1 replays
+P2's panels from host RAM between store reads (``CachingHandle.refresh`` at
+every batch boundary).
 
 All methods stop on the relative preconditioned residual
 ``||Z^(b - L y)||_F / ||Z^ b||_F`` measured on the deflated subspace; the
@@ -22,6 +33,8 @@ import torch
 
 from repro_torch.core.distmatrix import matmul_rowblock
 from repro_torch.core.solvers.base import SolveReport, SolverSpec
+from repro_torch.core.tiles import is_streamable, stream_stats
+from repro_torch.kernels import stream_gemm as _sg
 from repro_torch.obs import REGISTRY, trace
 
 RHO_MAX = 0.999
@@ -172,6 +185,156 @@ def _run_cg(p2, chi, y0, w, deflate, tol, max_steps):
     return y, k, float(res), hist
 
 
+def _kernel_stream_pass(handle, y, chi, *, depth, fused):
+    """One pass over a store-backed operator through the CUDA kernels.
+
+    Panels stream in stored form (bf16 scratch ships uint16 bits, half the
+    H2D bytes).  ``fused=True`` returns ``gy = chi + y - P2 y`` for one
+    whole solve iteration, so the iteration costs exactly this one pass.
+    ``fused=False`` returns the plain mat-vec (the chi build / the CG
+    direction product).
+
+    The kernel's column sums and sum of squares of ``delta = chi - P2 y``
+    are not read: the residual ``ss - |cs|^2 / n`` they give cancels to
+    noise (even <= 0) once the residual falls far below delta's never-decaying
+    column mean, which ended fixed-q solves early.  The caller measures the
+    residual from ``gy - y``, an (n, q) device op at the same cost.
+    """
+    from repro_torch.store import PanelPipeline  # the store is optional
+
+    n = int(handle.shape[0])
+    ph = int(handle.panel_rows)
+    if n % ph:
+        raise ValueError(f"panel height {ph} does not tile n={n}")
+    st = stream_stats()
+    st.add(calls=1)
+    y32 = y.to(torch.float32).contiguous()
+    chi32 = chi.to(torch.float32).contiguous() if fused else None
+    parts = []
+    with PanelPipeline([handle], range(0, n, ph), ph, depth=depth, device=y.device,
+                       stats=st, encoded=True) as pipe:
+        for r0, (panel,) in pipe:
+            if fused:
+                gy_p, _, _ = _sg.fused_panel_matvec(
+                    panel, y32, chi32[r0 : r0 + ph], y32[r0 : r0 + ph])
+            else:
+                gy_p = _sg.stream_gemm(panel, y32)
+            st._note_live(pipe.device_live_bytes + gy_p.numel() * 4)
+            parts.append(gy_p)
+    return torch.cat(parts, dim=0)
+
+
+def _solve_streamed(p2_handle, chi, y0, method, deflate, tol, max_steps, rho,
+                    solver_batch, prefetch_depth, use_kernel=False, w=None):
+    """The streamed solve: a host loop with one pass over P2 per mat-vec."""
+    p2, cached = p2_handle, None
+    if solver_batch > 1:
+        from repro_torch.store import CachingHandle  # the store is optional
+
+        p2 = cached = CachingHandle(p2_handle)
+    den = max(float(_frob(chi)), 1e-30)
+    passes = 0
+
+    def next_pass():
+        nonlocal passes
+        if cached is not None and passes and passes % solver_batch == 0:
+            cached.refresh()  # batch boundary: the next pass re-streams the store
+        passes += 1
+
+    def stream_matvec(x):
+        next_pass()
+        if use_kernel:
+            return _kernel_stream_pass(p2, x, None, depth=prefetch_depth, fused=False)
+        return matmul_rowblock(p2, x.to(torch.float32), prefetch_depth=prefetch_depth)
+
+    def metric(delta):
+        if deflate:
+            delta = delta - delta.to(torch.float32).mean(dim=0, keepdim=True)
+        return float(_frob(delta)) / den
+
+    res_hist: list[float] = []
+
+    if method == "cg":
+        wcol = torch.clamp(w.to(torch.float32).reshape(-1, 1), min=0.0)
+        wsum = max(float(torch.sum(wcol)), 1e-30)
+
+        def wdot(u, v):
+            return torch.sum(wcol * u * v, dim=0, keepdim=True)
+
+        def dproj(x):
+            return x - torch.sum(wcol * x, dim=0, keepdim=True) / wsum
+
+        y = y0
+        r = chi.to(torch.float32) - stream_matvec(y0.to(torch.float32))
+        if deflate:
+            r = dproj(r)
+        p_dir = r
+        rz = wdot(r, r)
+        k, res = 0, math.inf
+        while k < max_steps and res > tol:
+            q = stream_matvec(p_dir)
+            if deflate:
+                q = dproj(q)
+            pq = wdot(p_dir, q)
+            alpha = torch.where(pq > 0, rz / torch.clamp(pq, min=1e-30), 0.0)
+            y = (y.to(torch.float32) + alpha * p_dir).to(chi.dtype)
+            if deflate:
+                y = deflate_constant(y)
+            r = r - alpha * q
+            if deflate:
+                r = dproj(r)
+            rz_new = wdot(r, r)
+            beta = torch.where(rz > 0, rz_new / torch.clamp(rz, min=1e-30), 0.0)
+            p_dir = r + beta * p_dir
+            rz = rz_new
+            res = metric(r)
+            k += 1
+            res_hist.append(res)
+        return y, k, res, res_hist, None
+
+    rho_c = float(rho)
+    gamma = 2.0 / (2.0 - rho_c)
+    sigma2 = (rho_c / (2.0 - rho_c)) ** 2
+
+    y, y_prev, p_prev = y0, y0, 1.0
+    k, kr, res, res_anchor = 0, 0, math.inf, math.inf
+    while k < max_steps and res > tol:
+        if use_kernel:  # one fused pass over the P2 stream
+            next_pass()
+            gy = _kernel_stream_pass(p2, y, chi, depth=prefetch_depth, fused=True).to(chi.dtype)
+        else:
+            gy = y - stream_matvec(y).to(chi.dtype) + chi
+        if method == "richardson":
+            y_new = gy
+        else:
+            p_new = float(_cheb_weight(kr, p_prev, _F32(sigma2)))
+            y_new = (p_new * (gamma * gy + (1.0 - gamma) * y)
+                     + (1.0 - p_new) * y_prev).to(chi.dtype)
+            p_prev = p_new
+        if deflate:
+            y_new = deflate_constant(y_new)
+        res = metric(gy - y)
+        if kr == 0:
+            res_anchor = res  # contraction anchor: residual at the (re)start
+        kr += 1
+        if method == "chebyshev" and kr - 1 >= RHO_ADAPT_MIN_STEPS and res > RHO_ADAPT_RES_FLOOR:
+            pred = float(_cheb_rate(_F32(sigma2)))
+            c_avg = (res / max(res_anchor, 1e-30)) ** (1.0 / max(kr - 1, 1))
+            if c_avg > min(pred * RHO_ADAPT_SLACK, 0.999):
+                c = min(c_avg, 0.9995)
+                sigma = 2.0 * c / (1.0 + c * c)
+                rho_new = min(2.0 * sigma / (1.0 + sigma), 1.0 - 0.5 * (1.0 - rho_c), RHO_MAX)
+                if rho_new > rho_c:
+                    rho_c = rho_new
+                    gamma = 2.0 / (2.0 - rho_c)
+                    sigma2 = (rho_c / (2.0 - rho_c)) ** 2
+                    kr = 0  # restart: the next step uses p_1 = 1
+        y_prev, y = y, y_new
+        k += 1
+        res_hist.append(float(res))
+    return y, k, res, res_hist, rho_c
+
+
 def solve(
     op,
     b: torch.Tensor,
@@ -179,16 +342,25 @@ def solve(
     *,
     fixed_q: int | None = None,
     deflate: bool = True,
+    solver_batch: int = 1,
+    prefetch_depth: int | None = None,
+    use_gemm_kernel: bool | None = None,
     y0: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, SolveReport]:
     """x* ~= L^+ b for each column of the (n, k) ``b``; returns (solution, report).
 
-    ``op`` is a chain operator (``p1``, ``p2``, ``deg``, ``rho``).  With no
-    tolerance, cap or delta on the spec the driver runs exactly ``fixed_q - 1``
-    refinement steps.  ``y0`` warm-starts the iteration (deflated on entry)
-    instead of the cold ``y0 = chi = Z^ b``.
+    ``op`` is a chain operator (``p1``, ``p2``, ``deg``, ``rho``); store-backed
+    P1 / P2 stream onto ``b``'s device.  With no tolerance, cap or delta on
+    the spec the solve runs exactly ``fixed_q - 1`` refinement steps.  ``y0``
+    warm-starts the iteration (deflated on entry) instead of the cold
+    ``y0 = chi = Z^ b``.  ``solver_batch`` / ``prefetch_depth`` are the
+    streamed path's I/O knobs; ``use_gemm_kernel`` (None: the operator's
+    flag) routes the streamed passes through the CUDA kernels.
     """
     spec = spec or SolverSpec()
+    if solver_batch < 1:
+        raise ValueError("solver_batch must be >= 1")
+    depth = prefetch_depth if prefetch_depth is not None else op.prefetch_depth
     max_steps = spec.max_steps(fixed_q)
     tol = 0.0 if spec.tolerance is None else float(spec.tolerance)
 
@@ -197,12 +369,20 @@ def solve(
         if op.rho is None:
             from repro_torch.core.solvers.power import estimate_rho
 
-            op.rho = estimate_rho(op.p2)  # cached: later solves on this operator reuse it
+            # cached: later solves on this operator reuse it
+            op.rho = estimate_rho(op.p2, device=b.device, prefetch_depth=depth)
         rho = min(RHO_MAX, max(0.0, float(op.rho)))
 
+    streamed = is_streamable(op.p1) or is_streamable(op.p2)
+    use_k = bool(op.use_gemm_kernel if use_gemm_kernel is None else use_gemm_kernel)
+    st = stream_stats()
+    read0, panels0, h2d0 = st.bytes_read, st.panels, st.bytes_h2d
     warm = y0 is not None
-    with trace.span("solve", method=spec.method, warm=warm) as sp:
-        chi = matmul_rowblock(op.p1, b)
+    with trace.span("solve", method=spec.method, streamed=streamed, warm=warm) as sp:
+        if use_k and is_streamable(op.p1):
+            chi = _kernel_stream_pass(op.p1, b, None, depth=depth, fused=False).to(b.dtype)
+        else:
+            chi = matmul_rowblock(op.p1, b, prefetch_depth=depth)
         if deflate:
             chi = deflate_constant(chi)
         if warm:
@@ -218,15 +398,23 @@ def solve(
             y_start = chi  # cold start: y0 = chi = Z^ b
 
         rho_final = rho
-        if spec.method == "cg":
+        if streamed:
+            y, iters, res, res_hist, rho_c = _solve_streamed(
+                op.p2, chi, y_start, spec.method, deflate, tol, max_steps, rho or 0.0,
+                solver_batch, depth, use_kernel=use_k and is_streamable(op.p2), w=op.deg,
+            )
+            if spec.method == "chebyshev":
+                rho_final = rho_c
+        elif spec.method == "cg":
             y, iters, res, hist = _run_cg(op.p2, chi, y_start, op.deg, deflate, tol, max_steps)
+            res_hist = _unrotate_hist(hist, iters)
         else:
             y, iters, res, hist, rho_c = _run_stationary(
                 op.p2, chi, y_start, spec.method, deflate, tol, max_steps, rho or 0.0
             )
             if spec.method == "chebyshev":
                 rho_final = rho_c
-        res_hist = _unrotate_hist(hist, iters)
+            res_hist = _unrotate_hist(hist, iters)
         if iters == 0:
             res = float("nan")  # the loop never ran: no residual was measured
         sp.annotate(iterations=iters, residual=res)
@@ -243,6 +431,10 @@ def solve(
         residuals=tuple(res_hist),
         rho_final=rho_final,
         warm_start=warm,
+        streamed=streamed,
+        bytes_read=st.bytes_read - read0,
+        panels=st.panels - panels0,
+        bytes_h2d=st.bytes_h2d - h2d0,
     )
     REGISTRY.add_named({
         "solver.solves": 1.0,

@@ -7,6 +7,7 @@ from repro_torch.graphs.synthetic import (
     gmm_points,
     gmm_snapshot_sequence,
     similarity_graph,
+    store_snapshot_sequence,
 )
 
 __all__ = [
@@ -16,4 +17,5 @@ __all__ = [
     "gmm_points",
     "gmm_snapshot_sequence",
     "similarity_graph",
+    "store_snapshot_sequence",
 ]

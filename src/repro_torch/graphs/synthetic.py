@@ -207,3 +207,21 @@ def climate_snapshot_sequence(
     return SnapshotSequence(
         t_steps=t_steps, truth=truth, event_nodes=event_nodes, _build=build
     )
+
+
+def store_snapshot_sequence(store, seq: SnapshotSequence, *, ids: list[str] | None = None) -> list[str]:
+    """Write a :class:`SnapshotSequence` into a :class:`repro_torch.store.TileStore`.
+
+    Snapshots are built one at a time on their device, copied to the host,
+    tiled into the store and dropped: at most one snapshot is resident
+    during the write.  Already-committed ids are skipped, so an interrupted
+    write resumes where it stopped.
+    """
+    ids = ids if ids is not None else [f"t{t:04d}" for t in range(seq.t_steps)]
+    if len(ids) != seq.t_steps:
+        raise ValueError(f"{len(ids)} ids for {seq.t_steps} snapshots")
+    committed = set(store.snapshot_ids)
+    for sid, a in zip(ids, seq.snapshots()):
+        if sid not in committed:
+            store.put_snapshot(sid, a.cpu().numpy())
+    return ids

@@ -4,7 +4,9 @@
   ``repro/kernels/block_matmul.py``;
 * ``edge_projection`` -- ``csrc/edge_projection.cu``, replaces
   ``repro/kernels/edge_projection.py``;
-* ``cad_score`` -- ``csrc/cad_score.cu``, replaces ``repro/kernels/cad_score.py``.
+* ``cad_score`` -- ``csrc/cad_score.cu``, replaces ``repro/kernels/cad_score.py``;
+* ``stream_gemm`` -- ``csrc/stream_gemm.cu``, replaces ``stream_gemm`` and
+  ``fused_panel_matvec`` of ``repro/kernels/stream_gemm.py`` (two counters).
 
 Each wrapper counts its launches in a plain integer; :func:`launch_counts`
 reads them and :func:`reset_launch_counts` zeroes them.
@@ -15,15 +17,23 @@ from __future__ import annotations
 from repro_torch.kernels import block_matmul as _bm
 from repro_torch.kernels import cad_score as _cad
 from repro_torch.kernels import edge_projection as _ep
+from repro_torch.kernels import stream_gemm as _sg
 
-_MODULES = {"block_matmul": _bm, "edge_projection": _ep, "cad_scores": _cad}
+# name -> (module, its counter attribute)
+_COUNTERS = {
+    "block_matmul": (_bm, "launches"),
+    "edge_projection": (_ep, "launches"),
+    "cad_scores": (_cad, "launches"),
+    "stream_gemm": (_sg, "gemm_launches"),
+    "fused_panel_matvec": (_sg, "matvec_launches"),
+}
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    return {name: mod.launches for name, mod in _MODULES.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _MODULES.values():
-        mod.launches = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)

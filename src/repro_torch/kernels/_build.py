@@ -22,8 +22,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("block_matmul.cu", "edge_projection.cu", "cad_score.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("block_matmul.cu", "edge_projection.cu", "cad_score.cu", "stream_gemm.cu")
+HEADERS = ("common.cuh", "gemm_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -36,9 +36,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     "rt_block_matmul_f32": (_P, _P, _P, _I, _I, _I, _P),
     "rt_block_matmul_bf16": (_P, _P, _P, _I, _I, _I, _P),
-    "rt_edge_projection": (_P, _P, _I, _I, _U, _I, _F, _P),
+    "rt_edge_projection": (_P, _P, _I, _I, _I, _U, _I, _F, _P),
     "rt_rademacher_field": (_P, _I, _I, _I, _I, _U, _I, _P),
     "rt_cad_scores": (_P, _P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _P),
+    "rt_stream_gemm": (_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P),
+    "rt_fused_panel_matvec": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -26,12 +26,16 @@ def _check(a: torch.Tensor, k: int) -> None:
         raise ValueError(f"edge_projection: k must be >= 1, got {k}")
 
 
-def edge_projection(a: torch.Tensor, *, seed: int, k: int) -> torch.Tensor:
-    """Y[i, c] = sum_j sqrt(max(A_ij, 0)) Q_c[i, j] / sqrt(k), fp32 (m, k)."""
+def edge_projection(a: torch.Tensor, *, seed: int, k: int, row0: int = 0) -> torch.Tensor:
+    """Y[i, c] = sum_j sqrt(max(A_ij, 0)) Q_c[row0 + i, j] / sqrt(k), fp32 (m, k).
+
+    ``row0`` is the global id of ``a``'s first row: 0 for a resident
+    adjacency, the panel origin for a streamed row panel.
+    """
     global launches
     _check(a, k)
     if a.device.type == "cpu":
-        return ref.edge_projection(a, seed=seed, k=k)
+        return ref.edge_projection(a, seed=seed, k=k, row0=row0)
     if a.device.type != "cuda":
         raise ValueError(f"edge_projection: unsupported device {a.device}")
     if not a.is_contiguous():
@@ -42,7 +46,7 @@ def edge_projection(a: torch.Tensor, *, seed: int, k: int) -> torch.Tensor:
         return y
     lib = _build.library()
     err = lib.rt_edge_projection(
-        a.data_ptr(), y.data_ptr(), m, n, int(seed) & 0xFFFFFFFF, k,
+        a.data_ptr(), y.data_ptr(), row0, m, n, int(seed) & 0xFFFFFFFF, k,
         1.0 / math.sqrt(k), _build.stream_handle(a),
     )
     _build.check(err, "edge_projection")

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three hand-written kernels.
+"""Plain PyTorch versions of the hand-written kernels.
 
 Port of :mod:`repro.kernels.ref`.  The wrappers run these for CPU tensors,
 and ``chip_smoke.py`` holds each CUDA kernel against them on the card.  The
@@ -30,8 +30,11 @@ def block_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.T
     return torch.matmul(a.to(torch.float32), b.to(torch.float32)).to(out_dtype)
 
 
-def edge_projection(a: torch.Tensor, *, seed: int, k: int) -> torch.Tensor:
-    """Y[i, c] = sum_j sqrt(max(A_ij, 0)) Q_c[i, j] / sqrt(k)."""
+def edge_projection(a: torch.Tensor, *, seed: int, k: int, row0: int = 0) -> torch.Tensor:
+    """Y[i, c] = sum_j sqrt(max(A_ij, 0)) Q_c[row0 + i, j] / sqrt(k).
+
+    ``row0`` is the global id of ``a``'s first row (a streamed row panel).
+    """
     m, n = a.shape
     dev = a.device
     cols = torch.arange(n, device=dev, dtype=torch.int64)[None, :, None]
@@ -39,7 +42,7 @@ def edge_projection(a: torch.Tensor, *, seed: int, k: int) -> torch.Tensor:
     y = torch.empty((m, k), dtype=torch.float32, device=dev)
     for r0, r1 in _row_chunks(m, n * k):
         s = torch.sqrt(torch.clamp(a[r0:r1].to(torch.float32), min=0.0))
-        rows = torch.arange(r0, r1, device=dev, dtype=torch.int64)[:, None, None]
+        rows = torch.arange(row0 + r0, row0 + r1, device=dev, dtype=torch.int64)[:, None, None]
         q = crng.edge_rademacher(seed, rows, cols, ks)
         y[r0:r1] = torch.sum(s[:, :, None] * q, dim=1)
     return y * (1.0 / math.sqrt(k))
@@ -68,3 +71,32 @@ def cad_scores_tile(a1, a2, z1i, z1j, z2i, z2j, vol1, vol2) -> torch.Tensor:
 def cad_scores(a1, a2, z1, z2, vol1, vol2) -> torch.Tensor:
     """Node anomaly scores F (n,) from two embeddings (square case)."""
     return cad_scores_tile(a1, a2, z1, z1, z2, z2, vol1, vol2)
+
+
+def decode_bits(x: torch.Tensor) -> torch.Tensor:
+    """fp32 values of an operand: int16-carried bf16 bit patterns widen
+    exactly (the bits become the high half of a float32, as
+    ``_bf16_u16_to_f32`` does); any other dtype is cast."""
+    if x.dtype != torch.int16:
+        return x.to(torch.float32)
+    lo = torch.zeros_like(x)
+    return torch.stack([lo, x], dim=-1).view(torch.float32).squeeze(-1)
+
+
+def stream_gemm(a: torch.Tensor, b: torch.Tensor, init=None, *, sign: float = 1.0):
+    """``init + sign * (A @ B)`` (init optional) in fp32; A, B fp32 or bits."""
+    acc = decode_bits(a) @ decode_bits(b)
+    if init is None:
+        return -acc if sign < 0 else acc
+    base = init.to(torch.float32)
+    return base - acc if sign < 0 else base + acc
+
+
+def fused_panel_matvec(p_panel, y, chi_panel, y_panel):
+    """``(gy, colsum, sumsq)``: gy = chi + y_panel - P y, and the column sums
+    (1, q) and sum of squares (1, 1) of delta = chi - P y."""
+    mv = decode_bits(p_panel) @ y.to(torch.float32)
+    chi = chi_panel.to(torch.float32)
+    gy = chi + y_panel.to(torch.float32) - mv
+    delta = chi - mv
+    return gy, delta.sum(dim=0, keepdim=True), (delta * delta).sum().reshape(1, 1)

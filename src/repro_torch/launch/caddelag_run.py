@@ -1,11 +1,16 @@
 """CADDeLaG driver on one device: the sequence engine end to end.
 
-Port of :mod:`repro.launch.caddelag_run` (resident flags).  Runs a synthetic
-GMM or climate-like snapshot sequence through :class:`SequenceDetector` and
-prints the same ``[caddelag]`` per-transition lines.
+Port of :mod:`repro.launch.caddelag_run`.  Runs a synthetic GMM or
+climate-like snapshot sequence through :class:`SequenceDetector` and prints
+the same ``[caddelag]`` per-transition lines.  ``--store DIR`` writes the
+sequence into a tiled on-disk snapshot store and scores it from there, one
+row panel at a time; ``--oocore-chain`` also spills the chain's working
+matrices to a scratch store.
 
   caddelag-run-torch --n 10512 --t-steps 3 --dataset climate        # on the card
   caddelag-run-torch --device cpu --n 64 --t-steps 3 --d 3 --q 4    # plain PyTorch
+  caddelag-run-torch --n 10512 --t-steps 3 --dataset climate --store DIR \
+      --oocore-chain --use-gemm-kernel                               # out-of-core
 """
 
 from __future__ import annotations
@@ -14,8 +19,20 @@ import argparse
 
 import numpy as np
 
-from repro_torch.core import CommuteConfig, SequenceDetector
-from repro_torch.graphs import climate_snapshot_sequence, gmm_snapshot_sequence
+from repro_torch.core import CommuteConfig, SequenceDetector, reset_stream_stats, stream_stats
+from repro_torch.graphs import (
+    climate_snapshot_sequence,
+    gmm_snapshot_sequence,
+    store_snapshot_sequence,
+)
+
+
+def _default_grid(n: int, n_row_shards: int = 1) -> int:
+    """Finest store grid with panels of >= 32 rows that divide the row shards."""
+    for g in (16, 8, 4, 2):
+        if n % g == 0 and (n // g) % n_row_shards == 0 and n // g >= 32:
+            return g
+    return 1
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -42,6 +59,28 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--warm-start", action="store_true",
                     help="seed each solve with the previous snapshot's solution")
     ap.add_argument("--donate", action="store_true", help="free outgoing snapshots eagerly")
+    ap.add_argument("--store", default=None, metavar="DIR",
+                    help="score out-of-core from a tiled snapshot store at DIR")
+    ap.add_argument("--store-grid", type=int, default=None,
+                    help="tiles per side when creating the store (default: auto)")
+    ap.add_argument("--oocore-chain", action="store_true",
+                    help="run the squaring chain out-of-core: S/T/P spill through a "
+                         "TileStore scratch, device residency is panels, not n^2")
+    ap.add_argument("--oocore-dir", default=None, metavar="DIR",
+                    help="scratch dir for --oocore-chain working matrices "
+                         "(default: host-RAM scratch)")
+    ap.add_argument("--prefetch-depth", type=int, default=2,
+                    help="row panels the prefetch thread keeps decoded ahead of compute")
+    ap.add_argument("--tile-codec", default="raw", choices=["raw", "bf16", "zstd"],
+                    help="tile codec of --store and the --oocore-chain scratch (bf16 halves "
+                         "bytes; zstd falls back to raw without the 'zstandard' package)")
+    ap.add_argument("--use-gemm-kernel", action="store_true",
+                    help="stream_gemm / fused_panel_matvec kernels for the out-of-core chain "
+                         "and solve: panels ship in stored form (bf16 bits decode on the "
+                         "card); no effect without --oocore-chain")
+    ap.add_argument("--solver-batch", type=int, default=1,
+                    help="solver iterations per store read of P2 (the rest replay panels "
+                         "from host RAM; identical scores)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda runs the hand-written kernels; cpu their plain versions")
     return ap.parse_args(argv)
@@ -49,11 +88,18 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    from repro_torch.store import TileStore, resolve_codec
+
+    # A backend-less zstd request degrades to raw (with a warning) here, once,
+    # so the stores and the summary lines report what the tiles really are.
+    effective_codec = resolve_codec(args.tile_codec).name
     cfg = CommuteConfig(
         eps_rp=args.eps, d=args.d, q=args.q, schedule=args.schedule,
         solver=args.solver, solver_tol=args.solver_tol,
         solver_max_iters=args.solver_max_iters, delta=args.delta,
-        warm_start=args.warm_start,
+        warm_start=args.warm_start, oocore=args.oocore_chain, oocore_dir=args.oocore_dir,
+        prefetch_depth=args.prefetch_depth, tile_codec=effective_codec,
+        solver_batch=args.solver_batch, use_gemm_kernel=args.use_gemm_kernel,
     )
     if args.dataset == "gmm":
         n_nodes = args.n
@@ -76,7 +122,44 @@ def main(argv=None) -> None:
         )
 
     det = SequenceDetector(cfg, top_k=args.top_k, donate=args.donate, device=args.device)
-    res = det.run(seq.snapshots())
+    if args.store is not None:
+        grid = args.store_grid or _default_grid(n_nodes)
+        # meta fingerprints the generator: a reused directory with other
+        # content is rejected, not silently scored.
+        meta = {"dataset": args.dataset, "n": n_nodes, "seed": 0}
+        store = TileStore.create(args.store, n=n_nodes, grid=grid, codec=effective_codec,
+                                 meta=meta)
+        ids = store_snapshot_sequence(store, seq)
+        reset_stream_stats()
+        res = det.run(store.snapshot(sid) for sid in ids)
+        st = stream_stats()
+        what = "adjacency + chain scratch" if args.oocore_chain else "adjacency"
+        print(
+            f"[caddelag] store={args.store} grid={grid}x{grid} "
+            f"codec={store.manifest.codec} prefetch={args.prefetch_depth}: "
+            f"{args.t_steps} snapshots, {args.t_steps * store.snapshot_nbytes / 1e6:.1f} MB "
+            f"logical; read {st.bytes_read / 1e6:.1f} MB from store, decoded "
+            f"{st.bytes_decoded / 1e6:.1f} MB, streamed {st.bytes_h2d / 1e6:.1f} MB "
+            f"H2D ({what}) in {st.panels} panels, peak device panel residency "
+            f"{st.peak_live_bytes / 1e6:.2f} MB"
+        )
+    else:
+        reset_stream_stats()
+        res = det.run(seq.snapshots())
+    if args.oocore_chain:
+        st = stream_stats()
+        extra = " (incl. adjacency streaming)" if args.store is not None else ""
+        saved = (f" ({st.bytes_h2d_saved / 1e6:.1f} MB saved by on-device decode)"
+                 if st.bytes_h2d_saved else "")
+        print(
+            f"[caddelag] oocore chain: working matrices spilled to "
+            f"{args.oocore_dir or 'host RAM'} (codec={effective_codec}, "
+            f"solver_batch={args.solver_batch}); {st.panels} panels{extra}, "
+            f"{st.bytes_read / 1e6:.1f} MB scratch reads, {st.bytes_h2d / 1e6:.1f} MB "
+            f"H2D{saved}, peak device panel residency "
+            f"{st.peak_live_bytes / 1e6:.2f} MB (vs ~{5 * n_nodes * n_nodes * 4 / 1e6:.2f} MB "
+            f"resident chain working set)"
+        )
 
     print(
         f"[caddelag] n={n_nodes} T={args.t_steps} device={args.device} "
@@ -97,9 +180,11 @@ def main(argv=None) -> None:
             worst = max(reps, key=lambda rep: rep.residual)
             conv = "" if all(rep.converged for rep in reps) else "  NOT-CONVERGED"
             warm = " warm" if any(rep.warm_start for rep in reps) else ""
+            scratch = sum(rep.bytes_read for rep in reps)
+            io = f", {scratch / 1e6:.1f} MB scratch" if any(rep.streamed for rep in reps) else ""
             print(
                 f"[caddelag]     solver[{worst.method}{warm}]: {its} its "
-                f"(cap {worst.max_iters}), res {worst.residual:.1e}{conv}"
+                f"(cap {worst.max_iters}), res {worst.residual:.1e}{io}{conv}"
             )
     total = sum(res.transition_seconds)
     print(f"[caddelag] total {total:.2f}s "

@@ -1,11 +1,14 @@
 """Process-wide metrics registry: counters, series, atomic snapshots.
 
-Port of :mod:`repro.obs.metrics` (the counters and series the port's core
-modules record; gauges and prefix resets wait for the RunReport port).
-Counters are floats mutated under one lock; :meth:`MetricsRegistry.snapshot` copies the registry
-atomically and :meth:`MetricsRegistry.delta` yields the counter increments
-since a snapshot -- the primitive the per-transition breakdowns are cut from.
-Names are dot-scoped (``chain.builds``, ``phase.solve.seconds``).
+Port of :mod:`repro.obs.metrics` (the counters, gauges and series the
+port's core modules record).  Counters are floats mutated under one lock;
+gauges hold a current value, with :meth:`MetricsRegistry.max_gauge` for
+high-water marks (``stream.peak_live_bytes``).
+:meth:`MetricsRegistry.snapshot` copies the registry atomically and
+:meth:`MetricsRegistry.delta` yields the counter increments since a snapshot
+-- the primitive the per-transition breakdowns are cut from.  Names are
+dot-scoped (``chain.builds``, ``phase.solve.seconds``); :meth:`reset` takes a
+prefix so one subsystem's counters can be zeroed without touching the rest.
 """
 
 from __future__ import annotations
@@ -22,15 +25,20 @@ class MetricsSnapshot:
     """Immutable, internally consistent copy of a registry at one instant."""
 
     counters: Mapping[str, float]
+    gauges: Mapping[str, float]
     series_len: Mapping[str, int]
+
+    def counter(self, name: str, default: float = 0.0) -> float:
+        return self.counters.get(name, default)
 
 
 class MetricsRegistry:
-    """Thread-safe counters and bounded series with atomic snapshots."""
+    """Thread-safe counters, gauges and bounded series with atomic snapshots."""
 
     def __init__(self, series_cap: int = DEFAULT_SERIES_CAP):
         self._lock = threading.RLock()
         self._counters: dict[str, float] = {}
+        self._gauges: dict[str, float] = {}
         self._series: dict[str, list[float]] = {}
         self._series_cap = int(series_cap)
 
@@ -47,6 +55,17 @@ class MetricsRegistry:
     def value(self, name: str, default: float = 0.0) -> float:
         with self._lock:
             return self._counters.get(name, default)
+
+    def max_gauge(self, name: str, value: float) -> None:
+        """High-water-mark gauge: keep the maximum ever set."""
+        with self._lock:
+            cur = self._gauges.get(name)
+            if cur is None or value > cur:
+                self._gauges[name] = value
+
+    def gauge(self, name: str, default: float = 0.0) -> float:
+        with self._lock:
+            return self._gauges.get(name, default)
 
     def extend(self, name: str, values: Iterable[float]) -> None:
         """Append to a bounded series; entries past the cap are dropped."""
@@ -65,6 +84,7 @@ class MetricsRegistry:
         with self._lock:
             return MetricsSnapshot(
                 counters=dict(self._counters),
+                gauges=dict(self._gauges),
                 series_len={k: len(v) for k, v in self._series.items()},
             )
 
@@ -77,6 +97,13 @@ class MetricsRegistry:
                 if d:
                     out[name] = d
             return out
+
+    def reset(self, prefix: str) -> None:
+        """Remove every counter, gauge and series whose name starts with ``prefix``."""
+        with self._lock:
+            for store in (self._counters, self._gauges, self._series):
+                for name in [k for k in store if k.startswith(prefix)]:
+                    del store[name]
 
 
 REGISTRY = MetricsRegistry()

@@ -1,7 +1,8 @@
 """Span tracer recording Chrome trace-event spans.
 
-Port of :mod:`repro.obs.trace` (same-thread spans; file export and
-cross-thread spans wait for the RunReport port).  Tracing is off by
+Port of :mod:`repro.obs.trace`: same-thread spans, and cross-thread spans
+(:func:`begin` on one thread, :func:`end` on another -- the panel pipeline's
+``prefetch.panel`` spans).  File export waits for the RunReport port.  Tracing is off by
 default and the disabled path returns a shared null span.  CUDA work is
 queued asynchronously, so a span that only brackets the enqueue
 under-reports the device wall: with ``enable_tracing(fence=True)`` a span on
@@ -83,6 +84,9 @@ class Tracer:
         self.fence_enabled = False
         self._lock = threading.Lock()
         self._events: list[dict[str, Any]] = []
+        # Cross-thread spans in flight: handle -> (name, t0_us, owner tid, args)
+        self._pending: dict[int, tuple[str, float, int, dict[str, Any]]] = {}
+        self._next_handle = 1
 
     def enable(self, fence: bool = False) -> "Tracer":
         self.enabled = True
@@ -97,6 +101,37 @@ class Tracer:
         if not self.enabled:
             return _NULL_SPAN
         return _Span(self, name, args)
+
+    def begin(self, name: str, **args: Any) -> int:
+        """Open a cross-thread span; returns a handle (0 when disabled).
+
+        The calling thread owns the span: the event lands on its track even
+        if another thread ends it.
+        """
+        if not self.enabled:
+            return 0
+        t0 = _now_us()
+        with self._lock:
+            handle = self._next_handle
+            self._next_handle += 1
+            self._pending[handle] = (name, t0, threading.get_ident(), args)
+        return handle
+
+    def end(self, handle: int, **args: Any) -> None:
+        """Close a span opened by :meth:`begin` from any thread; no-op for 0."""
+        if handle == 0:
+            return
+        t1 = _now_us()
+        end_tid = threading.get_ident()
+        with self._lock:
+            pending = self._pending.pop(handle, None)
+        if pending is None:
+            return
+        name, t0, tid, ev_args = pending
+        ev_args = {**ev_args, **args}
+        if end_tid != tid:
+            ev_args["end_tid"] = end_tid
+        self._record(name, t0, t1 - t0, tid, ev_args)
 
     def _record(self, name: str, t0: float, dur: float, tid: int, args: dict) -> None:
         with self._lock:
@@ -129,3 +164,13 @@ def disable_tracing() -> None:
 def span(name: str, **args: Any):
     """Open a span on the global tracer (null span when disabled)."""
     return _TRACER.span(name, **args)
+
+
+def begin(name: str, **args: Any) -> int:
+    """Open a cross-thread span on the global tracer (handle 0 when disabled)."""
+    return _TRACER.begin(name, **args)
+
+
+def end(handle: int, **args: Any) -> None:
+    """Close a cross-thread span from any thread."""
+    _TRACER.end(handle, **args)

@@ -1,0 +1,404 @@
+"""Panel I/O pipeline: all host-to-device staging of streamed row panels.
+
+Port of :mod:`repro.store.pipeline`.  :class:`PanelPipeline` walks row-panel
+origins of one or more operands:
+
+* a **background prefetch thread** fetches (and codec-decodes) each
+  streamed operand's panel on the host -- file reads and decode only, never
+  CUDA work;
+* **per-operand ring buffers** of depth ``depth`` (default 2) bound host
+  staging and give backpressure;
+* the consumer thread **stages panel t+1 before panel t is yielded**.  On
+  the card every panel goes through a pinned host buffer and a
+  ``non_blocking`` copy on a side CUDA stream; the compute stream waits on
+  the copy's event when the panel is yielded, and the staged tensor is
+  ``record_stream``-ed so the caching allocator cannot hand its memory out
+  while the compute stream still reads it.  Pinning is the path: a failure
+  to pin raises (there is no pageable fallback).  With ``device="cpu"``
+  nothing is copied to a card: panels become tensors through
+  ``torch.from_numpy(np.array(...))`` (memory-mapped tiles are read-only);
+* **encoded shipping** (``encoded=True``): bf16 tiles travel as their uint16
+  bit patterns, carried in torch as ``int16`` views (torch has no complete
+  ``uint16`` type; every consumer reinterprets the bits), half the decoded
+  bytes; the gap is counted in ``stats.bytes_h2d_saved``;
+* **accounting**: ``panels``, ``bytes_h2d``, ``bytes_read``,
+  ``bytes_decoded`` and the ``stream.peak_live_bytes`` gauge on ``stats``
+  exactly as the JAX pipeline counts them, plus the
+  ``pipeline.producer_fetch_seconds`` / ``pipeline.consumer_wait_seconds``
+  registry counters, ``pipeline.pin_copy_seconds`` (the consumer's host
+  copies into pinned buffers) and, with tracing on, one cross-thread
+  ``prefetch.panel`` span per fetched panel.
+
+Operands that are not snapshot handles (resident tensors) are sliced on the
+consumer thread and are not counted.
+
+:class:`CachingHandle` wraps a handle with a host-RAM panel cache, so a
+consumer that re-streams the same matrix (the solver re-reading P2 every
+iteration) hits the backing store once per batch; replays are bitwise equal
+and report zero ``bytes_read``.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Iterator, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.metrics import REGISTRY as _OBS_REGISTRY
+
+DEFAULT_PREFETCH_DEPTH = 2
+
+
+def _is_handle(x) -> bool:
+    """Streamable snapshot handle (duck-typed, mirrors tiles.is_streamable)."""
+    return hasattr(x, "read_panel") and hasattr(x, "panel_rows")
+
+
+def fetch_panel_info(source, row0: int, height: int) -> tuple[np.ndarray, int]:
+    """``(host_panel, stored_nbytes)`` for a snapshot handle; a handle with
+    only ``read_panel`` counts its decoded bytes as stored."""
+    if hasattr(source, "read_panel_info"):
+        panel, stored = source.read_panel_info(row0, height)
+        return np.asarray(panel), int(stored)
+    panel = np.asarray(source.read_panel(row0, height))
+    return panel, panel.nbytes
+
+
+def fetch_panel_encoded_info(source, row0: int, height: int) -> tuple[np.ndarray, int, int]:
+    """``(panel, stored_nbytes, decoded_nbytes)``, the panel in its
+    device-decodable stored form where the source has one (bf16: uint16
+    bits); otherwise the decoded panel with ``decoded_nbytes == panel.nbytes``.
+    """
+    if hasattr(source, "read_panel_encoded_info"):
+        panel, stored, decoded = source.read_panel_encoded_info(row0, height)
+        return np.asarray(panel), int(stored), int(decoded)
+    panel, stored = fetch_panel_info(source, row0, height)
+    return panel, stored, panel.nbytes
+
+
+def host_tensor(panel: np.ndarray) -> torch.Tensor:
+    """A writable CPU tensor copy of a host panel; uint16 bits become int16."""
+    arr = np.array(panel)
+    if arr.dtype == np.uint16:
+        arr = arr.view(np.int16)
+    return torch.from_numpy(arr)
+
+
+def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    return torch.int16 if dtype == np.uint16 else torch.from_numpy(np.zeros(0, dtype)).dtype
+
+
+def to_device(panel: np.ndarray, device: torch.device, stream=None):
+    """Copy a host panel to ``device``; returns ``(tensor, event or None)``.
+
+    On CUDA the panel is copied into a pinned buffer (raises if pinning
+    fails) and sent with a ``non_blocking`` copy on ``stream`` (default: the
+    current stream).  The returned event marks the copy's end; a consumer on
+    another stream must wait on it before reading the tensor.
+    """
+    if device.type != "cuda":
+        return host_tensor(panel).to(device), None
+    panel = np.asarray(panel)
+    t0 = time.perf_counter()
+    pinned = torch.empty(panel.shape, dtype=_torch_dtype(panel.dtype), pin_memory=True)
+    np.copyto(pinned.numpy(), panel.view(np.int16) if panel.dtype == np.uint16 else panel)
+    _OBS_REGISTRY.inc("pipeline.pin_copy_seconds", time.perf_counter() - t0)
+    stream = stream or torch.cuda.current_stream(device)
+    with torch.cuda.stream(stream):
+        dev = pinned.to(device, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(stream)
+    return dev, event
+
+
+class _Ring:
+    """Bounded single-producer/single-consumer ring buffer (one per operand)."""
+
+    def __init__(self, depth: int):
+        if depth < 1:
+            raise ValueError(f"ring depth must be >= 1, got {depth}")
+        self.depth = depth
+        self._buf: deque = deque()
+        self._cv = threading.Condition()
+        self._closed = False
+
+    def put(self, item) -> bool:
+        """Block until a slot frees; False once the ring is closed."""
+        with self._cv:
+            while len(self._buf) >= self.depth and not self._closed:
+                self._cv.wait()
+            if self._closed:
+                return False
+            self._buf.append(item)
+            self._cv.notify_all()
+            return True
+
+    def get(self):
+        """Next item, blocking; None once closed (drained items still served)."""
+        with self._cv:
+            while not self._buf and not self._closed:
+                self._cv.wait()
+            if self._buf:
+                item = self._buf.popleft()
+                self._cv.notify_all()
+                return item
+            return None
+
+    def close(self, *, drain: bool = False) -> None:
+        """Stop accepting puts; ``drain=True`` keeps buffered items poppable."""
+        with self._cv:
+            self._closed = True
+            if not drain:
+                self._buf.clear()
+            self._cv.notify_all()
+
+
+class PanelPipeline:
+    """Prefetching iterator over row panels of one or more operands.
+
+    Yields ``(row0, panels)`` per origin, in order, one entry per operand.
+    ``device=None`` yields host numpy panels (the out-of-core GEMM slices
+    its left panel on the host); with a device, each streamed panel is a
+    tensor on it, staged one origin ahead.  Use as a context manager (or
+    call :meth:`close`) so an early exit cancels the producer.
+    """
+
+    def __init__(
+        self,
+        sources: Sequence,
+        origins: Sequence[int],
+        height: int,
+        *,
+        depth: int | None = None,
+        device: str | torch.device | None = None,
+        stats=None,
+        encoded: bool = False,
+    ):
+        self.sources = list(sources)
+        self.origins = list(origins)
+        self.height = int(height)
+        self.depth = DEFAULT_PREFETCH_DEPTH if depth is None else int(depth)
+        if self.depth < 1:
+            raise ValueError(f"prefetch depth must be >= 1, got {self.depth}")
+        self.device = None if device is None else torch.device(device)
+        self.stats = stats
+        self.encoded = bool(encoded)
+        self._copy_stream = None
+        self._threaded = [_is_handle(s) for s in self.sources]
+        self._rings = [_Ring(self.depth) if t else None for t in self._threaded]
+        self._cancel = threading.Event()
+        self._error: BaseException | None = None
+        self._thread: threading.Thread | None = None
+        self.device_live_bytes = 0  # pipeline-owned panel bytes currently staged
+        if any(self._threaded) and self.origins:
+            self._thread = threading.Thread(
+                target=self._produce, name="panel-prefetch", daemon=True
+            )
+            self._thread.start()
+
+    # -- producer (background thread: host I/O + codec decode only) ----------
+
+    def _produce(self) -> None:
+        try:
+            for row0 in self.origins:
+                for i, (src, ring) in enumerate(zip(self.sources, self._rings)):
+                    if ring is None:
+                        continue
+                    if self._cancel.is_set():
+                        return
+                    sp = obs_trace.begin("prefetch.panel", row0=row0, operand=i)
+                    t_f0 = time.perf_counter()
+                    if self.encoded:
+                        panel, stored, decoded = fetch_panel_encoded_info(src, row0, self.height)
+                    else:
+                        panel, stored = fetch_panel_info(src, row0, self.height)
+                        decoded = panel.nbytes
+                    _OBS_REGISTRY.add_named({
+                        "pipeline.producer_fetch_seconds": time.perf_counter() - t_f0,
+                        "pipeline.panels_fetched": 1.0,
+                    })
+                    if self.stats is not None and stored:
+                        # stored == 0 is a host-RAM replay (CachingHandle hit):
+                        # nothing was read from the backing tier or decoded.
+                        self.stats.add(bytes_read=stored, bytes_decoded=panel.nbytes)
+                    if not ring.put((panel, decoded, sp)):
+                        obs_trace.end(sp, cancelled=True)
+                        return
+        except BaseException as e:  # hand to the consumer, then stop
+            self._error = e
+            self._cancel.set()
+            for ring in self._rings:
+                if ring is not None:
+                    ring.close(drain=True)
+
+    # -- consumer ------------------------------------------------------------
+
+    def _next_host_bundle(self, row0: int) -> tuple[list, list]:
+        """Panels (+ decoded byte counts) for one origin: ring pops for
+        handles, lazy slices (decoded None) for everything else."""
+        bundle, decs = [], []
+        for src, ring in zip(self.sources, self._rings):
+            if ring is None:
+                bundle.append(src[row0 : row0 + self.height])
+                decs.append(None)
+                continue
+            t_w0 = time.perf_counter()
+            item = ring.get()
+            _OBS_REGISTRY.add_named({
+                "pipeline.consumer_wait_seconds": time.perf_counter() - t_w0,
+                "pipeline.consumer_waits": 1.0,
+            })
+            if item is None:
+                if self._error is not None:
+                    raise RuntimeError(f"panel prefetch failed at row {row0}") from self._error
+                raise RuntimeError("panel pipeline closed while panels were pending")
+            panel, decoded, sp = item
+            obs_trace.end(sp)
+            bundle.append(panel)
+            decs.append(decoded)
+        return bundle, decs
+
+    def _stage(self, row0: int) -> tuple[int, list, list, int]:
+        """Pop one origin's bundle and copy its streamed panels to the device."""
+        bundle, decs = self._next_host_bundle(row0)
+        staged, events, nbytes = [], [], 0
+        for panel, decoded, threaded in zip(bundle, decs, self._threaded):
+            if not threaded:
+                staged.append(panel)
+                events.append(None)
+                continue
+            if self.device.type == "cuda" and self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+            dev, event = to_device(panel, self.device, self._copy_stream)
+            nb = dev.numel() * dev.element_size()
+            nbytes += nb
+            if self.stats is not None:
+                inc = {"panels": 1, "bytes_h2d": nb}
+                if decoded is not None and decoded > nb:
+                    inc["bytes_h2d_saved"] = decoded - nb
+                self.stats.add(**inc)
+            staged.append(dev)
+            events.append(event)
+        return row0, staged, events, nbytes
+
+    def _ready(self, staged: list, events: list) -> list:
+        """Make the compute stream wait for the copies before the panels are used."""
+        for t, event in zip(staged, events):
+            if event is not None:
+                compute = torch.cuda.current_stream(self.device)
+                compute.wait_event(event)
+                t.record_stream(compute)
+        return staged
+
+    def __iter__(self) -> Iterator[tuple[int, list]]:
+        try:
+            if not self.origins:
+                return
+            if self.device is None:
+                for row0 in self.origins:
+                    yield row0, self._next_host_bundle(row0)[0]
+                return
+            # Stage origin t+1 before yielding origin t, so its copy overlaps
+            # the compute the consumer enqueues on t.
+            prev_row0, prev, prev_ev, prev_bytes = self._stage(self.origins[0])
+            for row0 in self.origins[1:]:
+                _, cur, cur_ev, cur_bytes = self._stage(row0)
+                self.device_live_bytes = prev_bytes + cur_bytes
+                if self.stats is not None:
+                    self.stats._note_live(self.device_live_bytes)
+                yield prev_row0, self._ready(prev, prev_ev)
+                prev_row0, prev, prev_ev, prev_bytes = row0, cur, cur_ev, cur_bytes
+            self.device_live_bytes = prev_bytes
+            if self.stats is not None:
+                self.stats._note_live(prev_bytes)
+            yield prev_row0, self._ready(prev, prev_ev)
+            self.device_live_bytes = 0
+        finally:
+            self.close()
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def close(self) -> None:
+        """Cancel the producer and release the rings (idempotent)."""
+        self._cancel.set()
+        for ring in self._rings:
+            if ring is not None:
+                ring.close()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+
+    def __enter__(self) -> "PanelPipeline":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()
+
+
+class CachingHandle:
+    """Snapshot-handle wrapper with a host-RAM panel cache (solver batching).
+
+    The first pass reads the store and caches the panels; later passes
+    replay them bitwise, with zero ``bytes_read``.  :meth:`refresh` drops
+    the cache, so the next pass streams from the store again.  Decoded and
+    stored-form (encoded) panels are cached apart.
+    """
+
+    def __init__(self, handle):
+        if not _is_handle(handle):
+            raise TypeError(f"{handle!r} does not satisfy the snapshot-handle protocol")
+        self.handle = handle
+        self._cache: dict[tuple, object] = {}
+        self.fills = 0  # store reads (cache misses)
+        self.replays = 0  # cache hits
+
+    @property
+    def shape(self):
+        return self.handle.shape
+
+    @property
+    def dtype(self):
+        return self.handle.dtype
+
+    @property
+    def nbytes(self):
+        return self.handle.nbytes
+
+    @property
+    def panel_rows(self) -> int:
+        return self.handle.panel_rows
+
+    def refresh(self) -> None:
+        """Drop cached panels; the next pass streams from the store again."""
+        self._cache.clear()
+
+    def read_panel_info(self, row0: int, height: int) -> tuple[np.ndarray, int]:
+        key = (row0, height)
+        cached = self._cache.get(key)
+        if cached is not None:
+            self.replays += 1
+            return cached, 0
+        panel, stored = fetch_panel_info(self.handle, row0, height)
+        self._cache[key] = panel
+        self.fills += 1
+        return panel, stored
+
+    def read_panel_encoded_info(self, row0: int, height: int) -> tuple[np.ndarray, int, int]:
+        key = (row0, height, "enc")
+        cached = self._cache.get(key)
+        if cached is not None:
+            self.replays += 1
+            panel, decoded = cached
+            return panel, 0, decoded
+        panel, stored, decoded = fetch_panel_encoded_info(self.handle, row0, height)
+        self._cache[key] = (panel, decoded)
+        self.fills += 1
+        return panel, stored, decoded
+
+    def read_panel(self, row0: int, height: int) -> np.ndarray:
+        return self.read_panel_info(row0, height)[0]

@@ -18,6 +18,7 @@ from repro_torch.kernels import block_matmul as bm
 from repro_torch.kernels import cad_score as cad
 from repro_torch.kernels import edge_projection as ep
 from repro_torch.kernels import ref
+from repro_torch.kernels import stream_gemm as sg
 
 pytestmark = pytest.mark.cuda
 
@@ -87,7 +88,12 @@ def test_cuda_wrappers_raise_instead_of_falling_back(dev):
     z = torch.zeros((64, 65), device=dev)
     with pytest.raises(ValueError, match="k=65"):
         cad.cad_scores(a, a, z, z, 1.0, 1.0)
-    assert kernels.launch_counts() == {"block_matmul": 0, "edge_projection": 0, "cad_scores": 0}
+    with pytest.raises(ValueError, match="contiguous"):
+        sg.stream_gemm(a.T, a)
+    with pytest.raises(ValueError, match="q=40"):
+        sg.fused_panel_matvec(a, torch.zeros((64, 40), device=dev),
+                              torch.zeros((64, 40), device=dev), torch.zeros((64, 40), device=dev))
+    assert set(kernels.launch_counts().values()) == {0}
 
 
 def test_sequence_on_card_matches_cpu(dev):
@@ -99,7 +105,137 @@ def test_sequence_on_card_matches_cpu(dev):
     for d in ("cuda", "cpu"):
         seq = gmm_snapshot_sequence(256, 3, seed=4, inject_p=0.02, device=d)
         runs[d] = SequenceDetector(cfg, top_k=10, device=d).run(seq.snapshots())
-    assert kernels.launch_counts() == {"block_matmul": 33, "edge_projection": 3, "cad_scores": 2}
+    assert kernels.launch_counts() == {"block_matmul": 33, "edge_projection": 3, "cad_scores": 2,
+                                       "stream_gemm": 0, "fused_panel_matvec": 0}
+    for g, c in zip(runs["cuda"].transitions, runs["cpu"].transitions):
+        s_c = c.scores.numpy()
+        np.testing.assert_allclose(g.scores.cpu().numpy(), s_c, rtol=1e-3,
+                                   atol=1e-3 * np.abs(s_c).max())
+        assert g.top_idx.tolist() == c.top_idx.tolist()
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """bf16 bits of x (round to nearest even) as int16, as the store ships them."""
+    from repro_torch.store.tilestore import _f32_to_bf16_u16
+
+    return torch.from_numpy(_f32_to_bf16_u16(x.cpu().numpy()).view(np.int16)).to(x.device)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (130, 129, 257), (300, 1000, 17)])
+@pytest.mark.parametrize("form", ["init+", "init-", "no_init", "a_bits", "b_bits"])
+def test_stream_gemm_kernel(dev, m, k, n, form):
+    rng = np.random.default_rng(m + k + n)
+    a, b = _arr(rng, (m, k), dev), _arr(rng, (k, n), dev)
+    init = _arr(rng, (m, n), dev) if form.startswith("init") else None
+    sign = -1.0 if form == "init-" else 1.0
+    if form == "a_bits":
+        a = _bits(a)
+    if form == "b_bits":
+        b = _bits(b)
+    got = sg.stream_gemm(a, b, init, sign=sign)
+    torch.testing.assert_close(got, ref.stream_gemm(a, b, init, sign=sign), rtol=1e-5, atol=1e-4)
+    assert torch.equal(got, sg.stream_gemm(a, b, init, sign=sign))
+    if form.endswith("bits"):  # the in-kernel decode is the host codec's widening
+        decoded = sg.stream_gemm(ref.decode_bits(a), ref.decode_bits(b), init, sign=sign)
+        assert torch.equal(got, decoded)
+    assert kernels.launch_counts()["stream_gemm"] == (3 if form.endswith("bits") else 2)
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_stream_gemm_kernel_in_place(dev, sign):
+    rng = np.random.default_rng(11)
+    a, b, init = _arr(rng, (130, 129), dev), _arr(rng, (129, 257), dev), _arr(rng, (130, 257), dev)
+    want = sg.stream_gemm(a, b, init, sign=sign)
+    acc = init.clone()
+    assert sg.stream_gemm(a, b, acc, sign=sign, out=acc) is acc
+    assert torch.equal(acc, want)
+
+
+def test_cad_scores_kernel_on_a_panel(dev):
+    """A row panel scored against the whole Z (z_i a row slice), as the
+    streamed scorer calls it: close to the plain version, and bitwise the
+    same rows of the square call."""
+    rng = np.random.default_rng(5)
+    n, k = 300, 17
+    a1, a2 = _arr(rng, (n, n), dev, positive=True), _arr(rng, (n, n), dev, positive=True)
+    z1, z2 = _arr(rng, (n, k), dev), _arr(rng, (n, k), dev)
+    rs = slice(120, 195)
+    args = (a1[rs], a2[rs], z1[rs], z1, z2[rs], z2, 10.0, 12.5)
+    got = cad.cad_scores_tile(*args)
+    torch.testing.assert_close(got, ref.cad_scores_tile(*args), rtol=1e-4, atol=1e-2)
+    assert torch.equal(got, cad.cad_scores(a1, a2, z1, z2, 10.0, 12.5)[rs])
+
+
+@pytest.mark.parametrize("ph,k,q", [(1, 5, 1), (37, 300, 17), (200, 1000, 32)])
+@pytest.mark.parametrize("bits", [False, True])
+def test_fused_panel_matvec_kernel(dev, ph, k, q, bits):
+    rng = np.random.default_rng(ph + k + q)
+    p, y = _arr(rng, (ph, k), dev), _arr(rng, (k, q), dev)
+    chi, yp = _arr(rng, (ph, q), dev), _arr(rng, (ph, q), dev)
+    if bits:
+        p = _bits(p)
+    got = sg.fused_panel_matvec(p, y, chi, yp)
+    want = ref.fused_panel_matvec(p, y, chi, yp)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-3)
+    for g, again in zip(got, sg.fused_panel_matvec(p, y, chi, yp)):
+        assert torch.equal(g, again)
+    if bits:
+        for g, dec in zip(got, sg.fused_panel_matvec(ref.decode_bits(p), y, chi, yp)):
+            assert torch.equal(g, dec)
+    assert kernels.launch_counts()["fused_panel_matvec"] == (3 if bits else 2)
+
+
+def test_edge_projection_kernel_at_row0(dev):
+    a = _arr(np.random.default_rng(3), (300, 300), dev, positive=True)
+    panel = a[120:180].contiguous()
+    torch.testing.assert_close(ep.edge_projection(panel, seed=5, k=17, row0=120),
+                               ref.edge_projection(panel, seed=5, k=17, row0=120),
+                               rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(ep.edge_projection(panel, seed=5, k=17, row0=120),
+                               ep.edge_projection(a, seed=5, k=17)[120:180],
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_pipeline_stages_through_pinned_memory(dev):
+    from repro_torch.core.tiles import StreamStats
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.store import PanelPipeline, TileStore
+
+    n = 256
+    a = np.random.default_rng(0).random((n, n), dtype=np.float32)
+    for codec in ("raw", "bf16"):
+        h = TileStore.create(None, n=n, grid=4, codec=codec).put_snapshot("a", a)
+        st = StreamStats(MetricsRegistry())
+        with PanelPipeline([h], range(0, n, 64), 64, device=dev, stats=st, encoded=True) as pipe:
+            for r0, (p,) in pipe:
+                assert p.is_cuda and p.dtype == (torch.int16 if codec == "bf16" else torch.float32)
+                want = h.read_panel(r0, 64)
+                np.testing.assert_array_equal(ref.decode_bits(p).cpu().numpy(), want)
+        assert st.panels == 4 and (st.bytes_h2d_saved > 0) == (codec == "bf16")
+
+
+def test_oocore_sequence_on_card_matches_cpu(dev):
+    from repro_torch.core import CommuteConfig, SequenceDetector
+    from repro_torch.graphs import gmm_snapshot_sequence, store_snapshot_sequence
+    from repro_torch.store import TileStore
+
+    runs = {}
+    for d in ("cuda", "cpu"):
+        store = TileStore.create(None, n=256, grid=8, codec="bf16")
+        ids = store_snapshot_sequence(store, gmm_snapshot_sequence(256, 3, seed=4, inject_p=0.02,
+                                                                   device=d))
+        cfg = CommuteConfig(d=6, q=10, oocore=True, tile_codec="bf16", use_gemm_kernel=True)
+        kernels.reset_launch_counts()
+        runs[d] = SequenceDetector(cfg, top_k=10, device=d).run(store.snapshot(i) for i in ids)
+        if d == "cuda":
+            counts = kernels.launch_counts()
+    # scratch grid 8 (32-row panels): 3 x (11 GEMMs x 8 x 8 K steps + 8 chi panels)
+    assert counts["stream_gemm"] == 3 * (11 * 64 + 8) and counts["block_matmul"] == 0
+    its = sum(r.iterations for t in runs["cuda"].transitions for r in t.solve_reports[1:])
+    its += runs["cuda"].transitions[0].solve_reports[0].iterations
+    assert counts["fused_panel_matvec"] == 8 * its
+    assert counts["edge_projection"] == 3 * 8 and counts["cad_scores"] == 2 * 8
     for g, c in zip(runs["cuda"].transitions, runs["cpu"].transitions):
         s_c = c.scores.numpy()
         np.testing.assert_allclose(g.scores.cpu().numpy(), s_c, rtol=1e-3,

@@ -22,6 +22,7 @@ from repro_torch.kernels import block_matmul as bm
 from repro_torch.kernels import cad_score as cad
 from repro_torch.kernels import edge_projection as ep
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import stream_gemm as sg
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -108,7 +109,10 @@ def test_cpu_tensors_take_the_plain_path():
     bm.block_matmul(a, a)
     ep.edge_projection(a, seed=0, k=5)
     cad.cad_scores(a, a, z, z, 1.0, 1.0)
-    assert kernels.launch_counts() == {"block_matmul": 0, "edge_projection": 0, "cad_scores": 0}
+    sg.stream_gemm(a, z, z)
+    sg.fused_panel_matvec(a, z, z, z)
+    assert kernels.launch_counts() == {"block_matmul": 0, "edge_projection": 0, "cad_scores": 0,
+                                       "stream_gemm": 0, "fused_panel_matvec": 0}
 
 
 def test_wrappers_reject_bad_inputs():
@@ -146,6 +150,8 @@ def test_port_imports_without_jax():
         "for m in mods: importlib.import_module(m)\n"
         "assert 'repro_torch.kernels.cad_score' in mods\n"
         "assert 'repro_torch.launch.caddelag_run' in mods\n"
+        "assert {'repro_torch.store.pipeline', 'repro_torch.core.oochain',\n"
+        "        'repro_torch.kernels.stream_gemm'} <= set(mods)\n"
         "print(len(mods))\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
