@@ -26,14 +26,25 @@ Phases, in order; any failure exits non-zero:
    kernels; exact launch counts of that run alone, top-20 ids equal to
    phase 3's, and the device residency bounds;
 6. the out-of-core pipeline at n=1536 with the bf16 tile codec, on the card
-   and on the CPU: equal top-20 ids and allclose scores.
+   and on the CPU: equal top-20 ids and allclose scores;
+7. the query read path: phase 3's sequence again, publishing every
+   embedding to an on-disk raw ``EmbeddingStore`` (plus a bf16 copy of the
+   last artifact), then top-anomaly queries (raw and corrected, k=20 and
+   k=300) and a nearest-neighbor query through ``caddelag-query-torch``'s
+   functions on both artifacts: exact ``panel_topk_update`` launch counts,
+   ids and values against a float64 brute force over the stored Z and
+   against the same queries on the CPU, panel-bounded device residency, and
+   a raw k=20 query (the median of five) at least 10x faster than a resident
+   transition; then the
+   same queries on a synthetic n=259,200 artifact (a 0.5-degree global grid,
+   360 x 720, k=20, Z from numpy seed 0) with no write path.
 
 The line before the last is the JSON ``kernels`` table (``launches`` sums
-the main paths of phases 3 and 5; ``launches_by_path`` splits them); the
+the main paths of phases 3, 5 and 7; ``launches_by_path`` splits them); the
 last line is ``{"ok": true, "device": {...}}``.  It imports neither JAX nor
 the JAX package.  Long logs go to ``OUT``, a gitignored directory beside
-the script; the on-disk store of phase 5 lives under ``build/`` and is
-removed at the end of the phase.
+the script; the on-disk stores of phases 5 and 7 live under ``build/`` and
+are removed at the end of their phase.
 """
 
 from __future__ import annotations
@@ -61,6 +72,15 @@ PH_OOC = 1314  # its scratch panels (scratch grid 8)
 T_OOC = 3  # snapshots of the out-of-core main path
 CHAIN_GEMMS = 2 * (6 - 1) + 1  # d = 6: T and P per level, then P2
 REFINE_STEPS = 10 - 1  # q = 10
+PH_QUERY = 144  # the embedding store's default panel at n=10512: 73 panels
+N_LARGE, K_LARGE, PH_LARGE = 360 * 720, 20, 128  # the synthetic artifact: 2025 panels
+QUERIES = (  # (label, k, corrected, nearest-neighbor node or None)
+    ("top raw k=20", 20, False, None),
+    ("top raw k=300", 300, False, None),
+    ("top corrected k=20", 20, True, None),
+    ("top corrected k=300", 300, True, None),
+    ("neighbors of node 0 k=20", 20, False, 0),
+)
 
 
 def log(msg: str) -> None:
@@ -412,7 +432,7 @@ def phase_main_path(torch) -> dict:
     peak = torch.cuda.max_memory_allocated() / 1e9
 
     want = {"block_matmul": 3 * CHAIN_GEMMS, "edge_projection": 3, "cad_scores": 2,
-            "stream_gemm": 0, "fused_panel_matvec": 0}
+            "stream_gemm": 0, "fused_panel_matvec": 0, "panel_topk_update": 0}
     if counts != want:
         fail(f"main-path launch counts {counts} != {want}")
     event = set(seq.event_nodes.tolist())
@@ -434,7 +454,7 @@ def phase_main_path(torch) -> dict:
     log(f"[main] n={N_MAIN} T=3 d={cfg.d} q={cfg.q} k={K_MAIN}: run wall {wall:.3f} s; "
         f"chain builds {res.chain_builds}; launches {counts}; peak device memory {peak:.2f} GB; "
         f"sequence top-{TOP_K} in event region {g_hits}/{TOP_K}")
-    return {"counts": counts, "peak": peak, "wall": wall,
+    return {"counts": counts, "peak": peak, "wall": wall, "seconds": res.transition_seconds,
             "scores": [r.scores.cpu().numpy() for r in res.transitions],
             "top_idx": [r.top_idx.tolist() for r in res.transitions]}
 
@@ -528,7 +548,7 @@ def phase_oocore(torch, rows: list, resident: dict, per: dict) -> dict:
     want = {"block_matmul": 0, "edge_projection": T_OOC * STORE_GRID,
             "cad_scores": (T_OOC - 1) * STORE_GRID,
             "stream_gemm": T_OOC * (CHAIN_GEMMS * g * g + g),
-            "fused_panel_matvec": T_OOC * REFINE_STEPS * g}
+            "fused_panel_matvec": T_OOC * REFINE_STEPS * g, "panel_topk_update": 0}
     if counts != want:
         fail(f"out-of-core launch counts {counts} != {want}")
     for t, r in enumerate(res.transitions):
@@ -613,6 +633,293 @@ def phase_oocore_end_to_end(torch) -> None:
     check_card_vs_cpu("out-of-core bf16 n=1536", out["cuda"], out["cpu"])
 
 
+def phase_query_kernel(torch, rows: list) -> dict:
+    """panel_topk_update at the query path's shapes: q=1, one 144 x 17 panel,
+    topk 20 and 300 (> 2 x 144), raw and corrected, largest and smallest with
+    an excluded id, fp32 and bf16 bits, from a running state of an earlier
+    panel.  Returns the per-launch times by (topk, corrected, largest, bits)."""
+    from repro_torch.kernels import emb_query as eq
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    ph, k, row0 = PH_QUERY, K_MAIN, 5 * PH_QUERY
+    zq = torch.randn((1, k), generator=g, device=dev)
+    zp, zp_prev = (torch.randn((ph, k), generator=g, device=dev) for _ in range(2))
+    zp[77] = zp[12]  # an exact tie inside the panel
+    idq = torch.rand((1, 1), generator=g, device=dev) + 0.1
+    idp = torch.rand((1, ph), generator=g, device=dev) + 0.1
+    ex = torch.tensor([[row0 + 40]], dtype=torch.int32, device=dev)
+    vol, tol = 5.5e4, 1e-5
+    variants, per = [], {}
+    for topk in (20, 300):
+        for largest in (True, False):
+            for corrected in (False, True):
+                for bits in (False, True):
+                    panel = host_bits(torch, zp) if bits else zp
+                    kw = dict(topk=topk, corrected=corrected, largest=largest)
+                    v0, i0 = eq.topk_init(1, topk, largest=largest, device=dev)
+                    v0, i0 = ref.panel_topk_update(v0, i0, zq, zp_prev, idq, idp, vol, 0, ex, **kw)
+                    args = (v0.contiguous(), i0.contiguous(), zq, panel, idq, idp, vol, row0, ex)
+                    case = (f"topk={topk} {'largest' if largest else 'smallest'} "
+                            f"{'corrected' if corrected else 'raw'} {'bf16 bits' if bits else 'fp32'}")
+                    name = f"panel_topk_update q=1, Z {ph}x{k}, {case}"
+                    gv, gi = eq.panel_topk_update(*args, **kw)
+                    pv, pi = ref.panel_topk_update(*args, **kw)
+                    if not torch.equal(gi, pi):
+                        fail(f"{name}: ids differ from the plain version")
+                    fin = torch.isfinite(pv)
+                    if not torch.equal(torch.isfinite(gv), fin):
+                        fail(f"{name}: empty slots differ from the plain version")
+                    err, scale = check_close(name, gv[fin], pv[fin], tol)
+                    again = eq.panel_topk_update(*args, **kw)
+                    if not (torch.equal(again[0], gv) and torch.equal(again[1], gi)):
+                        fail(f"{name}: two runs on the same input differ")
+                    real = [i for i in gi[0].tolist() if i >= 0]
+                    if len(real) != len(set(real)) or row0 + 40 in gi[fin].tolist():
+                        fail(f"{name}: an id repeats or the excluded id has a finite score")
+                    if bits:
+                        dec = eq.panel_topk_update(*args[:3], host_decoded(torch, panel), *args[4:],
+                                                   **kw)
+                        if not (torch.equal(dec[0], gv) and torch.equal(dec[1], gi)):
+                            fail(f"{name}: the in-kernel decode differs from host-decoded fp32")
+                    ms = time_ms(torch, lambda: eq.panel_topk_update(*args, **kw), reps=200, warmup=5)
+                    plain = time_ms(torch, lambda: ref.panel_topk_update(*args, **kw), reps=50)
+                    moved = nbytes(*args[:6], ex) + nbytes(v0, i0)  # inputs, then the state out
+                    bms, by = bound_ms(4.0 * ph * k + 6.0 * ph, moved)
+                    per[(topk, corrected, largest, bits)] = ms
+                    variants.append(dict(case=case, max_abs_err=err, max_abs_plain=scale, ms=ms,
+                                         plain_ms=plain, bound_ms=bms, bound_by=by,
+                                         decode_bitwise=bits or None))
+                    log(f"[kernels] {name}: ids equal, max_abs_err {err:.3e} (tol {tol:g} x "
+                        f"max|plain| {scale:.3e}), bitwise repeatable"
+                        f"{', decode bitwise' if bits else ''}; {ms:.4f} ms, plain {plain:.4f} ms, "
+                        f"bound {bms:.2e} ms ({by})")
+    v0 = variants[0]
+    rows.append(dict(
+        name="panel_topk_update", route="cuda", source="src/repro_torch/kernels/csrc/emb_query.cu",
+        replaces="src/repro/kernels/emb_query.py:131", max_abs_err=v0["max_abs_err"], ms=v0["ms"],
+        plain_ms=v0["plain_ms"], bound_ms=v0["bound_ms"], bound_by=v0["bound_by"], library_ms=None,
+        tolerance=f"{tol:g} x max|plain|, ids equal", max_abs_plain=v0["max_abs_plain"],
+        shape=f"q=1, Z {ph}x{k} fp32, {v0['case']}", variants=variants))
+    return per
+
+
+def _brute_force(z64: "np.ndarray", h, node, k: int, corrected: bool):
+    """float64 scores over the stored Z, the query's own order, and the
+    magnitude of the terms the kernel's fp32 three-term form cancels."""
+    import numpy as np
+
+    inv = h.inv_deg().astype(np.float64)
+    if node is None:
+        zq = h.zbar.astype(np.float64)
+        inv_q = float(np.asarray([h.inv_deg().mean()], np.float32)[0])
+    else:
+        zq, inv_q = z64[node], inv[node]
+    d2 = ((z64 - zq) ** 2).sum(1)
+    s = d2 - inv_q - inv if corrected else h.vol * d2
+    if node is not None:
+        s[node] = np.inf
+    order = np.argsort(s if node is not None else -s, kind="stable")[:k]
+    terms = (zq @ zq + (z64[order] ** 2).sum(1).max()) * (1.0 if corrected else h.vol)
+    return s, order, terms
+
+
+def _run_queries(torch, tag: str, handles: dict, per: dict, device: str) -> list:
+    from repro_torch.core import nearest_neighbors, top_anomalies_from_store
+
+    out = []
+    for codec, h in handles.items():
+        for label, k, corrected, node in QUERIES:
+            if node is None:
+                res = top_anomalies_from_store(h, k, corrected=corrected, device=device)
+            else:
+                res = nearest_neighbors(h, node, k, corrected=corrected, device=device)
+            est = res.panels * per[(k, corrected, node is None, codec == "bf16")] / 1e3
+            out.append(dict(tag=tag, codec=codec, query=label, k=k, corrected=corrected, node=node,
+                            res=res, kernel_est_s=est))
+    return out
+
+
+def _check_queries(tag: str, card: list, cpu: list, z64: dict, handles: dict) -> None:
+    """Card ids and values against the float64 brute force and the CPU run:
+    ids equal except where the brute-force scores tie within the tolerance;
+    values within 1e-4 of the larger of the largest value and the cancelled terms."""
+    import numpy as np
+
+    for c, p in zip(card, cpu):
+        h, res = handles[c["codec"]], c["res"]
+        s, order, terms = _brute_force(z64[c["codec"]], h, c["node"], c["k"], c["corrected"])
+        name = f"[query] {tag} {c['codec']} {c['query']}"
+        got = res.idx.astype(np.int64)
+        if got.min() < 0 or len(set(got.tolist())) != got.size or got.size != c["k"]:
+            fail(f"{name}: ids missing or repeated")
+        want = s[order]
+        scale = max(float(np.abs(want).max()), float(terms))
+        tol = 1e-4 * scale
+        err = float(np.abs(res.val - want).max())
+        rel = err / float(np.abs(want).max())
+        if err > tol:
+            fail(f"{name}: max |value - float64 brute force| {err:.3e} > 1e-4 x {scale:.3e}")
+        swaps = [r for r in range(got.size) if got[r] != order[r]]
+        if any(abs(s[got[r]] - s[order[r]]) > tol for r in swaps):
+            fail(f"{name}: ids differ from the brute force beyond a tie: ranks {swaps[:5]}")
+        cpu_ids = p["res"].idx.astype(np.int64)
+        cpu_swaps = [r for r in range(got.size) if got[r] != cpu_ids[r]]
+        cpu_err = float(np.abs(res.val - p["res"].val).max())
+        if cpu_err > tol or any(abs(s[got[r]] - s[cpu_ids[r]]) > tol for r in cpu_swaps):
+            fail(f"{name}: card and CPU differ (max |diff| {cpu_err:.3e}, ranks {cpu_swaps[:5]})")
+        c.update(max_abs_err=err, rel_err=rel, tol=tol, brute_swaps=len(swaps),
+                 cpu_swaps=len(cpu_swaps), cpu_max_abs_diff=cpu_err)
+
+
+def phase_query(torch, resident: dict, per: dict) -> dict:
+    """The query read path: publish from the resident write path, then query."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.core import (
+        CommuteConfig,
+        SequenceDetector,
+        reset_stream_stats,
+        stream_stats,
+        top_anomalies_from_store,
+    )
+    from repro_torch.graphs import climate_snapshot_sequence
+    from repro_torch.obs import REGISTRY
+    from repro_torch.store import DEFAULT_PREFETCH_DEPTH, EmbeddingStore
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_emb_", dir=ROOT / "build"))
+    out: dict = {}
+
+    def query_window(tag: str, handles: dict, panels: int, panel_bytes: int) -> list:
+        """Warm up, then the card's queries with the counts zeroed just before."""
+        top_anomalies_from_store(handles["raw"], 20, device="cuda")  # stream / pinned set-up
+        torch.cuda.synchronize()
+        reset_stream_stats()
+        m0 = REGISTRY.snapshot()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        card = _run_queries(torch, tag, handles, per, "cuda")
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        met = REGISTRY.delta(m0)
+        st = stream_stats().snapshot()
+        n_q = len(card)
+        want = {name: 0 for name in counts} | {"panel_topk_update": n_q * panels}
+        if counts != want:
+            fail(f"{tag} query launch counts {counts} != {want}")
+        cap = DEFAULT_PREFETCH_DEPTH * panel_bytes
+        if st["peak_live_bytes"] > cap:
+            fail(f"{tag}: stream.peak_live_bytes {st['peak_live_bytes']} > prefetch depth x one "
+                 f"raw Z panel ({cap})")
+        cpu = _run_queries(torch, tag, handles, per, "cpu")
+        z64 = {c: h.to_numpy().astype(np.float64) for c, h in handles.items()}
+        _check_queries(tag, card, cpu, z64, handles)
+        for c, p in zip(card, cpu):
+            r = c["res"]
+            log(f"[query] {tag} {c['codec']} {c['query']}: {r.latency_ms:.2f} ms on the card "
+                f"(CPU {p['res'].latency_ms:.2f} ms), {r.panels} panels, {r.bytes_read} B read; "
+                f"ids equal to the float64 brute force ({c['brute_swaps']} tie swaps) and the CPU's "
+                f"({c['cpu_swaps']}); max |value err| {c['max_abs_err']:.3e} ({c['rel_err']:.2e} of "
+                f"the largest value; tol {c['tol']:.3e})")
+        split = {
+            "queries": n_q, "wall_s": wall,
+            "phase_query_s": met.get("phase.query.seconds", 0.0),
+            "pinned_staging_copy_s": met.get("pipeline.pin_copy_seconds", 0.0),
+            "consumer_wait_s": met.get("pipeline.consumer_wait_seconds", 0.0),
+            "producer_fetch_s": met.get("pipeline.producer_fetch_seconds", 0.0),
+            "kernels_est_s": sum(c["kernel_est_s"] for c in card),
+        }
+        log(f"[query] {tag}: {n_q} queries, launches {counts['panel_topk_update']} "
+            f"(= {n_q} x {panels}); stream.peak_live_bytes {st['peak_live_bytes']} (cap {cap}); "
+            f"bytes read {st['bytes_read']}, H2D {st['bytes_h2d']}; time split (s, host clock): "
+            + ", ".join(f"{k[:-2]} {v:.4f}" for k, v in split.items() if k.endswith("_s"))
+            + " (kernels_est: panels x phase-2 per-launch ms; producer_fetch overlaps)")
+        out[tag] = {"counts": counts, "stream": st, "split": split,
+                    "queries": [{**{k: v for k, v in c.items() if k != "res"},
+                                 "latency_ms": c["res"].latency_ms, "panels": c["res"].panels,
+                                 "bytes_read": c["res"].bytes_read,
+                                 "cpu_latency_ms": p["res"].latency_ms}
+                                for c, p in zip(card, cpu)]}
+        return card
+
+    try:
+        cfg = CommuteConfig(eps_rp=1e-3, d=6, q=10)
+        raw = EmbeddingStore.create(tmp / "raw", n=N_MAIN, k=K_MAIN, seed=cfg.seed,
+                                    meta={"dataset": "climate", "n": N_MAIN, "seed": 0})
+        if raw.panel_rows != PH_QUERY:
+            fail(f"default panel rows at n={N_MAIN} is {raw.panel_rows}, expected {PH_QUERY}")
+        seq = climate_snapshot_sequence(73, 144, t_steps=3, device="cuda")
+        torch.cuda.synchronize()
+        m0 = REGISTRY.snapshot()
+        kernels.reset_launch_counts()
+        res = SequenceDetector(cfg, top_k=TOP_K, device="cuda", emb_store=raw).run(seq.snapshots())
+        torch.cuda.synchronize()
+        counts_w = kernels.launch_counts()
+        met = REGISTRY.delta(m0)
+        if counts_w != resident["counts"]:
+            fail(f"publishing write path launch counts {counts_w} != phase 3's {resident['counts']}")
+        if raw.embedding_ids != ["t0000", "t0001", "t0002"]:
+            fail(f"published artifacts {raw.embedding_ids}")
+        if [r.top_idx.tolist() for r in res.transitions] != resident["top_idx"]:
+            fail("the publishing run's top-20 ids differ from phase 3's")
+        last = raw.latest()
+        bf = EmbeddingStore.create(tmp / "bf16", n=N_MAIN, k=K_MAIN, codec="bf16", seed=cfg.seed)
+        bf.put_embedding(last.emb_id, last.to_numpy(), last.vol, last.deg, zbar=last.zbar)
+        pub = met.get("phase.publish.seconds", 0.0)
+        log(f"[query] write path with publishing: transitions "
+            f"{', '.join(f'{t:.3f}' for t in res.transition_seconds)} s (phase 3: "
+            f"{', '.join(f'{t:.3f}' for t in resident['seconds'])} s); 3 artifacts of "
+            f"{N_MAIN}x{K_MAIN} in {N_MAIN // PH_QUERY} panels published in {pub:.3f} s; launches "
+            f"as phase 3; top-{TOP_K} ids as phase 3")
+        out["write"] = {"transition_seconds": res.transition_seconds, "publish_s": pub}
+        del seq, res
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        handles = {"raw": last, "bf16": bf.latest()}
+        card = query_window("n=10512", handles, N_MAIN // PH_QUERY, PH_QUERY * K_MAIN * 4)
+        # The bar takes the median of five raw top-20 queries: the window's and
+        # four more, since the host's share of a query varies from call to call.
+        q20s = [next(c["res"].latency_ms for c in card
+                     if c["codec"] == "raw" and c["query"] == "top raw k=20")]
+        q20s += [top_anomalies_from_store(last, 20, device="cuda").latency_ms for _ in range(4)]
+        q20 = sorted(q20s)[2]
+        t_res = min(resident["seconds"])
+        log(f"[query] n={N_MAIN}: raw top-20 query, median of {', '.join(f'{t:.2f}' for t in q20s)} "
+            f"ms: {q20:.2f} ms against a resident transition {t_res * 1e3:.1f} ms (phase 3, "
+            f"fastest): {t_res * 1e3 / q20:.1f}x (bar: 10x)")
+        if t_res * 1e3 < 10.0 * q20:
+            fail(f"raw top-20 query {q20:.2f} ms (median of five) is not 10x faster than a "
+                 f"transition ({t_res * 1e3:.1f} ms)")
+        out["read_write_ratio"] = t_res * 1e3 / q20
+        out["raw_top20_latencies_ms"] = q20s
+
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(0)
+        z = rng.standard_normal((N_LARGE, K_LARGE), dtype=np.float32)
+        deg = rng.uniform(0.5, 2.0, N_LARGE).astype(np.float32)
+        large = {}
+        for codec in ("raw", "bf16"):
+            st = EmbeddingStore.create(tmp / f"large_{codec}", n=N_LARGE, k=K_LARGE, codec=codec)
+            if st.panel_rows != PH_LARGE:
+                fail(f"default panel rows at n={N_LARGE} is {st.panel_rows}, expected {PH_LARGE}")
+            large[codec] = st.put_embedding("t0000", z, float(deg.sum(dtype=np.float64)), deg)
+        log(f"[query] n={N_LARGE} (360 x 720), k={K_LARGE}: wrote a raw ({z.nbytes / 1e6:.1f} MB) "
+            f"and a bf16 ({z.nbytes / 2e6:.1f} MB) artifact of {N_LARGE // PH_LARGE} panels in "
+            f"{time.perf_counter() - t0:.1f} s")
+        query_window(f"n={N_LARGE}", large, N_LARGE // PH_LARGE, PH_LARGE * K_LARGE * 4)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
@@ -652,19 +959,25 @@ def main() -> int:
     rows: list = []
     phase_kernels(torch, rows)
     per_launch = phase_stream_kernels(torch, rows)
+    per_query = phase_query_kernel(torch, rows)
     torch.cuda.empty_cache()
     resident = phase_main_path(torch)
     torch.cuda.empty_cache()
     phase_end_to_end(torch)
     oocore = phase_oocore(torch, rows, resident, per_launch)
     phase_oocore_end_to_end(torch)
+    torch.cuda.empty_cache()
+    query = phase_query(torch, resident, per_query)
     for row in rows:
         by_path = {"resident": resident["counts"][row["name"]],
-                   "oocore": oocore["counts"][row["name"]]}
+                   "oocore": oocore["counts"][row["name"]],
+                   "query": query["n=10512"]["counts"][row["name"]],
+                   f"query n={N_LARGE}": query[f"n={N_LARGE}"]["counts"][row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     (OUT / "chip_smoke_oocore.json").write_text(json.dumps(
         {"card": smi, "per_launch": per_launch, **oocore}, indent=1))
+    (OUT / "chip_smoke_query.json").write_text(json.dumps({"card": smi, **query}, indent=1))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

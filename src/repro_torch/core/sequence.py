@@ -8,7 +8,8 @@ out-of-core operator's scratch P1 / P2 are removed as the operator leaves
 the two-snapshot window.  With ``donate=True`` the outgoing snapshot's
 device memory (its adjacency, embedding and chain matrices) is freed as soon
 as its last transition is scored -- callers must not touch a donated
-snapshot again.
+snapshot again.  With an ``emb_store`` attached, each snapshot's embedding
+is published to it (a host copy, before scoring) for the query read path.
 
 The sequence-wide top-k is merged on the host from each transition's
 top-k, ties to the lower candidate index as ``lax.top_k`` breaks them.
@@ -28,7 +29,7 @@ from repro_torch.core.cad import CADResult, node_anomaly_scores, top_anomalies
 from repro_torch.core.embedding import CommuteConfig, Embedding, commute_time_embedding
 from repro_torch.core.tiles import is_streamable
 from repro_torch.device import resolve_device, synchronize
-from repro_torch.obs import REGISTRY, trace
+from repro_torch.obs import REGISTRY, phase, trace
 
 
 @dataclass
@@ -73,11 +74,14 @@ class SequenceDetector:
         top_k: int = 10,
         donate: bool = False,
         device: str | torch.device = "cuda",
+        emb_store=None,
     ):
         self.cfg = cfg or CommuteConfig()
         self.top_k = top_k
         self.donate = donate
         self.device = resolve_device(device)
+        # Duck-typed (put_embedding): the core imports no store.
+        self.emb_store = emb_store
         self._prev: tuple[torch.Tensor, Embedding] | None = None
         self._t = 0
         self._transitions: list[CADResult] = []
@@ -120,6 +124,19 @@ class SequenceDetector:
             if isinstance(buf, torch.Tensor):
                 _free(buf)
 
+    def _publish(self, emb: Embedding) -> None:
+        """Publish snapshot t's embedding to the attached store as ``tNNNN``.
+
+        The artifact is a host copy of (z, vol, deg), so readers never alias
+        device buffers that ``donate=True`` frees; the store commits it only
+        once every panel is written.  Resident and out-of-core operators
+        both carry ``deg`` on the card.
+        """
+        with phase("publish", t=self._t, n=int(emb.z.shape[0])):
+            self.emb_store.put_embedding(
+                f"t{self._t:04d}", emb.z.cpu().numpy(), float(emb.vol), emb.op.deg.cpu().numpy()
+            )
+
     def push(self, a) -> CADResult | None:
         """Consume snapshot t (a tensor or a snapshot handle); returns the
         CADResult of transition (t-1, t), None at t=0."""
@@ -132,6 +149,8 @@ class SequenceDetector:
                 self._prev[1].z if (self.cfg.warm_start and self._prev is not None) else None
             )
             emb = commute_time_embedding(a, self.cfg, warm_from=warm_from, device=self.device)
+            if self.emb_store is not None:
+                self._publish(emb)
             out = None
             if self._prev is not None:
                 a_prev, e_prev = self._prev
@@ -190,6 +209,8 @@ def detect_sequence_anomalies(
     top_k: int = 10,
     donate: bool = False,
     device: str | torch.device = "cuda",
+    emb_store=None,
 ) -> SequenceResult:
     """One-shot convenience wrapper around :class:`SequenceDetector`."""
-    return SequenceDetector(cfg, top_k=top_k, donate=donate, device=device).run(snapshots)
+    return SequenceDetector(cfg, top_k=top_k, donate=donate, device=device,
+                            emb_store=emb_store).run(snapshots)

@@ -61,13 +61,15 @@ class SnapshotSequence:
     """A lazily-built sequence of T snapshots plus per-transition truth.
 
     ``truth[t]`` holds the ground-truth anomalous nodes of transition
-    (t, t+1), strongest first (may be empty).
+    (t, t+1), strongest first (may be empty); ``labels`` the per-node 0/1
+    planted outliers of the labeled GMM mode.
     """
 
     t_steps: int
     truth: list[np.ndarray]
     components: np.ndarray | None = None
     event_nodes: np.ndarray | None = None
+    labels: np.ndarray | None = None
     _build: Callable[[int], torch.Tensor] = field(default=None, repr=False)
 
     def snapshots(self) -> Iterator[torch.Tensor]:
@@ -85,6 +87,18 @@ def _gmm_injection(n: int, seed: int, t: int, inject_p: float) -> np.ndarray:
     return r_sym
 
 
+def _dimmed_similarity_kern(bandwidth: float):
+    """exp(-d/bw) * s_i * s_j over (x, y, scale) features: the scale column
+    dims a node's whole row and column (a low-degree node at a normal spot)."""
+
+    def kern(xi, xj):
+        d2 = _sq_dists(xi[:, :2], xj[:, :2])
+        sim = torch.exp(-torch.sqrt(torch.clamp(d2, min=1e-12)) / bandwidth)
+        return sim * xi[:, None, 2] * xj[None, :, 2]
+
+    return kern
+
+
 def gmm_snapshot_sequence(
     n: int,
     t_steps: int,
@@ -94,6 +108,10 @@ def gmm_snapshot_sequence(
     inject_p: float = 0.05,
     inject_steps: set[int] | None = None,
     drift_nodes: int | None = None,
+    anomaly_nodes: int | np.ndarray | None = None,
+    anomaly_scale: float = 12.0,
+    dim_nodes: int = 0,
+    dim_factor: float = 0.05,
     dtype=torch.float32,
     device="cuda",
 ) -> SnapshotSequence:
@@ -103,6 +121,12 @@ def gmm_snapshot_sequence(
     points by ``noise`` (only ``drift_nodes`` random movers when given) and,
     at steps in ``inject_steps`` (default every t >= 1), adds R_t.  Truth for
     (t, t+1) is the inter-cluster injected nodes of both endpoints.
+
+    ``anomaly_nodes`` (a count or explicit ids) is the labeled mode of the
+    query path's ROC-AUC bar: those nodes move into one tight clump at radius
+    ``anomaly_scale`` (structural outliers), ``dim_nodes`` normal nodes have
+    their similarity rows and columns scaled by ``dim_factor`` (low-degree
+    distractors, labeled 0), and the sequence carries ``labels`` (n,) 0/1.
     """
     if t_steps < 2:
         raise ValueError("a sequence needs at least 2 snapshots")
@@ -110,6 +134,24 @@ def gmm_snapshot_sequence(
     inject_steps = set(range(1, t_steps)) if inject_steps is None else set(inject_steps)
     rng = np.random.default_rng(seed)
     pts0, comp = gmm_points(n, seed)
+
+    labels = scale = None
+    if anomaly_nodes is not None:
+        if np.ndim(anomaly_nodes) == 0:
+            outliers = rng.choice(n, size=min(int(anomaly_nodes), n), replace=False)
+        else:
+            outliers = np.asarray(anomaly_nodes, np.int64).reshape(-1)
+        labels = np.zeros(n, np.int8)
+        labels[outliers] = 1
+        theta = float(rng.uniform(0, 2 * np.pi))
+        centre = anomaly_scale * np.array([np.cos(theta), np.sin(theta)], np.float32)
+        pts0 = pts0.copy()
+        pts0[outliers] = centre + 0.3 * rng.normal(size=(outliers.size, 2)).astype(np.float32)
+        scale = np.ones(n, np.float32)
+        if dim_nodes:
+            normal = np.setdiff1d(np.arange(n), outliers)
+            dimmed = rng.choice(normal, size=min(int(dim_nodes), normal.size), replace=False)
+            scale[dimmed] = float(dim_factor)
 
     pts_all = [pts0]
     for _ in range(1, t_steps):
@@ -135,12 +177,18 @@ def gmm_snapshot_sequence(
         truth.append(nodes[np.argsort(-s[nodes])])
 
     def build(t: int) -> torch.Tensor:
-        a = similarity_graph(pts_all[t], dtype=dtype, device=dev)
+        if scale is None:
+            a = similarity_graph(pts_all[t], dtype=dtype, device=dev)
+        else:
+            feats = np.concatenate([pts_all[t], scale[:, None]], axis=1)
+            a = build_from_nodes(torch.from_numpy(feats).to(dev), _dimmed_similarity_kern(1.0),
+                                 dtype=dtype)
         if t in inject_steps:
             a = a + torch.from_numpy(_gmm_injection(n, seed, t, inject_p)).to(dev, dtype)
         return a
 
-    return SnapshotSequence(t_steps=t_steps, truth=truth, components=comp, _build=build)
+    return SnapshotSequence(t_steps=t_steps, truth=truth, components=comp, labels=labels,
+                            _build=build)
 
 
 def climate_snapshot_sequence(

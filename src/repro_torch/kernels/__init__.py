@@ -6,7 +6,9 @@
   ``repro/kernels/edge_projection.py``;
 * ``cad_score`` -- ``csrc/cad_score.cu``, replaces ``repro/kernels/cad_score.py``;
 * ``stream_gemm`` -- ``csrc/stream_gemm.cu``, replaces ``stream_gemm`` and
-  ``fused_panel_matvec`` of ``repro/kernels/stream_gemm.py`` (two counters).
+  ``fused_panel_matvec`` of ``repro/kernels/stream_gemm.py`` (two counters);
+* ``emb_query`` -- ``csrc/emb_query.cu``, replaces ``panel_topk_update`` of
+  ``repro/kernels/emb_query.py``.
 
 Each wrapper counts its launches in a plain integer; :func:`launch_counts`
 reads them and :func:`reset_launch_counts` zeroes them.
@@ -17,6 +19,7 @@ from __future__ import annotations
 from repro_torch.kernels import block_matmul as _bm
 from repro_torch.kernels import cad_score as _cad
 from repro_torch.kernels import edge_projection as _ep
+from repro_torch.kernels import emb_query as _eq
 from repro_torch.kernels import stream_gemm as _sg
 
 # name -> (module, its counter attribute)
@@ -26,6 +29,7 @@ _COUNTERS = {
     "cad_scores": (_cad, "launches"),
     "stream_gemm": (_sg, "gemm_launches"),
     "fused_panel_matvec": (_sg, "matvec_launches"),
+    "panel_topk_update": (_eq, "launches"),
 }
 
 

@@ -22,7 +22,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("block_matmul.cu", "edge_projection.cu", "cad_score.cu", "stream_gemm.cu")
+SOURCES = ("block_matmul.cu", "edge_projection.cu", "cad_score.cu", "stream_gemm.cu",
+           "emb_query.cu")
 HEADERS = ("common.cuh", "gemm_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -41,6 +42,8 @@ SIGNATURES = {
     "rt_cad_scores": (_P, _P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _P),
     "rt_stream_gemm": (_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P),
     "rt_fused_panel_matvec": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "rt_panel_topk_update": (_P, _P, _P, _P, _I, _P, _P, _F, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _P),
 }
 
 _lock = threading.Lock()

@@ -5,6 +5,7 @@
 // and returns cudaGetLastError() so the Python wrapper can raise.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -15,6 +16,15 @@ __device__ __forceinline__ float rt_warp_sum(float v) {
 #pragma unroll
   for (int off = RT_WARP / 2; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   return v;
+}
+
+// Operand widening to fp32.  bf16 bit patterns (uint16, carried by PyTorch as
+// int16) become the high half of a float32: the exact widening of the host
+// codec `_bf16_u16_to_f32`.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(uint16_t bits) {
+  return __uint_as_float(static_cast<uint32_t>(bits) << 16);
 }
 
 // ---------------------------------------------------------------------------

@@ -13,8 +13,6 @@
 // no atomics, bitwise repeatable, and C may alias init.
 #pragma once
 
-#include <cuda_bf16.h>
-
 #include "common.cuh"
 
 namespace {
@@ -26,12 +24,6 @@ constexpr int GEMM_THREADS = 256;
 constexpr int GEMM_A_LOADS = GEMM_BM * GEMM_BK / GEMM_THREADS;  // A elements per thread per slab
 constexpr int GEMM_B_LOADS = GEMM_BK * GEMM_BN / GEMM_THREADS;  // B elements per thread per slab
 constexpr int GEMM_A_PAD = 4;  // keeps the transposed A stores off one bank
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(uint16_t bits) {
-  return __uint_as_float(static_cast<uint32_t>(bits) << 16);
-}
 
 template <typename TA, typename TB>
 __global__ void __launch_bounds__(GEMM_THREADS)

@@ -100,3 +100,32 @@ def fused_panel_matvec(p_panel, y, chi_panel, y_panel):
     gy = chi + y_panel.to(torch.float32) - mv
     delta = chi - mv
     return gy, delta.sum(dim=0, keepdim=True), (delta * delta).sum().reshape(1, 1)
+
+
+def panel_topk_update(run_vals, run_idx, zq, z_panel, inv_deg_q, inv_deg_panel, vol, row0,
+                      exclude, *, topk: int, corrected: bool = False, largest: bool = True):
+    """Merge one Z row panel into the running (q, topk) state.
+
+    Scores ``vol * dist2`` (or ``dist2 - 1/deg_q - 1/deg_j`` when
+    ``corrected``) with ``dist2 = max(|zq|^2 + |zj|^2 - 2 zq.zj, 0)`` in fp32,
+    the excluded global id scored worst; then a stable sort of the state
+    followed by the panel keeps the best ``topk``, ties to the lower position.
+    """
+    zq = zq.to(torch.float32)
+    zb = decode_bits(z_panel)
+    sq_q = torch.sum(zq * zq, dim=-1, keepdim=True)
+    sq_j = torch.sum(zb * zb, dim=-1)[None, :]
+    dist2 = torch.clamp(sq_q + sq_j - 2.0 * (zq @ zb.T), min=0.0)
+    if corrected:
+        scores = dist2 - inv_deg_q - inv_deg_panel
+    else:
+        scores = torch.tensor(float(vol), dtype=torch.float32, device=dist2.device) * dist2
+    ph = zb.shape[0]
+    cidx = row0 + torch.arange(ph, device=zq.device, dtype=torch.int32)[None, :]
+    worst = float("-inf") if largest else float("inf")
+    scores = torch.where(cidx == exclude, torch.full_like(scores, worst), scores)
+    vals = torch.cat([run_vals, scores], dim=1)
+    idx = torch.cat([run_idx, cidx.expand(zq.shape[0], ph)], dim=1)
+    work = vals if largest else -vals
+    order = torch.sort(work, dim=1, descending=True, stable=True).indices[:, :topk]
+    return torch.gather(vals, 1, order), torch.gather(idx, 1, order)

@@ -5,12 +5,15 @@ climate-like snapshot sequence through :class:`SequenceDetector` and prints
 the same ``[caddelag]`` per-transition lines.  ``--store DIR`` writes the
 sequence into a tiled on-disk snapshot store and scores it from there, one
 row panel at a time; ``--oocore-chain`` also spills the chain's working
-matrices to a scratch store.
+matrices to a scratch store.  ``--emb-store DIR`` publishes each snapshot's
+embedding to an embedding store that ``caddelag-query-torch`` serves reads from.
 
   caddelag-run-torch --n 10512 --t-steps 3 --dataset climate        # on the card
   caddelag-run-torch --device cpu --n 64 --t-steps 3 --d 3 --q 4    # plain PyTorch
   caddelag-run-torch --n 10512 --t-steps 3 --dataset climate --store DIR \
       --oocore-chain --use-gemm-kernel                               # out-of-core
+  caddelag-run-torch --n 10512 --t-steps 3 --dataset climate --emb-store DIR
+  caddelag-query-torch --store DIR --top-k 20                        # then query it
 """
 
 from __future__ import annotations
@@ -63,6 +66,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="score out-of-core from a tiled snapshot store at DIR")
     ap.add_argument("--store-grid", type=int, default=None,
                     help="tiles per side when creating the store (default: auto)")
+    ap.add_argument("--emb-store", default=None, metavar="DIR",
+                    help="publish each snapshot's committed (Z, vol, deg) embedding into an "
+                         "EmbeddingStore at DIR -- the artifact caddelag-query-torch serves "
+                         "top-k / neighbor reads from without re-running the pipeline")
+    ap.add_argument("--emb-codec", default="raw", choices=["raw", "bf16"],
+                    help="embedding artifact codec (bf16 halves bytes; the query kernel "
+                         "decodes it on the card)")
     ap.add_argument("--oocore-chain", action="store_true",
                     help="run the squaring chain out-of-core: S/T/P spill through a "
                          "TileStore scratch, device residency is panels, not n^2")
@@ -121,7 +131,16 @@ def main(argv=None) -> None:
             side, args.n // side, args.t_steps, sigma=1.0, device=args.device
         )
 
-    det = SequenceDetector(cfg, top_k=args.top_k, donate=args.donate, device=args.device)
+    emb_store = None
+    if args.emb_store is not None:
+        from repro_torch.store import EmbeddingStore
+
+        emb_store = EmbeddingStore.create(
+            args.emb_store, n=n_nodes, k=cfg.k_rp(n_nodes), codec=args.emb_codec,
+            seed=cfg.seed, meta={"dataset": args.dataset, "n": n_nodes, "seed": 0},
+        )
+    det = SequenceDetector(cfg, top_k=args.top_k, donate=args.donate, device=args.device,
+                           emb_store=emb_store)
     if args.store is not None:
         grid = args.store_grid or _default_grid(n_nodes)
         # meta fingerprints the generator: a reused directory with other
@@ -159,6 +178,14 @@ def main(argv=None) -> None:
             f"H2D{saved}, peak device panel residency "
             f"{st.peak_live_bytes / 1e6:.2f} MB (vs ~{5 * n_nodes * n_nodes * 4 / 1e6:.2f} MB "
             f"resident chain working set)"
+        )
+
+    if emb_store is not None:
+        print(
+            f"[caddelag] embedding artifacts -> {args.emb_store}: "
+            f"{len(emb_store.embedding_ids)} committed (codec={emb_store.manifest.codec}, "
+            f"panel_rows={emb_store.panel_rows}); serve reads with: caddelag-query-torch "
+            f"--store {args.emb_store} --top-k {args.top_k} --device {args.device}"
         )
 
     print(

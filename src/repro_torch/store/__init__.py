@@ -1,9 +1,16 @@
-"""Out-of-core snapshot store: tiled dense adjacencies on host RAM or disk.
+"""Stores on host RAM or disk: tiled dense adjacencies and embedding artifacts.
 
-Port of :mod:`repro.store` (the snapshot store and the panel pipeline; the
-embedding store waits for the query path).
+Port of :mod:`repro.store`: the snapshot store, the panel pipeline, and the
+embedding store the query read path serves from.
 """
 
+from repro_torch.store.embstore import (
+    EMB_CODECS,
+    EmbeddingHandle,
+    EmbeddingStore,
+    EmbManifest,
+    default_panel_rows,
+)
 from repro_torch.store.pipeline import (
     DEFAULT_PREFETCH_DEPTH,
     CachingHandle,
@@ -26,6 +33,10 @@ __all__ = [
     "CODECS",
     "CachingHandle",
     "DEFAULT_PREFETCH_DEPTH",
+    "EMB_CODECS",
+    "EmbManifest",
+    "EmbeddingHandle",
+    "EmbeddingStore",
     "MANIFEST_NAME",
     "PanelPipeline",
     "SnapshotHandle",
@@ -33,6 +44,7 @@ __all__ = [
     "StoreManifest",
     "TileCodec",
     "TileStore",
+    "default_panel_rows",
     "fetch_panel_encoded_info",
     "fetch_panel_info",
     "resolve_codec",

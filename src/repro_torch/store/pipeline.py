@@ -10,11 +10,15 @@ origins of one or more operands:
   staging and give backpressure;
 * the consumer thread **stages panel t+1 before panel t is yielded**.  On
   the card every panel goes through a pinned host buffer and a
-  ``non_blocking`` copy on a side CUDA stream; the compute stream waits on
-  the copy's event when the panel is yielded, and the staged tensor is
+  ``non_blocking`` copy.  A panel of ``SIDE_STREAM_MIN_BYTES`` or more is
+  copied on a side CUDA stream: the compute stream waits on the copy's
+  event when the panel is yielded, and the staged tensor is
   ``record_stream``-ed so the caching allocator cannot hand its memory out
-  while the compute stream still reads it.  Pinning is the path: a failure
-  to pin raises (there is no pageable fallback).  With ``device="cpu"``
+  while the compute stream still reads it.  A smaller panel (an embedding
+  panel of the query path) is copied on the compute stream itself: its copy
+  takes microseconds, less than the event, the wait and ``record_stream``
+  cost the host.  Pinning is the path: a failure to pin raises (there is
+  no pageable fallback).  With ``device="cpu"``
   nothing is copied to a card: panels become tensors through
   ``torch.from_numpy(np.array(...))`` (memory-mapped tiles are read-only);
 * **encoded shipping** (``encoded=True``): bf16 tiles travel as their uint16
@@ -52,6 +56,7 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import REGISTRY as _OBS_REGISTRY
 
 DEFAULT_PREFETCH_DEPTH = 2
+SIDE_STREAM_MIN_BYTES = 1 << 20  # smaller panels are copied on the compute stream
 
 
 def _is_handle(x) -> bool:
@@ -97,9 +102,9 @@ def to_device(panel: np.ndarray, device: torch.device, stream=None):
     """Copy a host panel to ``device``; returns ``(tensor, event or None)``.
 
     On CUDA the panel is copied into a pinned buffer (raises if pinning
-    fails) and sent with a ``non_blocking`` copy on ``stream`` (default: the
-    current stream).  The returned event marks the copy's end; a consumer on
-    another stream must wait on it before reading the tensor.
+    fails) and sent with a ``non_blocking`` copy, on the current stream or
+    on ``stream``.  Only a copy on another stream returns an event: it marks
+    the copy's end, and a consumer must wait on it before reading the tensor.
     """
     if device.type != "cuda":
         return host_tensor(panel).to(device), None
@@ -108,7 +113,8 @@ def to_device(panel: np.ndarray, device: torch.device, stream=None):
     pinned = torch.empty(panel.shape, dtype=_torch_dtype(panel.dtype), pin_memory=True)
     np.copyto(pinned.numpy(), panel.view(np.int16) if panel.dtype == np.uint16 else panel)
     _OBS_REGISTRY.inc("pipeline.pin_copy_seconds", time.perf_counter() - t0)
-    stream = stream or torch.cuda.current_stream(device)
+    if stream is None:
+        return pinned.to(device, non_blocking=True), None
     with torch.cuda.stream(stream):
         dev = pinned.to(device, non_blocking=True)
         event = torch.cuda.Event()
@@ -272,9 +278,10 @@ class PanelPipeline:
                 staged.append(panel)
                 events.append(None)
                 continue
-            if self.device.type == "cuda" and self._copy_stream is None:
+            side = self.device.type == "cuda" and panel.nbytes >= SIDE_STREAM_MIN_BYTES
+            if side and self._copy_stream is None:
                 self._copy_stream = torch.cuda.Stream(self.device)
-            dev, event = to_device(panel, self.device, self._copy_stream)
+            dev, event = to_device(panel, self.device, self._copy_stream if side else None)
             nb = dev.numel() * dev.element_size()
             nbytes += nb
             if self.stats is not None:

@@ -17,6 +17,7 @@ from repro_torch import kernels
 from repro_torch.kernels import block_matmul as bm
 from repro_torch.kernels import cad_score as cad
 from repro_torch.kernels import edge_projection as ep
+from repro_torch.kernels import emb_query as eq
 from repro_torch.kernels import ref
 from repro_torch.kernels import stream_gemm as sg
 
@@ -106,7 +107,8 @@ def test_sequence_on_card_matches_cpu(dev):
         seq = gmm_snapshot_sequence(256, 3, seed=4, inject_p=0.02, device=d)
         runs[d] = SequenceDetector(cfg, top_k=10, device=d).run(seq.snapshots())
     assert kernels.launch_counts() == {"block_matmul": 33, "edge_projection": 3, "cad_scores": 2,
-                                       "stream_gemm": 0, "fused_panel_matvec": 0}
+                                       "stream_gemm": 0, "fused_panel_matvec": 0,
+                                       "panel_topk_update": 0}
     for g, c in zip(runs["cuda"].transitions, runs["cpu"].transitions):
         s_c = c.scores.numpy()
         np.testing.assert_allclose(g.scores.cpu().numpy(), s_c, rtol=1e-3,
@@ -241,3 +243,89 @@ def test_oocore_sequence_on_card_matches_cpu(dev):
         np.testing.assert_allclose(g.scores.cpu().numpy(), s_c, rtol=1e-3,
                                    atol=1e-3 * np.abs(s_c).max())
         assert g.top_idx.tolist() == c.top_idx.tolist()
+
+
+def _topk_case(dev, rng, q, ph, k, topk, largest, bits, seeded=True):
+    zq, zp = _arr(rng, (q, k), dev), _arr(rng, (ph, k), dev)
+    zp[ph // 2] = zp[1]  # an exact tie inside the panel
+    if bits:
+        zp = _bits(zp)
+    idq = _arr(rng, (q, 1), dev, positive=True) + 0.1
+    idp = _arr(rng, (1, ph), dev, positive=True) + 0.1
+    ex = torch.full((q, 1), -1, dtype=torch.int32, device=dev)
+    ex[0, 0] = 1000 + 3  # a global id inside the panel
+    vals, ids = eq.topk_init(q, topk, largest=largest, device=dev)
+    if seeded:  # a running state from an earlier panel, through the plain version
+        vals, ids = ref.panel_topk_update(vals, ids, zq, _arr(rng, (ph, k), dev), idq, idp,
+                                          2.5, 0, ex, topk=topk, largest=largest)
+    return vals.contiguous(), ids.contiguous(), zq, zp, idq, idp, ex
+
+
+@pytest.mark.parametrize("q,ph,k,topk", [(1, 144, 17, 20), (1, 144, 17, 300), (3, 128, 20, 20),
+                                         (2, 7, 5, 40), (1, 256, 64, 256)])
+@pytest.mark.parametrize("corrected", [False, True], ids=["raw", "corrected"])
+@pytest.mark.parametrize("largest", [True, False], ids=["largest", "smallest"])
+@pytest.mark.parametrize("bits", [False, True], ids=["fp32", "bf16bits"])
+def test_panel_topk_update_kernel(dev, q, ph, k, topk, corrected, largest, bits):
+    rng = np.random.default_rng(q + ph + k + topk)
+    vals, ids, zq, zp, idq, idp, ex = _topk_case(dev, rng, q, ph, k, topk, largest, bits)
+    args = (vals, ids, zq, zp, idq, idp, 2.5, 1000, ex)
+    kw = dict(topk=topk, corrected=corrected, largest=largest)
+    got_v, got_i = eq.panel_topk_update(*args, **kw)
+    want_v, want_i = ref.panel_topk_update(*args, **kw)
+    finite = torch.isfinite(want_v)
+    assert torch.equal(torch.isfinite(got_v), finite)
+    tol = 1e-5 * float(want_v[finite].abs().max())
+    assert float((got_v[finite] - want_v[finite]).abs().max()) <= tol
+    # ids equal, except two candidates whose fp32 scores tie within the
+    # tolerance may trade places (the kernel and torch sum over k in other orders)
+    swaps = (got_i != want_i).nonzero().tolist()
+    assert all(abs(float(got_v[r, c] - want_v[r, c])) <= tol for r, c in swaps)
+    for r in range(q):
+        cut = float(want_v[r][finite[r]][-1])
+        odd = set(got_i[r].tolist()) ^ set(want_i[r].tolist())
+        values = dict(zip(got_i[r].tolist() + want_i[r].tolist(),
+                          got_v[r].tolist() + want_v[r].tolist()))
+        assert all(abs(values[i] - cut) <= tol for i in odd)  # only ties at the cut
+    again_v, again_i = eq.panel_topk_update(*args, **kw)
+    assert torch.equal(again_v, got_v) and torch.equal(again_i, got_i)
+    for row in got_i.tolist():  # no id twice, whatever topk
+        real = [i for i in row if i >= 0]
+        assert len(real) == len(set(real))
+    assert 1003 not in got_i[0].tolist() or not torch.isfinite(got_v[0]).all()
+    assert kernels.launch_counts()["panel_topk_update"] == 2
+
+
+def test_panel_topk_update_kernel_refuses_what_it_cannot_take(dev):
+    vals, ids = eq.topk_init(1, 8000, largest=True, device=dev)
+    zq, zp = torch.zeros((1, 4), device=dev), torch.zeros((300, 4), device=dev)
+    idq, idp = torch.zeros((1, 1), device=dev), torch.zeros((1, 300), device=dev)
+    ex = torch.full((1, 1), -1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="at most"):
+        eq.panel_topk_update(vals, ids, zq, zp, idq, idp, 1.0, 0, ex, topk=8000)
+    with pytest.raises(ValueError, match="contiguous"):
+        eq.panel_topk_update(vals[:, :4], ids[:, :4], zq, torch.zeros((4, 300), device=dev).T,
+                             idq, idp, 1.0, 0, ex, topk=4)
+    assert kernels.launch_counts()["panel_topk_update"] == 0
+
+
+@pytest.mark.parametrize("codec", ["raw", "bf16"])
+def test_queries_on_card_match_cpu(dev, codec):
+    from repro_torch.core import nearest_neighbors, top_anomalies_from_store
+    from repro_torch.store import EmbeddingStore
+
+    rng = np.random.default_rng(2)
+    n, k = 1536, 17
+    store = EmbeddingStore.create(None, n=n, k=k, codec=codec)
+    store.put_embedding("t0000", rng.normal(size=(n, k)).astype(np.float32), 321.5,
+                        rng.uniform(0.5, 2.0, n).astype(np.float32))
+    for topk in (20, 300):
+        for corrected in (False, True):
+            g = top_anomalies_from_store(store, topk, corrected=corrected, device="cuda")
+            c = top_anomalies_from_store(store, topk, corrected=corrected, device="cpu")
+            assert g.idx.tolist() == c.idx.tolist()
+            np.testing.assert_allclose(g.val, c.val, rtol=1e-5)
+    g = nearest_neighbors(store, 0, 20, device="cuda")
+    c = nearest_neighbors(store, 0, 20, device="cpu")
+    assert g.idx.tolist() == c.idx.tolist() and 0 not in g.idx
+    assert kernels.launch_counts()["panel_topk_update"] == 5 * (n // store.panel_rows)

@@ -21,6 +21,7 @@ from repro_torch import kernels, resolve_device
 from repro_torch.kernels import block_matmul as bm
 from repro_torch.kernels import cad_score as cad
 from repro_torch.kernels import edge_projection as ep
+from repro_torch.kernels import emb_query as eq
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import stream_gemm as sg
 
@@ -111,8 +112,12 @@ def test_cpu_tensors_take_the_plain_path():
     cad.cad_scores(a, a, z, z, 1.0, 1.0)
     sg.stream_gemm(a, z, z)
     sg.fused_panel_matvec(a, z, z, z)
+    vals, ids = eq.topk_init(1, 4, largest=True)
+    eq.panel_topk_update(vals, ids, z[:1], z, torch.zeros((1, 1)), torch.zeros((1, 32)), 1.0, 0,
+                         torch.full((1, 1), -1, dtype=torch.int32), topk=4)
     assert kernels.launch_counts() == {"block_matmul": 0, "edge_projection": 0, "cad_scores": 0,
-                                       "stream_gemm": 0, "fused_panel_matvec": 0}
+                                       "stream_gemm": 0, "fused_panel_matvec": 0,
+                                       "panel_topk_update": 0}
 
 
 def test_wrappers_reject_bad_inputs():
