@@ -8,7 +8,9 @@ Phases, in order; any failure exits non-zero:
 1. the card's name and power limit (nvidia-smi), and the build of the CUDA
    kernels from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a;
 2. each kernel held against its plain PyTorch version on the card at the
-   main paths' shapes, twice for bitwise repeatability (bf16-bit operands
+   main paths' shapes (``wkv`` and ``flash_attention`` at phase 8's prefill
+   shapes, with a ragged prompt and an fp32 form, and ``wkv`` against the
+   per-step recurrence at strong decay), twice for bitwise repeatability (bf16-bit operands
    also against the same kernel on host-decoded fp32; the row-panel forms
    of ``edge_projection`` and ``cad_scores`` also against the same rows of
    the whole-matrix call), and timed beside the
@@ -37,10 +39,20 @@ Phases, in order; any failure exits non-zero:
    a raw k=20 query (the median of five) at least 10x faster than a resident
    transition; then the
    same queries on a synthetic n=259,200 artifact (a 0.5-degree global grid,
-   360 x 720, k=20, Z from numpy seed 0) with no write path.
+   360 x 720, k=20, Z from numpy seed 0) with no write path;
+8. the serve path of the LM substrate: rwkv6-3b and qwen2-1.5b at full
+   width and depth (random weights from seed 0, fp32 parameters, bf16
+   compute) through ``ServeEngine.generate``, a batch of 4 prompts of 1024
+   tokens and 32 greedy new tokens each: time to first token, decode time
+   per step, peak device memory, exact launch counts (``wkv`` once per rwkv
+   layer and ``flash_attention`` once per attention layer in prefill, no
+   launch in decode), and one prefill and one decode step under
+   ``torch.profiler`` (device time by kernel family, the card's idle share);
+   then each model at depth 2 in fp32 on the card and on the CPU: equal
+   greedy tokens and prefill logits within 1e-3 of the largest.
 
 The line before the last is the JSON ``kernels`` table (``launches`` sums
-the main paths of phases 3, 5 and 7; ``launches_by_path`` splits them); the
+the main paths of phases 3, 5, 7 and 8; ``launches_by_path`` splits them); the
 last line is ``{"ok": true, "device": {...}}``.  It imports neither JAX nor
 the JAX package.  Long logs go to ``OUT``, a gitignored directory beside
 the script; the on-disk stores of phases 5 and 7 live under ``build/`` and
@@ -62,6 +74,7 @@ OUT = ROOT / "chiprun_out"
 
 # The card's published peaks (H100 SXM data sheet; at the full 700 W limit).
 PEAK_FP32_OPS = 67e12  # fp32 / 32-bit CUDA-core operations per second
+PEAK_BF16_OPS = 989e12  # bf16 operands on the tensor cores (dense)
 PEAK_BYTES = 3.35e12  # HBM3 bytes per second
 
 N_MAIN = 10512  # 73 x 144
@@ -74,6 +87,8 @@ CHAIN_GEMMS = 2 * (6 - 1) + 1  # d = 6: T and P per level, then P2
 REFINE_STEPS = 10 - 1  # q = 10
 PH_QUERY = 144  # the embedding store's default panel at n=10512: 73 panels
 N_LARGE, K_LARGE, PH_LARGE = 360 * 720, 20, 128  # the synthetic artifact: 2025 panels
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 1024, 32  # the serve path's requests
+SERVE_MODELS = (("rwkv6-3b", "wkv"), ("qwen2-1.5b", "flash_attention"))  # (arch, its kernel)
 QUERIES = (  # (label, k, corrected, nearest-neighbor node or None)
     ("top raw k=20", 20, False, None),
     ("top raw k=300", 300, False, None),
@@ -106,14 +121,15 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = ops / PEAK_FP32_OPS * 1e3
+def bound_ms(ops: float, nbytes: float, peak_ops: float = PEAK_FP32_OPS) -> tuple[float, str]:
+    t_ops = ops / peak_ops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def check_close(name: str, got, want, rtol_scale: float) -> tuple[float, float]:
-    """(max |got - want|, max |want|); the first must be <= rtol_scale x the second."""
+    """(max |got - want|, max |want|) in fp32; the first must be <= rtol_scale x the second."""
+    got, want = got.float(), want.float()
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
     if not math.isfinite(err) or err > rtol_scale * scale:
@@ -128,10 +144,11 @@ def check_bitwise(torch, name: str, fn) -> None:
 
 
 def kernel_row(name: str, source: str, replaces: str, shape: str, check: tuple, tol: float,
-               ms: float, plain_ms: float, ops: float, nbytes: float, library_ms, **extra) -> dict:
+               ms: float, plain_ms: float, ops: float, nbytes: float, library_ms,
+               peak_ops: float = PEAK_FP32_OPS, **extra) -> dict:
     """One entry of the ``kernels`` table; logs its line.  ``check`` is check_close's pair."""
     err, scale = check
-    bms, by = bound_ms(ops, nbytes)
+    bms, by = bound_ms(ops, nbytes, peak_ops)
     lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
     log(f"[kernels] {name} {shape}: max_abs_err {err:.3e} (tol {tol:g} x max|plain| "
         f"{scale:.3e}), bitwise repeatable; {ms:.3f} ms, plain {plain_ms:.3f} ms{lib}, "
@@ -139,7 +156,8 @@ def kernel_row(name: str, source: str, replaces: str, shape: str, check: tuple, 
     return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
                 replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=library_ms, tolerance=f"{tol:g} x max|plain|",
-                max_abs_plain=scale, shape=shape, **extra)
+                max_abs_plain=scale, shape=shape,
+                ops_rate=f"{peak_ops / 1e12:g} TFLOP/s", **extra)
 
 
 def phase_kernels(torch, rows: list) -> None:
@@ -432,7 +450,8 @@ def phase_main_path(torch) -> dict:
     peak = torch.cuda.max_memory_allocated() / 1e9
 
     want = {"block_matmul": 3 * CHAIN_GEMMS, "edge_projection": 3, "cad_scores": 2,
-            "stream_gemm": 0, "fused_panel_matvec": 0, "panel_topk_update": 0}
+            "stream_gemm": 0, "fused_panel_matvec": 0, "panel_topk_update": 0, "wkv": 0,
+            "flash_attention": 0}
     if counts != want:
         fail(f"main-path launch counts {counts} != {want}")
     event = set(seq.event_nodes.tolist())
@@ -548,7 +567,8 @@ def phase_oocore(torch, rows: list, resident: dict, per: dict) -> dict:
     want = {"block_matmul": 0, "edge_projection": T_OOC * STORE_GRID,
             "cad_scores": (T_OOC - 1) * STORE_GRID,
             "stream_gemm": T_OOC * (CHAIN_GEMMS * g * g + g),
-            "fused_panel_matvec": T_OOC * REFINE_STEPS * g, "panel_topk_update": 0}
+            "fused_panel_matvec": T_OOC * REFINE_STEPS * g, "panel_topk_update": 0, "wkv": 0,
+            "flash_attention": 0}
     if counts != want:
         fail(f"out-of-core launch counts {counts} != {want}")
     for t, r in enumerate(res.transitions):
@@ -920,6 +940,276 @@ def phase_query(torch, resident: dict, per: dict) -> dict:
     return out
 
 
+def phase_lm_kernels(torch, rows: list) -> dict:
+    """wkv and flash_attention at the serve path's prefill shapes (batch 4,
+    prompt 1024).  Returns per-launch times (ms) for the split of phase 8."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv as wk
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    # -- wkv: rwkv6-3b's prefill, B*H = 4 x 40 heads of 64, S = 1024
+    bh, s, dh = SERVE_BATCH * 40, SERVE_PROMPT, 64
+    tol_b, tol_f = 2.0**-7, 1e-4  # bf16 y: two bf16 steps; fp32 y and every state: 1e-4
+    r, k, v = (randn(bh, s, dh, dtype=bf16) for _ in range(3))
+    lw = -torch.exp(randn(bh, s, dh) * 0.5 - 6.0)  # the init's decays (w_base = -6)
+    u = 0.1 * randn(bh, dh)
+    name = f"wkv ({bh},{s},{dh}) bf16"
+    y, st = wk.wkv(r, k, v, lw, u, return_state=True)
+    wy, wst = ref.wkv(r, k, v, lw, u, return_state=True)
+    check = check_close(f"{name} y", y, wy, tol_b)
+    st_err, _ = check_close(f"{name} s_final", st, wst, tol_f)
+    check_bitwise(torch, name, lambda: torch.cat([t.float().flatten() for t in wk.wkv(
+        r, k, v, lw, u, return_state=True)]))
+    forms = {}
+    s0 = randn(bh, dh, dh)
+    for form, args, kw in (
+        ("fp32, s0 in", [t.float() for t in (r, k, v)] + [lw, u], {"s0": s0}),
+        ("bf16 ragged S=1000", [t[:, :1000].contiguous() for t in (r, k, v, lw)] + [u], {}),
+    ):
+        got = wk.wkv(*args, return_state=True, **kw)
+        want = ref.wkv(*args, return_state=True, **kw)
+        tol = tol_f if args[0].dtype == f32 else tol_b
+        e_y, _ = check_close(f"wkv {form} y", got[0], want[0], tol)
+        e_s, _ = check_close(f"wkv {form} s_final", got[1], want[1], tol_f)
+        check_bitwise(torch, f"wkv {form}", lambda: wk.wkv(*args, **kw))
+        forms[form] = {"y_err": e_y, "s_final_err": e_s, "tol_y": tol}
+        log(f"[kernels] wkv {form}: y max_abs_err {e_y:.3e} (tol {tol:g} x max|plain|), "
+            f"s_final {e_s:.3e} (tol {tol_f:g}), bitwise repeatable")
+    # strong decays (tests/test_kernels.py's lw = -exp(0.5 N - 1)) against the
+    # per-step oracle, |err| <= 1e-3 + 1e-3 |oracle| as that test asks
+    for shape in ((3, 64, 16), (3, 96, 16), (3, 128, 16), (bh, s, dh)):
+        a = [randn(*shape) for _ in range(3)] + [-torch.exp(randn(*shape) * 0.5 - 1.0)]
+        uu = 0.1 * randn(shape[0], shape[2])
+        got, want = wk.wkv(*a, uu), ref.wkv(*a, uu)
+        excess = float(((got - want).abs() - 1e-3 - 1e-3 * want.abs()).max())
+        if not excess <= 0.0:
+            fail(f"wkv at strong decay {shape}: exceeds 1e-3 + 1e-3|oracle| by {excess:.3e}")
+        forms[f"strong decay {shape}"] = {"max_abs_err": float((got - want).abs().max())}
+    log(f"[kernels] wkv at strong decay (lw = -exp(0.5 N - 1)), shapes (3,64|96|128,16) and "
+        f"({bh},{s},{dh}) fp32: within 1e-3 + 1e-3 |oracle| of the per-step recurrence")
+    ms = time_ms(torch, lambda: wk.wkv(r, k, v, lw, u, return_state=True), reps=20)
+    plain = time_ms(torch, lambda: ref.wkv(r, k, v, lw, u, return_state=True), reps=1)
+    # per token and head: y = r.S (2 dk dv) and S <- w S + k v^T (2 dk dv)
+    rows.append(kernel_row(
+        "wkv", "wkv.cu", "src/repro/kernels/wkv.py:71", f"({bh},{s},{dh}) r/k/v bf16, lw fp32",
+        check, tol_b, ms, plain, 4.0 * bh * s * dh * dh,
+        nbytes(r, k, v, lw, u, y, st), None, peak_ops=PEAK_BF16_OPS,
+        s_final_err=st_err, forms=forms))
+
+    # -- flash_attention: qwen2-1.5b's prefill, 4 x 12 q heads over 4 x 2 KV heads of 128
+    nkv, grp, d = SERVE_BATCH * 2, 6, 128
+    q = randn(nkv * grp, s, d, dtype=bf16)
+    kk, vv = randn(nkv, s, d, dtype=bf16), randn(nkv, s, d, dtype=bf16)
+    name = f"flash_attention q ({nkv * grp},{s},{d}) k/v ({nkv},{s},{d}) bf16 causal"
+    check = check_close(name, fa.flash_attention(q, kk, vv, groups=grp),
+                        ref.flash_attention(q, kk, vv, groups=grp), tol_b)
+    check_bitwise(torch, name, lambda: fa.flash_attention(q, kk, vv, groups=grp))
+    fforms = {}
+    for form, args, causal, tol in (
+        ("bf16 non-causal", (q, kk, vv), False, tol_b),
+        ("bf16 causal ragged S=1000", tuple(t[:, :1000].contiguous() for t in (q, kk, vv)),
+         True, tol_b),
+        ("fp32 causal", tuple(t.float() for t in (q, kk, vv)), True, tol_f),
+    ):
+        err, _ = check_close(f"flash_attention {form}",
+                             fa.flash_attention(*args, causal=causal, groups=grp),
+                             ref.flash_attention(*args, causal=causal, groups=grp), tol)
+        check_bitwise(torch, f"flash_attention {form}",
+                      lambda: fa.flash_attention(*args, causal=causal, groups=grp))
+        fforms[form] = {"max_abs_err": err, "tol": tol}
+        log(f"[kernels] flash_attention {form}: max_abs_err {err:.3e} (tol {tol:g} x "
+            f"max|plain|), bitwise repeatable")
+    ms_f = time_ms(torch, lambda: fa.flash_attention(q, kk, vv, groups=grp), reps=20)
+    plain_f = time_ms(torch, lambda: ref.flash_attention(q, kk, vv, groups=grp), reps=3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = (t.view(SERVE_BATCH, -1, s, d) for t in (q, kk, vv))
+    lib = time_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True, enable_gqa=True), reps=20)
+    pairs = nkv * grp * s * (s + 1) / 2  # the causal (q, k) pairs these inputs need
+    rows.append(kernel_row(
+        "flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:70",
+        f"q ({nkv * grp},{s},{d}) k/v ({nkv},{s},{d}) bf16 causal, groups {grp}", check, tol_b,
+        ms_f, plain_f, 4.0 * d * pairs, nbytes(q, kk, vv, q), lib, peak_ops=PEAK_BF16_OPS,
+        forms=fforms, library_call="scaled_dot_product_attention(is_causal, enable_gqa)"))
+    return {"wkv_ms": ms, "flash_attention_ms": ms_f}
+
+
+def device_split(torch, fn) -> dict:
+    """Device time of one call of ``fn`` by kernel family, from a torch.profiler
+    trace: our two LM kernels, cuBLAS products, and the rest; ``busy`` is the
+    union of kernel intervals over the host wall of the call.  Empty when the
+    trace holds no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return {}
+    split = {"wkv": 0.0, "flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    busy, cur_s, cur_e = 0.0, None, None
+    for start, end, name in spans:
+        low = name.lower()
+        fam = ("wkv" if "wkv_kernel" in low else "flash_attention" if "flash_kernel" in low
+               else "matmul" if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass"))
+               else "other")
+        split[fam] += (end - start) / 1e3
+        if cur_e is None or start > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = start, end
+        else:
+            cur_e = max(cur_e, end)
+    busy = (busy + cur_e - cur_s) / 1e3
+    return {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+            "kernels": len(spans), **{f"{k}_ms": v for k, v in split.items()}}
+
+
+def fmt_split(sp: dict) -> str:
+    if not sp:
+        return "device split not measured (the trace held no device events)"
+    return (f"device busy {sp['busy_ms']:.1f} of {sp['wall_ms']:.1f} ms (idle "
+            f"{100 * sp['idle_share']:.1f}%), {sp['kernels']} kernels: matmul "
+            f"{sp['matmul_ms']:.1f} ms, wkv {sp['wkv_ms']:.1f}, flash_attention "
+            f"{sp['flash_attention_ms']:.1f}, other {sp['other_ms']:.1f}")
+
+
+def phase_serve(torch, per: dict) -> dict:
+    """Both models at full width and depth: generate, exact launch counts, then
+    card vs CPU at depth 2 in fp32."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch import configs, kernels
+    from repro_torch.models import lm
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    out = {}
+    for arch, kname in SERVE_MODELS:
+        cfg = configs.get_config(arch)
+        spec = lm.build_spec(cfg)
+        t0 = time.perf_counter()
+        params = lm.init_params(spec, seed=0, device="cuda")
+        s_max = SERVE_PROMPT + SERVE_NEW
+        eng = ServeEngine(spec, params, s_max=s_max, batch=SERVE_BATCH,
+                          cfg=ServeConfig(max_new_tokens=SERVE_NEW), device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        prompts = np.random.default_rng(0).integers(
+            0, cfg.vocab, size=(SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+        eng.generate(prompts[:, :64])  # warm-up: cuBLAS handles and workspaces
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        toks = eng.generate(prompts)
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        st = eng.stats
+        want = {name: 0 for name in counts} | {kname: cfg.n_layers}
+        if counts != want:
+            fail(f"serve {arch}: launch counts {counts} != {want}")
+        if toks.shape != (SERVE_BATCH, SERVE_NEW) or toks.min() < 0 or toks.max() >= cfg.vocab:
+            fail(f"serve {arch}: tokens of shape {toks.shape} in [{toks.min()}, {toks.max()}] "
+                 f"(want ({SERVE_BATCH}, {SERVE_NEW}) below vocab {cfg.vocab})")
+        # prefill alone (its kernel share) and decode alone (no launches)
+        tokens = torch.from_numpy(prompts).long().cuda()
+        with torch.inference_mode():
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = lm.prefill(spec, eng.params, tokens, s_max)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            c_pre = kernels.launch_counts()
+            real = logits[:, : cfg.vocab].float()
+            if not bool(torch.isfinite(real).all()):
+                fail(f"serve {arch}: prefill logits not finite")
+            kernels.reset_launch_counts()
+            tok = logits.float().argmax(-1)
+            for _ in range(2):
+                logits, cache = lm.decode_step(spec, eng.params, tok, cache)
+                tok = logits.float().argmax(-1)
+            if not bool(torch.isfinite(logits[:, : cfg.vocab].float()).all()):
+                fail(f"serve {arch}: decode logits not finite")
+            c_dec = kernels.launch_counts()
+        if c_pre[kname] != cfg.n_layers or sum(c_pre.values()) != cfg.n_layers:
+            fail(f"serve {arch}: prefill launches {c_pre}, want {kname} {cfg.n_layers}")
+        if sum(c_dec.values()) != 0:
+            fail(f"serve {arch}: decode launched kernels {c_dec}")
+        # device time by kernel family (torch.profiler), one prefill and one
+        # decode step; the idle share is against the unprofiled host walls
+        with torch.inference_mode():
+            sp_pre = device_split(torch, lambda: lm.prefill(spec, eng.params, tokens, s_max))
+            tok = logits.float().argmax(-1)
+            sp_dec = device_split(torch, lambda: lm.decode_step(spec, eng.params, tok, cache))
+        kern_s = cfg.n_layers * per[f"{kname}_ms"] / 1e3
+        step_ms = st.decode_s / st.decode_steps * 1e3
+        tok_s = SERVE_BATCH * st.decode_steps / st.decode_s
+        n_params = lm.param_count(params)
+        log(f"[serve] {arch} ({n_params / 1e9:.3f} B params, {cfg.n_layers} layers, fp32 params, "
+            f"{cfg.compute_dtype} compute; init {init_s:.1f} s): batch {SERVE_BATCH} x prompt "
+            f"{SERVE_PROMPT}, {SERVE_NEW} greedy tokens: time to first token "
+            f"{st.ttft_s * 1e3:.1f} ms; decode {step_ms:.2f} ms/step, {tok_s:.1f} tok/s; peak "
+            f"device memory {peak:.2f} GB; launches {kname} {counts[kname]} (prefill "
+            f"{c_pre[kname]}, decode 0)")
+        log(f"[serve] {arch} prefill alone {prefill_s * 1e3:.1f} ms: {kname} ~{kern_s * 1e3:.1f} "
+            f"ms ({cfg.n_layers} x {per[f'{kname}_ms']:.3f} ms from phase 2, "
+            f"{100 * kern_s / prefill_s:.1f}%), the rest ~{(prefill_s - kern_s) * 1e3:.1f} ms")
+        for what, sp, wall in (("prefill", sp_pre, prefill_s * 1e3), ("decode step", sp_dec, step_ms)):
+            if sp:
+                sp["idle_share_unprofiled"] = max(0.0, 1.0 - sp["busy_ms"] / wall)
+            log(f"[serve] {arch} {what} under torch.profiler: {fmt_split(sp)}"
+                + (f"; against the unprofiled {wall:.1f} ms the card is idle "
+                   f"{100 * sp['idle_share_unprofiled']:.1f}%" if sp else ""))
+        out[arch] = {"counts": counts, "prefill_counts": c_pre, "decode_counts": c_dec,
+                     "params": n_params, "init_s": init_s, "ttft_ms": st.ttft_s * 1e3,
+                     "decode_ms_per_step": step_ms, "decode_tok_s": tok_s, "peak_gb": peak,
+                     "prefill_ms": prefill_s * 1e3, "prefill_kernel_ms_est": kern_s * 1e3,
+                     "prefill_device_split": sp_pre, "decode_device_split": sp_dec,
+                     "first_tokens": toks[0, :8].tolist()}
+        del params, eng, logits, cache, tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # card vs CPU: full width, depth 2, fp32 compute, a ragged prompt of 100
+        spec = lm.build_spec(cfg.replace(n_layers=2, compute_dtype="float32"))
+        params = lm.init_params(spec, seed=0, device="cuda")
+        prompts = np.random.default_rng(1).integers(0, cfg.vocab, size=(2, 100)).astype(np.int32)
+        res = {}
+        for d in ("cuda", "cpu"):
+            eng = ServeEngine(spec, params, s_max=108, cfg=ServeConfig(max_new_tokens=8), device=d)
+            toks = eng.generate(prompts)
+            with torch.inference_mode():
+                lg, _ = lm.prefill(spec, eng.params, torch.from_numpy(prompts).long().to(d), 108)
+            res[d] = (toks, lg[:, : cfg.vocab].float().cpu())
+            del eng
+        if not np.array_equal(res["cuda"][0], res["cpu"][0]):
+            fail(f"serve {arch} depth 2: greedy tokens differ between card and CPU: "
+                 f"{res['cuda'][0].tolist()} vs {res['cpu'][0].tolist()}")
+        err, scale = check_close(f"serve {arch} depth 2 prefill logits", res["cuda"][1],
+                                 res["cpu"][1], 1e-3)
+        log(f"[serve] {arch} depth 2, fp32, batch 2 x prompt 100, 8 new tokens: greedy tokens "
+            f"equal on card and CPU; prefill logits max |diff| {err:.3e} (tol 1e-3 x max|logit| "
+            f"{scale:.3e})")
+        out[arch]["card_vs_cpu"] = {"tokens_equal": True, "logits_err": err, "max_logit": scale}
+        del params, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
@@ -960,6 +1250,7 @@ def main() -> int:
     phase_kernels(torch, rows)
     per_launch = phase_stream_kernels(torch, rows)
     per_query = phase_query_kernel(torch, rows)
+    per_lm = phase_lm_kernels(torch, rows)
     torch.cuda.empty_cache()
     resident = phase_main_path(torch)
     torch.cuda.empty_cache()
@@ -968,16 +1259,20 @@ def main() -> int:
     phase_oocore_end_to_end(torch)
     torch.cuda.empty_cache()
     query = phase_query(torch, resident, per_query)
+    torch.cuda.empty_cache()
+    serve = phase_serve(torch, per_lm)
     for row in rows:
         by_path = {"resident": resident["counts"][row["name"]],
                    "oocore": oocore["counts"][row["name"]],
                    "query": query["n=10512"]["counts"][row["name"]],
                    f"query n={N_LARGE}": query[f"n={N_LARGE}"]["counts"][row["name"]]}
+        by_path |= {f"serve {arch}": serve[arch]["counts"][row["name"]] for arch, _ in SERVE_MODELS}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     (OUT / "chip_smoke_oocore.json").write_text(json.dumps(
         {"card": smi, "per_launch": per_launch, **oocore}, indent=1))
     (OUT / "chip_smoke_query.json").write_text(json.dumps({"card": smi, **query}, indent=1))
+    (OUT / "chip_smoke_serve.json").write_text(json.dumps({"card": smi, **serve}, indent=1))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

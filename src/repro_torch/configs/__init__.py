@@ -1,0 +1,49 @@
+"""Architecture registry of the port: ``--arch <id>`` -> (full config, smoke config).
+
+The port serves two of the JAX package's ten architectures so far; the other
+eight ids are known and raise ``NotImplementedError`` (ROADMAP.md, Queue 1).
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.common import ArchConfig
+
+_MODULES = {
+    "qwen2-1.5b": "qwen2_1_5b",
+    "rwkv6-3b": "rwkv6_3b",
+}
+_NOT_PORTED = (
+    "seamless-m4t-medium",
+    "granite-3-2b",
+    "deepseek-67b",
+    "stablelm-1.6b",
+    "zamba2-7b",
+    "llama4-maverick-400b-a17b",
+    "granite-moe-3b-a800m",
+    "chameleon-34b",
+)
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def _module(arch_id: str):
+    if arch_id in _NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported to repro_torch yet (ROADMAP.md, Queue 1); "
+            f"ported: {list(_MODULES)}")
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {list(_MODULES) + list(_NOT_PORTED)}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    return _module(arch_id).CONFIG
+
+
+def get_smoke(arch_id: str) -> ArchConfig:
+    return _module(arch_id).SMOKE
+
+
+__all__ = ["ARCH_IDS", "ArchConfig", "get_config", "get_smoke"]

@@ -8,7 +8,10 @@
 * ``stream_gemm`` -- ``csrc/stream_gemm.cu``, replaces ``stream_gemm`` and
   ``fused_panel_matvec`` of ``repro/kernels/stream_gemm.py`` (two counters);
 * ``emb_query`` -- ``csrc/emb_query.cu``, replaces ``panel_topk_update`` of
-  ``repro/kernels/emb_query.py``.
+  ``repro/kernels/emb_query.py``;
+* ``wkv`` -- ``csrc/wkv.cu``, replaces ``repro/kernels/wkv.py``;
+* ``flash_attention`` -- ``csrc/flash_attention.cu``, replaces
+  ``repro/kernels/flash_attention.py``.
 
 Each wrapper counts its launches in a plain integer; :func:`launch_counts`
 reads them and :func:`reset_launch_counts` zeroes them.
@@ -20,7 +23,9 @@ from repro_torch.kernels import block_matmul as _bm
 from repro_torch.kernels import cad_score as _cad
 from repro_torch.kernels import edge_projection as _ep
 from repro_torch.kernels import emb_query as _eq
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import stream_gemm as _sg
+from repro_torch.kernels import wkv as _wkv
 
 # name -> (module, its counter attribute)
 _COUNTERS = {
@@ -30,6 +35,8 @@ _COUNTERS = {
     "stream_gemm": (_sg, "gemm_launches"),
     "fused_panel_matvec": (_sg, "matvec_launches"),
     "panel_topk_update": (_eq, "launches"),
+    "wkv": (_wkv, "launches"),
+    "flash_attention": (_fa, "launches"),
 }
 
 

@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("block_matmul.cu", "edge_projection.cu", "cad_score.cu", "stream_gemm.cu",
-           "emb_query.cu")
+           "emb_query.cu", "wkv.cu", "flash_attention.cu")
 HEADERS = ("common.cuh", "gemm_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -44,6 +44,8 @@ SIGNATURES = {
     "rt_fused_panel_matvec": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "rt_panel_topk_update": (_P, _P, _P, _P, _I, _P, _P, _F, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _P),
+    "rt_wkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -27,6 +27,17 @@ __device__ __forceinline__ float to_f32(uint16_t bits) {
   return __uint_as_float(static_cast<uint32_t>(bits) << 16);
 }
 
+// Narrowing from fp32 to an output type: round to nearest even for bf16, as
+// PyTorch's .to(torch.bfloat16) does.
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
 // ---------------------------------------------------------------------------
 // splitmix32 counter hash, bit-identical to repro_torch.core.rng (and to the
 // JAX package's repro.core.rng): uint32_t arithmetic wraps natively.

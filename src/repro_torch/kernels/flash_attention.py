@@ -1,0 +1,62 @@
+"""Causal / full attention through the hand-written CUDA kernel
+(``csrc/flash_attention.cu``).
+
+Counterpart of :mod:`repro.kernels.flash_attention`, with grouped-query
+attention as one integer: q head ``h`` reads KV head ``h // groups``.  A CPU
+tensor takes the plain version (:func:`repro_torch.kernels.ref.flash_attention`,
+the materialized softmax); a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+launches = 0  # kernel launches since the last reset (see kernels.reset_launch_counts)
+
+D_MAX = 128  # widest head the kernel takes (register accumulators per thread)
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, groups: int = 1) -> torch.Tensor:
+    """(BHq, S, D) x (BHkv, T, D) x (BHkv, T, D) -> (BHq, S, D) in q's dtype.
+
+    BHq = BHkv x ``groups``; q is scaled by 1/sqrt(D); under ``causal`` key
+    ``j`` is visible to query ``i`` when ``i >= j``.
+    """
+    global launches
+    if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: want q (BHq,S,D), k = v (BHkv,T,D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    bhq, s, d = q.shape
+    bhkv, t, dk = k.shape
+    if dk != d:
+        raise ValueError(f"flash_attention: head dims differ: q {d}, k/v {dk}")
+    if groups < 1 or bhq != bhkv * groups:
+        raise ValueError(f"flash_attention: BHq={bhq} is not BHkv={bhkv} x groups={groups}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q, k, v must be one of fp32 / bf16, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: operands on different devices")
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal, groups=groups)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: operands must be contiguous")
+    if not 1 <= d <= D_MAX:
+        raise ValueError(f"flash_attention: head dim d={d} outside 1..{D_MAX}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    if t == 0:
+        raise ValueError("flash_attention: no keys (T = 0)")
+    lib = _build.library()
+    err = lib.rt_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bhq,
+                                 s, t, d, groups, int(causal), 1.0 / (d**0.5),
+                                 int(q.dtype == torch.bfloat16), _build.stream_handle(q))
+    _build.check(err, "flash_attention")
+    launches += 1
+    return out

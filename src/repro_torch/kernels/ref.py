@@ -129,3 +129,46 @@ def panel_topk_update(run_vals, run_idx, zq, z_panel, inv_deg_q, inv_deg_panel, 
     work = vals if largest else -vals
     order = torch.sort(work, dim=1, descending=True, stable=True).indices[:, :topk]
     return torch.gather(vals, 1, order), torch.gather(idx, 1, order)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, groups: int = 1) -> torch.Tensor:
+    """Materialized-softmax attention; q (BHq, S, D), k/v (BHkv, T, D), BHq = BHkv x groups.
+
+    q head ``h`` attends with KV head ``h // groups`` (K/V repeated per group).
+    fp32 inside, the output in q's dtype; q scaled by 1/sqrt(D); causal
+    masks ``q_pos < k_pos`` counted from 0 with -1e30.
+    """
+    s, d = q.shape[1], q.shape[2]
+    t = k.shape[1]
+    scale = 1.0 / (d**0.5)
+    kf = k.to(torch.float32).repeat_interleave(groups, dim=0)
+    vf = v.to(torch.float32).repeat_interleave(groups, dim=0)
+    logits = torch.einsum("hsd,htd->hst", q.to(torch.float32) * scale, kf)
+    if causal:
+        mask = torch.arange(s, device=q.device)[:, None] >= torch.arange(t, device=q.device)[None, :]
+        logits = torch.where(mask[None], logits, torch.full_like(logits, -1e30))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("hst,htd->hsd", p, vf).to(q.dtype)
+
+
+def wkv(r, k, v, lw, u, *, s0=None, return_state: bool = False):
+    """Per-step WKV recurrence; r/k/lw (BH, S, dk), v (BH, S, dv), u (BH, dk).
+
+    ``y_t = r_t . (S + diag(u) k_t v_t^T)``, ``S <- diag(exp(lw_t)) S + k_t v_t^T``
+    in fp32 from ``s0`` (BH, dk, dv; zeros when None).  Returns y (BH, S, dv)
+    in r's dtype, and the final state (BH, dk, dv) fp32 when ``return_state``.
+    """
+    bh, s, dk = r.shape
+    dv = v.shape[-1]
+    st = (torch.zeros((bh, dk, dv), dtype=torch.float32, device=r.device) if s0 is None
+          else s0.to(torch.float32).clone())
+    rf, kf, vf, lf = (x.to(torch.float32) for x in (r, k, v, lw))
+    uf = u.to(torch.float32)
+    ys = []
+    for t in range(s):
+        rt, kt, vt = rf[:, t], kf[:, t], vf[:, t]
+        bonus = (rt * uf * kt).sum(-1, keepdim=True)
+        ys.append(torch.einsum("bk,bkv->bv", rt, st) + bonus * vt)
+        st = st * torch.exp(lf[:, t])[..., None] + kt[:, :, None] * vt[:, None, :]
+    y = (torch.stack(ys, dim=1) if s else vf[:, :0]).to(r.dtype)
+    return (y, st) if return_state else y

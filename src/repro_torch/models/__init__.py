@@ -1,0 +1,25 @@
+"""The LM substrate of the port: the dense (GQA) and RWKV6 families, for serving."""
+
+from repro_torch.models.common import ArchConfig
+from repro_torch.models.lm import (
+    GroupSpec,
+    LMSpec,
+    build_spec,
+    decode_step,
+    init_cache,
+    init_params,
+    param_count,
+    prefill,
+)
+
+__all__ = [
+    "ArchConfig",
+    "GroupSpec",
+    "LMSpec",
+    "build_spec",
+    "decode_step",
+    "init_cache",
+    "init_params",
+    "param_count",
+    "prefill",
+]

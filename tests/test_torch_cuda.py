@@ -6,7 +6,9 @@ machine too:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Each CUDA kernel is held against its plain PyTorch version on the same
-inputs; tolerances are tests/test_kernels.py's.
+inputs; tolerances are tests/test_kernels.py's, and for outputs stored in
+bf16 two bf16 steps (2^-7) of the largest plain value, since kernel and
+plain version round their fp32 sums to bf16 independently.
 """
 
 import numpy as np
@@ -18,8 +20,10 @@ from repro_torch.kernels import block_matmul as bm
 from repro_torch.kernels import cad_score as cad
 from repro_torch.kernels import edge_projection as ep
 from repro_torch.kernels import emb_query as eq
+from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import ref
 from repro_torch.kernels import stream_gemm as sg
+from repro_torch.kernels import wkv
 
 pytestmark = pytest.mark.cuda
 
@@ -108,7 +112,7 @@ def test_sequence_on_card_matches_cpu(dev):
         runs[d] = SequenceDetector(cfg, top_k=10, device=d).run(seq.snapshots())
     assert kernels.launch_counts() == {"block_matmul": 33, "edge_projection": 3, "cad_scores": 2,
                                        "stream_gemm": 0, "fused_panel_matvec": 0,
-                                       "panel_topk_update": 0}
+                                       "panel_topk_update": 0, "wkv": 0, "flash_attention": 0}
     for g, c in zip(runs["cuda"].transitions, runs["cpu"].transitions):
         s_c = c.scores.numpy()
         np.testing.assert_allclose(g.scores.cpu().numpy(), s_c, rtol=1e-3,
@@ -329,3 +333,110 @@ def test_queries_on_card_match_cpu(dev, codec):
     c = nearest_neighbors(store, 0, 20, device="cpu")
     assert g.idx.tolist() == c.idx.tolist() and 0 not in g.idx
     assert kernels.launch_counts()["panel_topk_update"] == 5 * (n // store.panel_rows)
+
+
+def _rel_close(got, want, tol):
+    """max |got - want| <= tol x max |want| (fp32 comparison)."""
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    assert err <= tol * scale, f"max abs err {err:.3e} > {tol:g} x {scale:.3e}"
+
+
+def _wkv_args(dev, bh, s, dk, dv, dtype, decay=(0.5, 1.0), seed=0):
+    rng = np.random.default_rng(seed)
+    r, k = _arr(rng, (bh, s, dk), dev), _arr(rng, (bh, s, dk), dev)
+    v = _arr(rng, (bh, s, dv), dev)
+    lw = -torch.exp(_arr(rng, (bh, s, dk), dev) * decay[0] - decay[1])
+    u = 0.1 * _arr(rng, (bh, dk), dev)
+    s0 = _arr(rng, (bh, dk, dv), dev)
+    return r.to(dtype), k.to(dtype), v.to(dtype), lw, u, s0
+
+
+@pytest.mark.parametrize("bh,s,dk,dv", [(3, 1, 16, 16), (5, 31, 64, 64), (4, 100, 64, 64),
+                                        (2, 65, 8, 12), (160, 64, 64, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_kernel(dev, bh, s, dk, dv, dtype):
+    r, k, v, lw, u, s0 = _wkv_args(dev, bh, s, dk, dv, dtype, seed=bh + s)
+    for init in (None, s0):
+        y, st = wkv.wkv(r, k, v, lw, u, s0=init, return_state=True)
+        wy, wst = ref.wkv(r, k, v, lw, u, s0=init, return_state=True)
+        assert y.dtype == dtype and st.dtype == torch.float32
+        _rel_close(y, wy, 1e-4 if dtype == torch.float32 else 2.0**-7)
+        _rel_close(st, wst, 1e-4)
+        y2, st2 = wkv.wkv(r, k, v, lw, u, s0=init, return_state=True)
+        assert torch.equal(y, y2) and torch.equal(st, st2)
+    assert torch.equal(wkv.wkv(r, k, v, lw, u), wkv.wkv(r, k, v, lw, u, return_state=True)[0])
+    assert kernels.launch_counts()["wkv"] == 6
+
+
+@pytest.mark.parametrize("s", [64, 96, 128, 1000])
+def test_wkv_kernel_at_strong_decay_matches_the_oracle(dev, s):
+    """tests/test_kernels.py::test_wkv_kernel's decays (lw = -exp(0.5 N - 1)), 1e-3."""
+    r, k, v, lw, u, _ = _wkv_args(dev, 3, s, 16, 16, torch.float32, seed=s)
+    torch.testing.assert_close(wkv.wkv(r, k, v, lw, u), ref.wkv(r, k, v, lw, u),
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("bhkv,groups,s,t,d", [(2, 1, 64, 64, 64), (2, 3, 100, 100, 128),
+                                               (3, 2, 1, 1, 16), (1, 6, 130, 130, 128),
+                                               (2, 2, 70, 33, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel(dev, bhkv, groups, s, t, d, causal, dtype):
+    rng = np.random.default_rng(s + t + d)
+    q = _arr(rng, (bhkv * groups, s, d), dev).to(dtype)
+    k, v = _arr(rng, (bhkv, t, d), dev).to(dtype), _arr(rng, (bhkv, t, d), dev).to(dtype)
+    got = flash.flash_attention(q, k, v, causal=causal, groups=groups)
+    want = ref.flash_attention(q, k, v, causal=causal, groups=groups)
+    assert got.dtype == dtype
+    _rel_close(got, want, 1e-4 if dtype == torch.float32 else 2.0**-7)
+    assert torch.equal(got, flash.flash_attention(q, k, v, causal=causal, groups=groups))
+    assert kernels.launch_counts()["flash_attention"] == 2
+
+
+def test_lm_kernels_refuse_what_they_cannot_take(dev):
+    r = torch.zeros((2, 8, 65), device=dev)
+    with pytest.raises(ValueError, match="dk=65"):
+        wkv.wkv(r, r, r, r, torch.zeros((2, 65), device=dev))
+    r = torch.zeros((2, 8, 16), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv.wkv(r.transpose(0, 1).contiguous().transpose(0, 1), r, r, r,
+                torch.zeros((2, 16), device=dev))
+    with pytest.raises(TypeError):
+        wkv.wkv(r.half(), r.half(), r.half(), r, torch.zeros((2, 16), device=dev))
+    q = torch.zeros((4, 8, 129), device=dev)
+    with pytest.raises(ValueError, match="d=129"):
+        flash.flash_attention(q, q, q)
+    q = torch.zeros((4, 8, 32), device=dev)
+    with pytest.raises(ValueError, match="groups"):
+        flash.flash_attention(q, q[:3], q[:3], groups=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash.flash_attention(q.transpose(0, 1).contiguous().transpose(0, 1), q, q)
+    assert kernels.launch_counts()["wkv"] == 0
+    assert kernels.launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "rwkv6-3b"])
+def test_smoke_models_on_card_match_cpu(dev, arch):
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    spec = lm.build_spec(configs.get_smoke(arch))  # fp32 params and compute
+    params = lm.init_params(spec, seed=0, device="cpu")
+    prompts = np.random.default_rng(0).integers(0, spec.cfg.vocab, size=(3, 37)).astype(np.int32)
+    out = {}
+    for d in ("cuda", "cpu"):
+        eng = ServeEngine(spec, params, s_max=48, cfg=ServeConfig(max_new_tokens=8), device=d)
+        out[d] = eng.generate(prompts)
+    np.testing.assert_array_equal(out["cuda"], out["cpu"])
+    counts = kernels.launch_counts()
+    want = spec.cfg.n_layers
+    assert counts["flash_attention" if arch == "qwen2-1.5b" else "wkv"] == want
+    assert sum(counts.values()) == want
+    logits = {}
+    for d in ("cuda", "cpu"):
+        p = params if d == "cpu" else ServeEngine(spec, params, s_max=48, device=d).params
+        logits[d], _ = lm.prefill(spec, p, torch.from_numpy(prompts).long().to(d), 48)
+    _rel_close(logits["cuda"].cpu(), logits["cpu"], 1e-4)

@@ -22,8 +22,10 @@ from repro_torch.kernels import block_matmul as bm
 from repro_torch.kernels import cad_score as cad
 from repro_torch.kernels import edge_projection as ep
 from repro_torch.kernels import emb_query as eq
+from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import stream_gemm as sg
+from repro_torch.kernels import wkv
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -115,9 +117,12 @@ def test_cpu_tensors_take_the_plain_path():
     vals, ids = eq.topk_init(1, 4, largest=True)
     eq.panel_topk_update(vals, ids, z[:1], z, torch.zeros((1, 1)), torch.zeros((1, 32)), 1.0, 0,
                          torch.full((1, 1), -1, dtype=torch.int32), topk=4)
+    r = torch.from_numpy(_arr(rng, (2, 8, 4)))
+    wkv.wkv(r, r, r, -torch.ones_like(r), torch.zeros((2, 4)))
+    flash.flash_attention(r, r[:1], r[:1], groups=2)
     assert kernels.launch_counts() == {"block_matmul": 0, "edge_projection": 0, "cad_scores": 0,
                                        "stream_gemm": 0, "fused_panel_matvec": 0,
-                                       "panel_topk_update": 0}
+                                       "panel_topk_update": 0, "wkv": 0, "flash_attention": 0}
 
 
 def test_wrappers_reject_bad_inputs():
