@@ -15,11 +15,19 @@ Phases, in order; any failure exits non-zero:
    of ``edge_projection`` and ``cad_scores`` also against the same rows of
    the whole-matrix call), and timed beside the
    plain version, the one-call PyTorch yardstick where there is one, and the
-   card's bound for the same work; then the pinned host-to-device rate of
-   one out-of-core panel (the ``[h2d]`` line);
+   card's bound for the same work; ``block_matmul``'s split pass bitwise
+   against ``ref.split_tf32`` and its product against a float64 one,
+   ``flash_attention``'s route per form, and each redesigned kernel's
+   earlier design timed on the same inputs; then the pinned host-to-device
+   rate of one out-of-core panel (the ``[h2d]`` line);
 3. the resident main path: ``SequenceDetector`` over the n=10512 climate
    sequence (the 2.5-degree NCEP/NCAR Reanalysis 1 grid, 73 x 144), with
-   the kernel launch counts of that run alone;
+   the kernel launch counts of that run alone; then a float64 yardstick
+   for the chain at transition 0 (``[chain64]``: P1 and the scores of a
+   float64 chain, of the port's ``block_matmul`` chain and of an fp32
+   ``torch.matmul`` chain from the same S, and, after phase 5, of the
+   out-of-core ``stream_gemm`` chain: max relative errors, top-20 ids and
+   the rank-20/21 margin);
 4. the same pipeline end to end at n=1536 on the card and on the CPU (plain
    versions): equal top-20 ids and allclose scores;
 5. the out-of-core main path: the same n=10512 sequence written to a tiled
@@ -45,8 +53,9 @@ Phases, in order; any failure exits non-zero:
    compute) through ``ServeEngine.generate``, a batch of 4 prompts of 1024
    tokens and 32 greedy new tokens each: time to first token, decode time
    per step, peak device memory, exact launch counts (``wkv`` once per rwkv
-   layer and ``flash_attention`` once per attention layer in prefill, no
-   launch in decode), and one prefill and one decode step under
+   layer and ``flash_attention`` once per attention layer in prefill, all
+   on its tensor-core route, no launch in decode), and one prefill and one
+   decode step under
    ``torch.profiler`` (device time by kernel family, the card's idle share);
    then each model at depth 2 in fp32 on the card and on the CPU: equal
    greedy tokens and prefill logits within 1e-3 of the largest.
@@ -75,11 +84,13 @@ OUT = ROOT / "chiprun_out"
 # The card's published peaks (H100 SXM data sheet; at the full 700 W limit).
 PEAK_FP32_OPS = 67e12  # fp32 / 32-bit CUDA-core operations per second
 PEAK_BF16_OPS = 989e12  # bf16 operands on the tensor cores (dense)
+PEAK_TF32_OPS = 495e12  # TF32 operands on the tensor cores (dense)
 PEAK_BYTES = 3.35e12  # HBM3 bytes per second
 
 N_MAIN = 10512  # 73 x 144
 K_MAIN = 17  # ceil(ln(10512 / 1e-3))
 TOP_K = 20
+BM_ERR64_BAR = 1.04e-3  # max |C - float64| at 10512^3 of the SIMT tile loop this design replaced
 STORE_GRID = 16  # input store of the out-of-core path: 657-row panels
 PH_OOC = 1314  # its scratch panels (scratch grid 8)
 T_OOC = 3  # snapshots of the out-of-core main path
@@ -160,12 +171,29 @@ def kernel_row(name: str, source: str, replaces: str, shape: str, check: tuple, 
                 ops_rate=f"{peak_ops / 1e12:g} TFLOP/s", **extra)
 
 
+def tf32_edge_cases(torch, dev):
+    """fp32 values at TF32's edges, numpy seed 0: subnormals, +-0, every power
+    of two, rounding ties (bit 12 set, nothing below) and their neighbours."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    sub = rng.integers(1, 1 << 23, size=4096).astype(np.uint32)
+    pw = np.exp2(np.arange(-149, 128, dtype=np.float64)).astype(np.float32).view(np.uint32)
+    tie = ((rng.integers(1, 254, size=4096).astype(np.uint32) << 23)
+           | (rng.integers(0, 1 << 10, size=4096).astype(np.uint32) << 13) | 0x1000)
+    bits = np.concatenate([sub, pw, [0], tie, tie - 1, tie + 1]).astype(np.uint32)
+    bits = np.concatenate([bits, bits | 0x80000000])
+    bits = np.resize(bits, (bits.size // 128 + 1) * 128).reshape(-1, 128)
+    return torch.from_numpy(bits.view(np.float32)).to(dev)
+
+
 def phase_kernels(torch, rows: list) -> None:
     from repro_torch.core import rng
     from repro_torch.kernels import block_matmul as bm
     from repro_torch.kernels import cad_score as cad
     from repro_torch.kernels import edge_projection as ep
     from repro_torch.kernels import ref
+    from repro_torch.kernels import stream_gemm as sg
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -186,22 +214,47 @@ def phase_kernels(torch, rows: list) -> None:
             f"(tol {tol:g} x max|plain|), bitwise repeatable")
     n = N_MAIN
     a, b = uniform(n, n, lo=-1.0), uniform(n, n, lo=-1.0)
+    # the split pass bitwise against ref.split_tf32: at the main path's
+    # operand, and on TF32's edge cases (subnormals, +-0, powers of two, ties)
+    edge = tf32_edge_cases(torch, dev)
+    for label, x in (("10512x10512 uniform [-1, 1)", a), ("edge cases", edge)):
+        got_s, want_s = bm.split_tf32(x), ref.split_tf32(x)
+        if not all(torch.equal(u.view(torch.int32), w.view(torch.int32))
+                   for u, w in zip(got_s, want_s)):
+            fail(f"block_matmul split pass on {label}: differs from ref.split_tf32")
+        log(f"[kernels] block_matmul split pass on {label} ({tuple(x.shape)}): hi and lo bitwise "
+            f"equal to ref.split_tf32")
+        del got_s, want_s
     got, want = bm.block_matmul(a, b), ref.block_matmul(a, b)
     check = check_close("block_matmul 10512^3", got, want, tol)
     exact = torch.matmul(a.double(), b.double())
     err64_k = float((got.double() - exact).abs().max())
     err64_p = float((want.double() - exact).abs().max())
-    del exact, want, got
+    del got, want
+    got = sg.stream_gemm(a, b)  # the earlier design: gemm_tile.cuh's SIMT tile loop
+    err64_s = float((got.double() - exact).abs().max())
+    del exact, got
+    if err64_k > BM_ERR64_BAR:
+        fail(f"block_matmul 10512^3: max |C - float64 product| {err64_k:.3e} > {BM_ERR64_BAR:g}")
     check_bitwise(torch, "block_matmul 10512^3", lambda: bm.block_matmul(a, b))
+    if not torch.equal(bm.block_matmul(a, a), bm.block_matmul(a, a.clone())):
+        fail("block_matmul 10512^3: b is a (one split pass) differs from two passes")
     ms = time_ms(torch, lambda: bm.block_matmul(a, b), reps=5)
-    log(f"[kernels] block_matmul {n}^3: {2 * n**3 / ms / 1e9:.1f} TFLOP/s; max |C - float64 "
-        f"product| kernel {err64_k:.3e}, torch.matmul {err64_p:.3e}")
+    ms_sq = time_ms(torch, lambda: bm.block_matmul(a, a), reps=5)
+    lib = time_ms(torch, lambda: torch.matmul(a, b), reps=5)
+    simt = time_ms(torch, lambda: sg.stream_gemm(a, b), reps=3)
+    fp32_bound, _ = bound_ms(2.0 * n**3, 3.0 * n * n * 4)
+    log(f"[kernels] block_matmul {n}^3 (3xTF32): {2 * n**3 / ms / 1e9:.1f} TFLOP/s; b is a "
+        f"(one split pass) {ms_sq:.3f} ms; the SIMT tile loop {simt:.3f} ms; max |C - "
+        f"float64 product| kernel {err64_k:.3e} (bar {BM_ERR64_BAR:g}), torch.matmul "
+        f"{err64_p:.3e}, SIMT tile loop {err64_s:.3e}; fp32 CUDA-core bound {fp32_bound:.2f} ms")
     rows.append(kernel_row(
         "block_matmul", "block_matmul.cu", "src/repro/kernels/block_matmul.py:45",
-        f"{n}x{n}x{n} fp32", check, tol, ms,
-        time_ms(torch, lambda: ref.block_matmul(a, b), reps=5), 2.0 * n**3, 3.0 * n * n * 4,
-        time_ms(torch, lambda: torch.matmul(a, b), reps=5),
-        err_vs_fp64=err64_k, plain_err_vs_fp64=err64_p))
+        f"{n}x{n}x{n} fp32 (3xTF32)", check, tol, ms,
+        time_ms(torch, lambda: ref.block_matmul(a, b), reps=5), 3 * 2.0 * n**3, 3.0 * n * n * 4,
+        lib, peak_ops=PEAK_TF32_OPS, err_vs_fp64=err64_k, plain_err_vs_fp64=err64_p,
+        simt_err_vs_fp64=err64_s, ms_b_is_a=ms_sq, simt_tile_loop_ms=simt,
+        kernel_route="3xTF32 wgmma"))
     del a, b
 
     # -- edge_projection: the in-kernel Q field bitwise, then Y at n=10512, k=17
@@ -451,7 +504,7 @@ def phase_main_path(torch) -> dict:
 
     want = {"block_matmul": 3 * CHAIN_GEMMS, "edge_projection": 3, "cad_scores": 2,
             "stream_gemm": 0, "fused_panel_matvec": 0, "panel_topk_update": 0, "wkv": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "flash_attention_wgmma": 0}
     if counts != want:
         fail(f"main-path launch counts {counts} != {want}")
     event = set(seq.event_nodes.tolist())
@@ -476,6 +529,100 @@ def phase_main_path(torch) -> dict:
     return {"counts": counts, "peak": peak, "wall": wall, "seconds": res.transition_seconds,
             "scores": [r.scores.cpu().numpy() for r in res.transitions],
             "top_idx": [r.top_idx.tolist() for r in res.transitions]}
+
+
+def _transition0(torch, cfg, snaps: list, mm, dtype):
+    """Transition 0 of ``snaps`` with the chain's GEMM replaced by ``mm`` (None:
+    the port's own ``block_matmul``) and the chain built in ``dtype``; P1 and
+    P2 are handed on in fp32, so the rest of the pipeline is the port's.
+    Returns snapshot 0's P1 and the transition's scores, float64 on the host."""
+    from repro_torch.core import SequenceDetector
+    from repro_torch.core import chain as chain_mod
+    from repro_torch.core import embedding as emb_mod
+
+    orig_chain, orig_mm = emb_mod.chain_product, chain_mod.matmul
+    p1s = []
+
+    def chain_product(a, d_len, **kw):
+        chain_mod.matmul = orig_mm if mm is None else mm
+        try:
+            op = orig_chain(a, d_len, **(kw | {"dtype": dtype}))
+        finally:
+            chain_mod.matmul = orig_mm
+        if not p1s:
+            p1s.append(op.p1.cpu().double())
+        op.p1, op.p2 = op.p1.float(), op.p2.float()
+        return op
+
+    emb_mod.chain_product = chain_product
+    try:
+        res = SequenceDetector(cfg, top_k=TOP_K, device="cuda").run(snaps)
+    finally:
+        emb_mod.chain_product = orig_chain
+    return p1s[0], res.transitions[0].scores.cpu().double()
+
+
+def phase_chain_yardstick(torch, resident: dict) -> dict:
+    """A float64 yardstick for the chain, n=10512, transition 0 (a measurement,
+    not on the port's path): the same S through a chain of float64
+    ``torch.matmul`` products, of the port's ``block_matmul``, and of fp32
+    ``torch.matmul``; phase 5 adds the out-of-core (``stream_gemm``) run."""
+    import itertools
+
+    from repro_torch.core import CommuteConfig
+    from repro_torch.graphs import climate_snapshot_sequence
+
+    cfg = CommuteConfig(eps_rp=1e-3, d=6, q=10)
+    seq = climate_snapshot_sequence(73, 144, t_steps=3, device="cuda")
+    snaps = list(itertools.islice(seq.snapshots(), 2))
+    t0 = time.perf_counter()
+    mm = lambda x, y, **kw: torch.matmul(x, y)  # noqa: E731 -- float64 or fp32, TF32 off
+    out = {"float64": _transition0(torch, cfg, snaps, mm, torch.float64),
+           "block_matmul": _transition0(torch, cfg, snaps, None, torch.float32),
+           "torch.matmul fp32": _transition0(torch, cfg, snaps, mm, torch.float32)}
+    if not torch.equal(out["block_matmul"][1].float(), torch.from_numpy(resident["scores"][0])):
+        fail("chain yardstick: the block_matmul chain's transition-0 scores differ from phase 3's")
+    log(f"[chain64] n={N_MAIN} transition 0 with a float64, a block_matmul and an fp32 "
+        f"torch.matmul chain in {time.perf_counter() - t0:.1f} s (block_matmul's scores bitwise "
+        f"equal to phase 3's)")
+    del seq, snaps
+    torch.cuda.empty_cache()
+    return out
+
+
+def report_chain_yardstick(torch, ys: dict) -> dict:
+    """Each chain's P1 and transition-0 scores against the float64 chain's:
+    max and Frobenius-norm relative errors, the top-20 ids (as a set, and
+    the first rank where the order differs), and the rank-20/21 margin."""
+    p1_64, s64 = ys["float64"]
+    top64 = torch.argsort(s64, descending=True)[:TOP_K].tolist()
+    out = {}
+    for name, (p1, sc) in ys.items():
+        srt = torch.sort(sc, descending=True).values
+        top = torch.argsort(sc, descending=True)[:TOP_K].tolist()
+        row = {"margin_20_21": float(srt[TOP_K - 1] - srt[TOP_K]), "top20": top}
+        if name != "float64":
+            d = p1 - p1_64
+            row.update(
+                p1_max_rel_err=float(d.abs().max() / p1_64.abs().max()),
+                p1_fro_rel_err=float(d.norm() / p1_64.norm()),
+                scores_max_rel_err=float((sc - s64).abs().max() / s64.abs().max()),
+                scores_max_abs_diff=float((sc - s64).abs().max()),
+                top20_set_equal=set(top) == set(top64),
+                first_rank_differing=next((r + 1 for r in range(TOP_K) if top[r] != top64[r]),
+                                          None))
+            log(f"[chain64] {name}: P1 max rel err {row['p1_max_rel_err']:.3e}, Frobenius rel "
+                f"err {row['p1_fro_rel_err']:.3e}; scores max rel err "
+                f"{row['scores_max_rel_err']:.3e} (max |diff| {row['scores_max_abs_diff']:.3e}); "
+                f"top-{TOP_K} ids as a set {'equal to' if row['top20_set_equal'] else 'DIFFERENT from'}"
+                f" the float64 chain's, order first differs at rank "
+                f"{row['first_rank_differing']}; rank-{TOP_K}/{TOP_K + 1} margin "
+                f"{row['margin_20_21']:.4e}")
+        else:
+            log(f"[chain64] float64 chain (the yardstick): rank-{TOP_K}/{TOP_K + 1} margin "
+                f"{row['margin_20_21']:.4e}")
+        out[name] = row
+    return out
 
 
 def check_card_vs_cpu(tag: str, gpu, cpu) -> None:
@@ -514,8 +661,10 @@ def phase_end_to_end(torch) -> None:
     check_card_vs_cpu("n=1536", out["cuda"], out["cpu"])
 
 
-def phase_oocore(torch, rows: list, resident: dict, per: dict) -> dict:
-    """The out-of-core main path at n=10512, raw codec, host-RAM scratch, kernels on."""
+def phase_oocore(torch, rows: list, resident: dict, per: dict) -> tuple:
+    """The out-of-core main path at n=10512, raw codec, host-RAM scratch, kernels on.
+    Returns its summary and, for the float64 yardstick, snapshot 0's P1 and the
+    transition-0 scores."""
     import gc
     import shutil
     import tempfile
@@ -560,6 +709,19 @@ def phase_oocore(torch, rows: list, resident: dict, per: dict) -> dict:
         met = REGISTRY.delta(m0)
         st = stream_stats().snapshot()
         peak = torch.cuda.max_memory_allocated() / 1e9
+        # for the float64 yardstick, after the measurements: snapshot 0's P1
+        # from an out-of-core chain build with the run's settings and kernels
+        from repro_torch.core.chain import _load, chain_product
+        from repro_torch.core.tiles import tile_stream
+
+        op = chain_product(handles[0], cfg.d, schedule=cfg.schedule, dtype=cfg.dtype,
+                           deflate=cfg.deflate, fuse_l=cfg.fuse_l, oocore=True,
+                           oocore_work=cfg.oocore_dir, oocore_panel_rows=cfg.oocore_panel_rows,
+                           tile_codec=cfg.tile_codec, prefetch_depth=cfg.prefetch_depth,
+                           use_gemm_kernel=True, device=torch.device("cuda"))
+        p1_t0 = tile_stream(_load, op.p1, device=torch.device("cuda")).cpu().double()
+        op.release_scratch()
+        del op
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -568,7 +730,7 @@ def phase_oocore(torch, rows: list, resident: dict, per: dict) -> dict:
             "cad_scores": (T_OOC - 1) * STORE_GRID,
             "stream_gemm": T_OOC * (CHAIN_GEMMS * g * g + g),
             "fused_panel_matvec": T_OOC * REFINE_STEPS * g, "panel_topk_update": 0, "wkv": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "flash_attention_wgmma": 0}
     if counts != want:
         fail(f"out-of-core launch counts {counts} != {want}")
     for t, r in enumerate(res.transitions):
@@ -634,7 +796,8 @@ def phase_oocore(torch, rows: list, resident: dict, per: dict) -> dict:
         + " (kernels_est and h2d_est are estimates from phase 2's per-launch times and pinned "
           "rate; d2h_and_sync_wait includes the wait for the kernels and copies queued before "
           "each .cpu(); producer_fetch runs on the prefetch thread, overlapped)")
-    return {"counts": counts, "wall": wall, "peak_gb": peak, "stream": st, "split": split}
+    yard = (p1_t0, res.transitions[0].scores.cpu().double())
+    return {"counts": counts, "wall": wall, "peak_gb": peak, "stream": st, "split": split}, yard
 
 
 def phase_oocore_end_to_end(torch) -> None:
@@ -856,12 +1019,17 @@ def phase_query(torch, resident: dict, per: dict) -> dict:
             "producer_fetch_s": met.get("pipeline.producer_fetch_seconds", 0.0),
             "kernels_est_s": sum(c["kernel_est_s"] for c in card),
         }
+        stores = {id(h.store): h.store for h in handles.values()}.values()
+        maps = {"kept": sum(s._n_maps for s in stores),
+                "limit_per_store": handles["raw"].store.maps_limit}
         log(f"[query] {tag}: {n_q} queries, launches {counts['panel_topk_update']} "
             f"(= {n_q} x {panels}); stream.peak_live_bytes {st['peak_live_bytes']} (cap {cap}); "
             f"bytes read {st['bytes_read']}, H2D {st['bytes_h2d']}; time split (s, host clock): "
             + ", ".join(f"{k[:-2]} {v:.4f}" for k, v in split.items() if k.endswith("_s"))
-            + " (kernels_est: panels x phase-2 per-launch ms; producer_fetch overlaps)")
-        out[tag] = {"counts": counts, "stream": st, "split": split,
+            + " (kernels_est: panels x phase-2 per-launch ms; producer_fetch: the panel "
+            "reads, on the consumer's thread); kept "
+            f"panel maps {maps['kept']} (limit {maps['limit_per_store']} a store)")
+        out[tag] = {"counts": counts, "stream": st, "split": split, "panel_maps": maps,
                     "queries": [{**{k: v for k, v in c.items() if k != "res"},
                                  "latency_ms": c["res"].latency_ms, "panels": c["res"].panels,
                                  "bytes_read": c["res"].bytes_read,
@@ -943,6 +1111,7 @@ def phase_query(torch, resident: dict, per: dict) -> dict:
 def phase_lm_kernels(torch, rows: list) -> dict:
     """wkv and flash_attention at the serve path's prefill shapes (batch 4,
     prompt 1024).  Returns per-launch times (ms) for the split of phase 8."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.kernels import wkv as wk
@@ -1008,35 +1177,64 @@ def phase_lm_kernels(torch, rows: list) -> dict:
     q = randn(nkv * grp, s, d, dtype=bf16)
     kk, vv = randn(nkv, s, d, dtype=bf16), randn(nkv, s, d, dtype=bf16)
     name = f"flash_attention q ({nkv * grp},{s},{d}) k/v ({nkv},{s},{d}) bf16 causal"
-    check = check_close(name, fa.flash_attention(q, kk, vv, groups=grp),
-                        ref.flash_attention(q, kk, vv, groups=grp), tol_b)
+
+    def route(fn):  # which route a call took, from the tensor-core counter
+        before = fa.wgmma_launches
+        out = fn()
+        return out, "wgmma" if fa.wgmma_launches > before else "simt"
+
+    main_out, main_route = route(lambda: fa.flash_attention(q, kk, vv, groups=grp))
+    if main_route != "wgmma":
+        fail(f"{name}: took the {main_route} route, want the tensor-core (wgmma) route")
+    check = check_close(name, main_out, ref.flash_attention(q, kk, vv, groups=grp), tol_b)
     check_bitwise(torch, name, lambda: fa.flash_attention(q, kk, vv, groups=grp))
     fforms = {}
-    for form, args, causal, tol in (
-        ("bf16 non-causal", (q, kk, vv), False, tol_b),
+    for form, args, causal, tol, want_route in (
+        ("bf16 non-causal", (q, kk, vv), False, tol_b, "wgmma"),
         ("bf16 causal ragged S=1000", tuple(t[:, :1000].contiguous() for t in (q, kk, vv)),
-         True, tol_b),
-        ("fp32 causal", tuple(t.float() for t in (q, kk, vv)), True, tol_f),
+         True, tol_b, "wgmma"),
+        ("bf16 causal D=64", tuple(t[..., :64].contiguous() for t in (q, kk, vv)), True, tol_b,
+         "wgmma"),
+        ("fp32 causal", tuple(t.float() for t in (q, kk, vv)), True, tol_f, "simt"),
     ):
-        err, _ = check_close(f"flash_attention {form}",
-                             fa.flash_attention(*args, causal=causal, groups=grp),
+        got, took = route(lambda: fa.flash_attention(*args, causal=causal, groups=grp))
+        if took != want_route:
+            fail(f"flash_attention {form}: took the {took} route, want {want_route}")
+        err, _ = check_close(f"flash_attention {form}", got,
                              ref.flash_attention(*args, causal=causal, groups=grp), tol)
         check_bitwise(torch, f"flash_attention {form}",
                       lambda: fa.flash_attention(*args, causal=causal, groups=grp))
-        fforms[form] = {"max_abs_err": err, "tol": tol}
-        log(f"[kernels] flash_attention {form}: max_abs_err {err:.3e} (tol {tol:g} x "
-            f"max|plain|), bitwise repeatable")
+        fforms[form] = {"max_abs_err": err, "tol": tol, "route": took}
+        log(f"[kernels] flash_attention {form}: {took} route; max_abs_err {err:.3e} (tol {tol:g} "
+            f"x max|plain|), bitwise repeatable")
     ms_f = time_ms(torch, lambda: fa.flash_attention(q, kk, vv, groups=grp), reps=20)
     plain_f = time_ms(torch, lambda: ref.flash_attention(q, kk, vv, groups=grp), reps=3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q4, k4, v4 = (t.view(SERVE_BATCH, -1, s, d) for t in (q, kk, vv))
     lib = time_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True, enable_gqa=True), reps=20)
+    # the SIMT kernel (the earlier design, now the fp32 route) on the same bf16
+    # inputs, through the library entry the wrapper no longer sends bf16 D=128 to
+    simt_out = torch.empty_like(q)
+    lib_fn = _build.library().rt_flash_attention
+
+    def simt():
+        _build.check(lib_fn(q.data_ptr(), kk.data_ptr(), vv.data_ptr(), simt_out.data_ptr(),
+                            nkv * grp, s, s, d, grp, 1, 1.0 / d**0.5, 1,
+                            _build.stream_handle(q)), "flash_attention SIMT")
+
+    simt_ms = time_ms(torch, simt, reps=20)
+    simt_err, _ = check_close(f"{name} (SIMT kernel)", simt_out, main_out, tol_b)
+    log(f"[kernels] {name}: wgmma route {ms_f:.4f} ms, SDPA {lib:.4f} ms ({ms_f / lib:.2f}x), "
+        f"the SIMT kernel on the same inputs {simt_ms:.4f} ms (its output within {simt_err:.3e} "
+        f"of the wgmma route's)")
     pairs = nkv * grp * s * (s + 1) / 2  # the causal (q, k) pairs these inputs need
     rows.append(kernel_row(
         "flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:70",
         f"q ({nkv * grp},{s},{d}) k/v ({nkv},{s},{d}) bf16 causal, groups {grp}", check, tol_b,
         ms_f, plain_f, 4.0 * d * pairs, nbytes(q, kk, vv, q), lib, peak_ops=PEAK_BF16_OPS,
-        forms=fforms, library_call="scaled_dot_product_attention(is_causal, enable_gqa)"))
+        forms=fforms, library_call="scaled_dot_product_attention(is_causal, enable_gqa)",
+        kernel_route="wgmma (bf16, D in {64, 128}); SIMT for fp32 and other D",
+        simt_kernel_ms=simt_ms))
     return {"wkv_ms": ms, "flash_attention_ms": ms_f}
 
 
@@ -1112,12 +1310,49 @@ def phase_serve(torch, per: dict) -> dict:
         eng.generate(prompts[:, :64])  # warm-up: cuBLAS handles and workspaces
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        # what the first full-size generate spends besides the work: the
+        # allocator's new segments (cudaMalloc) and the host's garbage collector
+        gc_t = {"s": 0.0, "n": 0, "t0": 0.0}
+
+        def on_gc(ph, _info):
+            if ph == "start":
+                gc_t["t0"] = time.perf_counter()
+            else:
+                gc_t["s"] += time.perf_counter() - gc_t["t0"]
+                gc_t["n"] += 1
+
+        mem0 = torch.cuda.memory_stats()
+        gc.callbacks.append(on_gc)
         kernels.reset_launch_counts()
-        toks = eng.generate(prompts)
+        try:
+            toks = eng.generate(prompts)
+        finally:
+            gc.callbacks.remove(on_gc)
         counts = kernels.launch_counts()
+        mem1 = torch.cuda.memory_stats()
         peak = torch.cuda.max_memory_allocated() / 1e9
         st = eng.stats
-        want = {name: 0 for name in counts} | {kname: cfg.n_layers}
+        toks2 = eng.generate(prompts)  # the same requests again: nothing left to grow
+        first = {"ttft_ms": st.ttft_s * 1e3, "second_ttft_ms": eng.stats.ttft_s * 1e3,
+                 "second_tokens_equal": bool(np.array_equal(toks2, toks)),
+                 "segments_allocated": mem1.get("segment.all.allocated", 0)
+                 - mem0.get("segment.all.allocated", 0),
+                 "reserved_gb_added": (mem1.get("reserved_bytes.all.current", 0)
+                                       - mem0.get("reserved_bytes.all.current", 0)) / 1e9,
+                 "alloc_retries": mem1.get("num_alloc_retries", 0)
+                 - mem0.get("num_alloc_retries", 0),
+                 "gc_ms": gc_t["s"] * 1e3, "gc_collections": gc_t["n"],
+                 "regrow_ttft_ms": [], "regrow_segments": []}
+        for _ in range(3):  # the allocator's growth alone: its cache emptied, every shape seen
+            torch.cuda.empty_cache()
+            seg0 = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+            eng.generate(prompts)
+            first["regrow_ttft_ms"].append(eng.stats.ttft_s * 1e3)
+            first["regrow_segments"].append(
+                torch.cuda.memory_stats().get("segment.all.allocated", 0) - seg0)
+        # the attention model's prefill takes the tensor-core route every time
+        routes = {"flash_attention_wgmma": cfg.n_layers} if kname == "flash_attention" else {}
+        want = {name: 0 for name in counts} | {kname: cfg.n_layers} | routes
         if counts != want:
             fail(f"serve {arch}: launch counts {counts} != {want}")
         if toks.shape != (SERVE_BATCH, SERVE_NEW) or toks.min() < 0 or toks.max() >= cfg.vocab:
@@ -1144,8 +1379,9 @@ def phase_serve(torch, per: dict) -> dict:
             if not bool(torch.isfinite(logits[:, : cfg.vocab].float()).all()):
                 fail(f"serve {arch}: decode logits not finite")
             c_dec = kernels.launch_counts()
-        if c_pre[kname] != cfg.n_layers or sum(c_pre.values()) != cfg.n_layers:
-            fail(f"serve {arch}: prefill launches {c_pre}, want {kname} {cfg.n_layers}")
+        if c_pre != {name: 0 for name in c_pre} | {kname: cfg.n_layers} | routes:
+            fail(f"serve {arch}: prefill launches {c_pre}, want {kname} {cfg.n_layers}"
+                 + (" (all on the tensor-core route)" if routes else ""))
         if sum(c_dec.values()) != 0:
             fail(f"serve {arch}: decode launched kernels {c_dec}")
         # device time by kernel family (torch.profiler), one prefill and one
@@ -1163,10 +1399,19 @@ def phase_serve(torch, per: dict) -> dict:
             f"{SERVE_PROMPT}, {SERVE_NEW} greedy tokens: time to first token "
             f"{st.ttft_s * 1e3:.1f} ms; decode {step_ms:.2f} ms/step, {tok_s:.1f} tok/s; peak "
             f"device memory {peak:.2f} GB; launches {kname} {counts[kname]} (prefill "
-            f"{c_pre[kname]}, decode 0)")
+            f"{c_pre[kname]}, decode 0" + (f"; tensor-core route {c_pre['flash_attention_wgmma']}"
+                                           if routes else "") + ")")
         log(f"[serve] {arch} prefill alone {prefill_s * 1e3:.1f} ms: {kname} ~{kern_s * 1e3:.1f} "
             f"ms ({cfg.n_layers} x {per[f'{kname}_ms']:.3f} ms from phase 2, "
             f"{100 * kern_s / prefill_s:.1f}%), the rest ~{(prefill_s - kern_s) * 1e3:.1f} ms")
+        log(f"[serve] {arch} time to first token {first['ttft_ms']:.1f} ms (first full-size "
+            f"generate: {first['segments_allocated']} new allocator segments, +"
+            f"{first['reserved_gb_added']:.2f} GB reserved, {first['alloc_retries']} allocation "
+            f"retries; the host's garbage collector {first['gc_ms']:.1f} ms in "
+            f"{first['gc_collections']} collections); a second generate of the same requests "
+            f"{first['second_ttft_ms']:.1f} ms; after emptying the allocator's cache (the growth "
+            f"alone) {', '.join(f'{t:.1f}' for t in first['regrow_ttft_ms'])} ms with "
+            f"{', '.join(map(str, first['regrow_segments']))} new segments")
         for what, sp, wall in (("prefill", sp_pre, prefill_s * 1e3), ("decode step", sp_dec, step_ms)):
             if sp:
                 sp["idle_share_unprofiled"] = max(0.0, 1.0 - sp["busy_ms"] / wall)
@@ -1178,6 +1423,7 @@ def phase_serve(torch, per: dict) -> dict:
                      "decode_ms_per_step": step_ms, "decode_tok_s": tok_s, "peak_gb": peak,
                      "prefill_ms": prefill_s * 1e3, "prefill_kernel_ms_est": kern_s * 1e3,
                      "prefill_device_split": sp_pre, "decode_device_split": sp_dec,
+                     "first_generate": first,
                      "first_tokens": toks[0, :8].tolist()}
         del params, eng, logits, cache, tokens
         gc.collect()
@@ -1242,9 +1488,11 @@ def main() -> int:
     (OUT / "kernel_build.log").write_text(info.get("log", ""))
     regs = re.findall(r"Used (\d+) registers", info.get("log", ""))
     spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", info.get("log", "")))
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()[-1]
     log(f"[build] {len(_build.SOURCES)} sources built with nvcc for sm_90a in "
-        f"{time.perf_counter() - t0:.1f} s (cached: {info.get('cached')}); ptxas: registers per "
-        f"kernel {regs}, {spills} bytes of spill stores in all")
+        f"{time.perf_counter() - t0:.1f} s (cached: {info.get('cached')}; {nvcc}); ptxas: "
+        f"registers per kernel {regs}, {spills} bytes of spill stores in all")
 
     rows: list = []
     phase_kernels(torch, rows)
@@ -1254,8 +1502,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     resident = phase_main_path(torch)
     torch.cuda.empty_cache()
+    yardstick = phase_chain_yardstick(torch, resident)
     phase_end_to_end(torch)
-    oocore = phase_oocore(torch, rows, resident, per_launch)
+    oocore, yardstick["out-of-core stream_gemm"] = phase_oocore(torch, rows, resident, per_launch)
+    chain64 = report_chain_yardstick(torch, yardstick)
+    del yardstick
     phase_oocore_end_to_end(torch)
     torch.cuda.empty_cache()
     query = phase_query(torch, resident, per_query)
@@ -1269,8 +1520,12 @@ def main() -> int:
         by_path |= {f"serve {arch}": serve[arch]["counts"][row["name"]] for arch, _ in SERVE_MODELS}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
+        if row["name"] == "flash_attention":
+            row["launches_wgmma"] = sum(serve[arch]["counts"]["flash_attention_wgmma"]
+                                        for arch, _ in SERVE_MODELS)
     (OUT / "chip_smoke_oocore.json").write_text(json.dumps(
-        {"card": smi, "per_launch": per_launch, **oocore}, indent=1))
+        {"card": smi, "per_launch": per_launch, **oocore, "chain_float64_yardstick": chain64},
+        indent=1))
     (OUT / "chip_smoke_query.json").write_text(json.dumps({"card": smi, **query}, indent=1))
     (OUT / "chip_smoke_serve.json").write_text(json.dumps({"card": smi, **serve}, indent=1))
 

@@ -11,7 +11,8 @@
   ``repro/kernels/emb_query.py``;
 * ``wkv`` -- ``csrc/wkv.cu``, replaces ``repro/kernels/wkv.py``;
 * ``flash_attention`` -- ``csrc/flash_attention.cu``, replaces
-  ``repro/kernels/flash_attention.py``.
+  ``repro/kernels/flash_attention.py`` (two routes; ``flash_attention_wgmma``
+  counts the tensor-core one, ``flash_attention`` both).
 
 Each wrapper counts its launches in a plain integer; :func:`launch_counts`
 reads them and :func:`reset_launch_counts` zeroes them.
@@ -37,6 +38,7 @@ _COUNTERS = {
     "panel_topk_update": (_eq, "launches"),
     "wkv": (_wkv, "launches"),
     "flash_attention": (_fa, "launches"),
+    "flash_attention_wgmma": (_fa, "wgmma_launches"),
 }
 
 

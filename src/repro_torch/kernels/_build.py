@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("block_matmul.cu", "edge_projection.cu", "cad_score.cu", "stream_gemm.cu",
            "emb_query.cu", "wkv.cu", "flash_attention.cu")
-HEADERS = ("common.cuh", "gemm_tile.cuh")
+HEADERS = ("common.cuh", "gemm_tile.cuh", "hopper.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -34,9 +34,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 SIGNATURES = {
-    "rt_block_matmul_f32": (_P, _P, _P, _I, _I, _I, _P),
-    "rt_block_matmul_bf16": (_P, _P, _P, _I, _I, _I, _P),
+    "rt_block_matmul_f32": (_P, _P, _P, _I, _I, _I, _P, _L, _I, _P),
+    "rt_block_matmul_bf16": (_P, _P, _P, _I, _I, _I, _P, _L, _I, _P),
+    "rt_split_tf32": (_P, _P, _P, _I, _I, _P),
     "rt_edge_projection": (_P, _P, _I, _I, _I, _U, _I, _F, _P),
     "rt_rademacher_field": (_P, _I, _I, _I, _I, _U, _I, _P),
     "rt_cad_scores": (_P, _P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _P),
@@ -46,6 +48,7 @@ SIGNATURES = {
                              _I, _P),
     "rt_wkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "rt_flash_attention_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()

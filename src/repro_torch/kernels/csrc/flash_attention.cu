@@ -14,20 +14,38 @@
 // ~0.013 ms at the 989 TFLOP/s bf16 tensor-core rate, against ~17 MB of
 // operands (~0.005 ms of HBM).
 //
-// Design (a simple kernel first; tensor cores are a later change).  One
-// block of 256 threads per (q head, tile of 64 q rows).  The scaled Q tile
-// and each 64-row K/V tile are widened to fp32 in shared memory (~113 KB at
-// D = 128, so the launch raises the dynamic shared-memory limit); the block
-// loops over the K/V tiles up to the q tile's last row under `causal` and
-// all of them otherwise.  Thread (ti, tj) owns q rows 4ti..4ti+3: for the
-// scores it computes columns tj + 16b (b < 4) with FFMA on CUDA cores, the
-// 16 threads of a row reduce its max and sum with shuffles, P goes through
-// shared memory, and the same thread keeps the rows' output accumulators
-// (columns tj + 16c, c < 8) in registers, so the running max, sum and
-// rescale never leave registers.  Rows and keys past S and T are masked.
-// Heavy causal tiles (late q rows) are issued first.  No atomics; every sum
-// runs in a fixed order, so two runs are bitwise equal.
-#include "common.cuh"
+// Two routes, a fixed dispatch on dtype and head dim (see the wrapper):
+//
+// * `flash_kernel_wgmma`, bf16 q/k/v with D in {64, 128} (the serve path's
+//   prefill): both products on the tensor cores.  One block per (q head,
+//   tile of 128 q rows): two consumer warpgroups of 64 rows and one producer
+//   warp.  The producer loads the Q tile once and K/V tiles of 64 keys into
+//   a ring of 2 stages by TMA (a 3-D map over (BH, S, D), so a ragged last
+//   tile is zero-filled per head; 128-byte swizzle, a head of 128 as two
+//   64-wide column blocks), each stage under a full and an empty mbarrier.
+//   A consumer computes S = Q K^T with wgmma m64n64k16 (both operands
+//   K-major in shared memory, fp32 accumulator in registers), scales S by
+//   1/sqrt(D) in fp32 (log2(e) folded in, exp2f), masks causal and ragged
+//   keys only on the tiles that straddle them, keeps the running max and
+//   sum per row in registers (a row lives in the four threads of a quad:
+//   shuffles 1 and 2), converts P to bf16 in place -- the m64n64 accumulator
+//   layout is the register layout of wgmma's A operand -- and adds P V with
+//   wgmma m64nDk16, A from registers and V from shared memory (MN-major,
+//   the transpose flag).  P rounded to bf16 is the one departure from the
+//   TPU kernel's fp32 P: at most one bf16 step of the output.  Causal tiles
+//   past a warpgroup's last row are skipped; the heaviest q tiles of every
+//   head are issued first.
+// * `flash_kernel`, fp32 or any other D <= 128: the SIMT kernel.  One block
+//   of 256 threads per (q head, tile of 64 q rows); the scaled Q tile and
+//   each 64-row K/V tile are widened to fp32 in shared memory (~113 KB at
+//   D = 128); thread (ti, tj) owns q rows 4ti..4ti+3 and computes scores
+//   and output columns with FFMA on CUDA cores; P goes through shared
+//   memory; rows and keys past S and T are masked; heavy causal tiles
+//   first.
+//
+// No atomics in either; every sum runs in a fixed order, so two runs are
+// bitwise equal.
+#include "hopper.cuh"
 
 namespace {
 
@@ -196,6 +214,232 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int bhq, int 
   return launch<T, 0>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, scale, stream);
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core route: bf16, D in {64, 128}.
+// ---------------------------------------------------------------------------
+
+constexpr int TC_WG_ROWS = 64;                  // q rows of a consumer warpgroup
+constexpr int TC_NWG = 2;                       // consumer warpgroups
+constexpr int TC_BQ = TC_WG_ROWS * TC_NWG;      // q rows of a block
+constexpr int TC_BK = 64;                       // keys of a K/V tile
+constexpr int TC_NST = 2;                       // K/V ring stages
+constexpr int TC_THREADS = 128 * TC_NWG + 32;   // + one producer warp
+constexpr int TC_BOX = 64 * 64;                 // bf16 of one 64-row x 64-column box (8 KB)
+constexpr float TC_LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct TcSmem {
+  __nv_bfloat16 q[TC_NWG][D / 64][TC_BOX];  // [warpgroup][column block][64 rows x 64]
+  __nv_bfloat16 k[TC_NST][D / 64][TC_BOX];  // [stage][column block][64 keys x 64]
+  __nv_bfloat16 v[TC_NST][D / 64][TC_BOX];
+  uint64_t q_full;
+  uint64_t kv_full[TC_NST];
+  uint64_t kv_empty[TC_NST];
+};
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int D>
+__device__ __forceinline__ void pv_mma(float (&acc)[D / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 128) {
+    rt_wgmma_m64n128k16_bf16_rs_tb(acc, a, db, 1);
+  } else {
+    rt_wgmma_m64n64k16_bf16_rs_tb(acc, a, db, 1);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                   int s_len, int t_len, int groups, int causal, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  TcSmem<D>& sm = *reinterpret_cast<TcSmem<D>*>(rt_smem_align1024(smem_raw));
+  const int h = blockIdx.x;
+  const int hk = h / groups;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_BQ;  // heavy causal tiles of every head first
+  const int kv_end = causal ? min(t_len, q0 + TC_BQ) : t_len;
+  const int n_tiles = (kv_end + TC_BK - 1) / TC_BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    rt_mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < TC_NST; ++s) {
+      rt_mbar_init(&sm.kv_full[s], 1);
+      rt_mbar_init(&sm.kv_empty[s], 4 * TC_NWG);  // one arrival per consumer warp
+    }
+    rt_fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * TC_NWG) {  // producer
+    if (lane == 0) {
+      rt_mbar_expect_tx(&sm.q_full, TC_BQ * D * sizeof(__nv_bfloat16));
+      for (int w = 0; w < TC_NWG; ++w)
+        for (int c = 0; c < D / 64; ++c)
+          rt_tma_load_3d(sm.q[w][c], &tq, &sm.q_full, 64 * c, q0 + TC_WG_ROWS * w, h);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % TC_NST;
+        if (it >= TC_NST) rt_mbar_wait(&sm.kv_empty[st], ((it / TC_NST) - 1) & 1);
+        rt_mbar_expect_tx(&sm.kv_full[st], 2 * TC_BK * D * sizeof(__nv_bfloat16));
+        for (int c = 0; c < D / 64; ++c) {
+          rt_tma_load_3d(sm.k[st][c], &tk, &sm.kv_full[st], 64 * c, it * TC_BK, hk);
+          rt_tma_load_3d(sm.v[st][c], &tv, &sm.kv_full[st], 64 * c, it * TC_BK, hk);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4;
+  const int wq0 = q0 + TC_WG_ROWS * wg;  // the warpgroup's first q row
+  const int wkv_end = causal ? min(t_len, wq0 + TC_WG_ROWS) : t_len;
+  const int row_in = 16 * (warp % 4) + lane / 4;  // + 8 hh: this thread's two rows
+  const int col_in = 2 * (lane % 4);              // + 8 j + e: its columns
+  const float sl2 = scale * TC_LOG2E;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.0f, 0.0f};  // this thread's share of the row sums
+
+  rt_mbar_wait(&sm.q_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % TC_NST;
+    rt_mbar_wait(&sm.kv_full[st], (it / TC_NST) & 1);
+    __syncwarp();
+    const int k0 = it * TC_BK;
+    if (k0 < wkv_end) {  // uniform over the warpgroup
+      // S = Q K^T (unscaled), fp32 in registers
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+      rt_fence_regs(s);
+      rt_wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {  // 16 bf16 = 32 bytes of a 128-byte row
+        const uint64_t da = rt_desc_sw128(&sm.q[wg][kk / 4][0] + 16 * (kk % 4), 16, 1024);
+        const uint64_t db = rt_desc_sw128(&sm.k[st][kk / 4][0] + 16 * (kk % 4), 16, 1024);
+        rt_wgmma_m64n64k16_bf16_ss(s, da, db, kk > 0);
+      }
+      rt_wgmma_commit();
+      rt_wgmma_wait<0>();
+      rt_fence_regs(s);
+
+      if (k0 + TC_BK > t_len || (causal && k0 + TC_BK - 1 > wq0)) {  // a straddling tile
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int key = k0 + 8 * (i / 4) + col_in + (i % 2);
+          const int qpos = wq0 + row_in + 8 * ((i / 2) % 2);
+          if (key >= t_len || (causal && qpos < key)) s[i] = -INFINITY;
+        }
+      }
+
+      // online softmax: p = exp2((s - m) * scale * log2 e), in place
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < TC_BK / 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[hh], mx);
+        const float base = m_new == -INFINITY ? 0.0f : m_new * sl2;
+        const float alpha = exp2f(m_run[hh] * sl2 - base);
+        float sum = 0.0f;
+#pragma unroll
+        for (int j = 0; j < TC_BK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = exp2f(fmaf(s[4 * j + 2 * hh + e], sl2, -base));
+            s[4 * j + 2 * hh + e] = p;
+            sum += p;
+          }
+        }
+        l_run[hh] = alpha * l_run[hh] + sum;
+        m_run[hh] = m_new;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          acc[4 * j + 2 * hh] *= alpha;
+          acc[4 * j + 2 * hh + 1] *= alpha;
+        }
+      }
+
+      // O += P V: P (bf16) from registers, V from shared memory (MN-major)
+      uint32_t pa[TC_BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < TC_BK / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16x2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+        rt_fence_regs(pa[kk]);
+      }
+      rt_fence_regs(acc);
+      rt_wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TC_BK / 16; ++kk) {  // 16 keys = 16 rows of 128 bytes
+        const uint64_t db = rt_desc_sw128(&sm.v[st][0][0] + 16 * 64 * kk,
+                                          TC_BOX * sizeof(__nv_bfloat16), 1024);
+        pv_mma<D>(acc, pa[kk], db);
+      }
+      rt_wgmma_commit();
+      rt_wgmma_wait<0>();
+      rt_fence_regs(acc);
+    }
+    __syncwarp();
+    if (lane == 0) rt_mbar_arrive(&sm.kv_empty[st]);
+  }
+
+  __nv_bfloat16* oh = o + (size_t)h * s_len * D;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float l = l_run[hh];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.0f / fmaxf(l, 1e-30f);
+    const int row = wq0 + row_in + 8 * hh;
+    if (row >= s_len) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(oh + (size_t)row * D + 8 * j + col_in) =
+          pack_bf16x2(acc[4 * j + 2 * hh] * inv, acc[4 * j + 2 * hh + 1] * inv);
+    }
+  }
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int bhq, int s_len,
+                 int t_len, int groups, int causal, float scale, void* stream) {
+  const cuuint64_t row = D * sizeof(__nv_bfloat16);
+  const cuuint64_t q_dims[3] = {D, (cuuint64_t)s_len, (cuuint64_t)bhq};
+  const cuuint64_t kv_dims[3] = {D, (cuuint64_t)t_len, (cuuint64_t)(bhq / groups)};
+  const cuuint64_t q_str[2] = {row, row * s_len};
+  const cuuint64_t kv_str[2] = {row, row * t_len};
+  const cuuint32_t q_box[3] = {64, TC_WG_ROWS, 1};
+  const cuuint32_t kv_box[3] = {64, TC_BK, 1};
+  CUtensorMap mq, mk, mv;
+  cudaError_t err =
+      rt_encode_sw128(&mq, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, q, q_dims, q_str, q_box);
+  if (err == cudaSuccess)
+    err = rt_encode_sw128(&mk, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, k, kv_dims, kv_str, kv_box);
+  if (err == cudaSuccess)
+    err = rt_encode_sw128(&mv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, v, kv_dims, kv_str, kv_box);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = sizeof(TcSmem<D>) + 1024;
+  err = cudaFuncSetAttribute(flash_kernel_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(bhq, (s_len + TC_BQ - 1) / TC_BQ);
+  flash_kernel_wgmma<D><<<grid, TC_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), s_len, t_len, groups, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Grid (ceil(S / 64), BHq).  The wrapper bounds d <= 128, checks that BHq =
@@ -207,4 +451,16 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, v
     return dispatch<__nv_bfloat16>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, scale,
                                    stream);
   return dispatch<float>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, scale, stream);
+}
+
+// Grid (BHq, ceil(S / 128)).  bf16 q/k/v with d in {64, 128}, each base
+// 16-byte aligned; the wrapper checks every shape and type.
+extern "C" int rt_flash_attention_wgmma(const void* q, const void* k, const void* v, void* o,
+                                        int bhq, int s_len, int t_len, int d, int groups,
+                                        int causal, float scale, void* stream) {
+  if (d == 128)
+    return launch_wgmma<128>(q, k, v, o, bhq, s_len, t_len, groups, causal, scale, stream);
+  if (d == 64)
+    return launch_wgmma<64>(q, k, v, o, bhq, s_len, t_len, groups, causal, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,7 +4,19 @@
 Counterpart of :mod:`repro.kernels.flash_attention`, with grouped-query
 attention as one integer: q head ``h`` reads KV head ``h // groups``.  A CPU
 tensor takes the plain version (:func:`repro_torch.kernels.ref.flash_attention`,
-the materialized softmax); a CUDA tensor launches the kernel or raises.
+the materialized softmax); a CUDA tensor launches a kernel or raises.
+
+On the card the route is a fixed dispatch on dtype and head dim, not a
+fallback:
+
+* bf16 q/k/v with D in {64, 128} (the serve path's prefill) take the
+  tensor-core kernel (``flash_kernel_wgmma``: TMA, ``wgmma``, P rounded to
+  bf16 for the P V product); it needs 16-byte aligned operands and raises
+  otherwise;
+* fp32, or any other D up to 128, take the SIMT kernel (``flash_kernel``,
+  FFMA in fp32).
+
+``launches`` counts both routes; ``wgmma_launches`` the tensor-core route alone.
 """
 
 from __future__ import annotations
@@ -14,8 +26,10 @@ import torch
 from repro_torch.kernels import _build, ref
 
 launches = 0  # kernel launches since the last reset (see kernels.reset_launch_counts)
+wgmma_launches = 0  # of which on the tensor-core route
 
-D_MAX = 128  # widest head the kernel takes (register accumulators per thread)
+D_MAX = 128  # widest head the kernels take (register accumulators per thread)
+WGMMA_DIMS = (64, 128)  # head dims of the tensor-core route (bf16 only)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -25,7 +39,7 @@ def flash_attention(q, k, v, *, causal: bool = True, groups: int = 1) -> torch.T
     BHq = BHkv x ``groups``; q is scaled by 1/sqrt(D); under ``causal`` key
     ``j`` is visible to query ``i`` when ``i >= j``.
     """
-    global launches
+    global launches, wgmma_launches
     if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
         raise ValueError(f"flash_attention: want q (BHq,S,D), k = v (BHkv,T,D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -54,9 +68,19 @@ def flash_attention(q, k, v, *, causal: bool = True, groups: int = 1) -> torch.T
     if t == 0:
         raise ValueError("flash_attention: no keys (T = 0)")
     lib = _build.library()
-    err = lib.rt_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bhq,
-                                 s, t, d, groups, int(causal), 1.0 / (d**0.5),
-                                 int(q.dtype == torch.bfloat16), _build.stream_handle(q))
-    _build.check(err, "flash_attention")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    scale = 1.0 / (d**0.5)
+    if q.dtype == torch.bfloat16 and d in WGMMA_DIMS:
+        if any(p % 16 for p in ptrs):
+            raise ValueError("flash_attention: the tensor-core route needs 16-byte aligned "
+                             "q, k, v")
+        err = lib.rt_flash_attention_wgmma(*ptrs, bhq, s, t, d, groups, int(causal), scale,
+                                           _build.stream_handle(q))
+        _build.check(err, "flash_attention (wgmma)")
+        wgmma_launches += 1
+    else:
+        err = lib.rt_flash_attention(*ptrs, bhq, s, t, d, groups, int(causal), scale,
+                                     int(q.dtype == torch.bfloat16), _build.stream_handle(q))
+        _build.check(err, "flash_attention")
     launches += 1
     return out

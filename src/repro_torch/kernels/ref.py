@@ -30,6 +30,26 @@ def block_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.T
     return torch.matmul(a.to(torch.float32), b.to(torch.float32)).to(out_dtype)
 
 
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """Round fp32 to TF32 (10 explicit mantissa bits), to nearest, ties away
+    from zero: add half of the 13 dropped bits to the magnitude and clear
+    them, on the float's bits (``cvt.rna.tf32.f32``)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)``: hi = x rounded to TF32, lo = (x - hi) rounded to TF32.
+
+    The split pass of ``block_matmul``'s fp32 route; ``x - hi - lo`` is at
+    most 2^-22 |x| (for normal x, while lo stays normal; below that, half a
+    TF32 subnormal step, 2^-137).
+    """
+    x = x.to(torch.float32)
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
 def edge_projection(a: torch.Tensor, *, seed: int, k: int, row0: int = 0) -> torch.Tensor:
     """Y[i, c] = sum_j sqrt(max(A_ij, 0)) Q_c[row0 + i, j] / sqrt(k).
 

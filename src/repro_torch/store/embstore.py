@@ -32,8 +32,12 @@ from __future__ import annotations
 
 import io
 import json
+import mmap
 import os
+import resource
 import shutil
+import threading
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Iterator
@@ -54,8 +58,46 @@ EMB_CODECS = ("raw", "bf16")
 # panel of an artifact has the same header, so it is parsed once.  A query
 # reads one small file per panel, and there the file system's per-call
 # latency is most of the host time: np.load with mmap makes some ten calls
-# and parses the header each time, this reader opens, reads and closes.
+# and parses the header each time, and even one read call per panel is most
+# of a query where each call is a round trip; a handle copies its panels
+# out of maps of the files that the store keeps (``_PanelMaps``).
 _NPY_HEADERS: dict[bytes, tuple[np.dtype, tuple, int, int]] = {}
+
+
+def _maps_limit() -> int:
+    """How many panel files one store keeps mapped: each map holds a file
+    descriptor, so half the soft RLIMIT_NOFILE, and at most 32768 (the
+    kernel's default limit on a process's maps is 65530)."""
+    soft = resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+    return 32768 if soft == resource.RLIM_INFINITY else max(0, min(soft // 2, 32768))
+
+
+class _PanelMaps:
+    """The kept maps of one artifact's panel files, made under one sidecar.
+
+    A committed panel never changes in place: a rewrite is a new file put in
+    place with os.replace, and a re-published artifact writes its sidecar
+    last.  The set holds that sidecar open, so no later sidecar can take its
+    inode number; a handle compares the sidecar's inode once, at its first
+    panel read, and maps the artifact anew when another store or process has
+    published it since.
+    """
+
+    def __init__(self, aux_fd: int, ident: tuple[int, int]):
+        self.aux_fd, self.ident = aux_fd, ident
+        self.maps: dict[int, mmap.mmap] = {}
+        self.closed = False
+
+    def close(self) -> None:
+        for mm in self.maps.values():
+            mm.close()
+        self.maps.clear()
+        os.close(self.aux_fd)
+        self.closed = True
+
+    def __del__(self):
+        if not self.closed:
+            self.close()
 
 
 def _npy_meta(buf: bytes):
@@ -90,9 +132,14 @@ def _read_npy(path: Path, size_hint: int) -> tuple[np.ndarray, int]:
         if meta is None or len(buf) < meta[2] + meta[0].itemsize * meta[3]:
             while more := os.read(fd, 1 << 20):
                 buf += more
-            meta = _npy_meta(buf)
     finally:
         os.close(fd)
+    return _npy_array(buf)
+
+
+def _npy_array(buf: bytes) -> tuple[np.ndarray, int]:
+    """A whole .npy file image as a read-only array, and its size in bytes."""
+    meta = _npy_meta(buf)
     if meta is None:  # a Fortran-order or otherwise unusual file: numpy's reader
         return np.load(io.BytesIO(buf)), len(buf)
     dtype, shape, off, count = meta
@@ -218,6 +265,11 @@ class EmbeddingStore:
         self.root = Path(root) if root is not None else None
         self._ram_panels: dict[tuple[str, int], np.ndarray] = {}
         self._ram_aux: dict[str, dict[str, np.ndarray]] = {}
+        # kept panel maps per artifact, the most recently opened last
+        self._maps: OrderedDict[str, _PanelMaps] = OrderedDict()
+        self._maps_lock = threading.Lock()
+        self._n_maps = 0
+        self.maps_limit = _maps_limit()
         self.codec = resolve_codec(manifest.codec, fallback=False)
         if self.codec.name == "bf16" and np.dtype(manifest.dtype) != np.float32:
             raise ValueError(f"bf16 codec stores float32 embeddings only, not {manifest.dtype}")
@@ -342,22 +394,74 @@ class EmbeddingStore:
             return emb_id in self._ram_aux
         return self._aux_path(emb_id).exists()
 
-    def read_panel_stored_info(self, emb_id: str, p: int) -> tuple[np.ndarray, int]:
+    def read_panel_stored_info(self, emb_id: str, p: int,
+                               maps: _PanelMaps | None = None) -> tuple[np.ndarray, int]:
         """One (panel_rows, k) panel in its stored form (raw fp32 or uint16
         bf16 bit patterns -- what the query kernel decodes on the card) and
-        the bytes the backing tier served for it."""
+        the bytes the backing tier served for it; copied out of ``maps``
+        (a handle's, :meth:`_open_maps`) where the panel is or can be kept
+        mapped, else read from its file."""
         if not 0 <= p < self.manifest.panels:
             raise IndexError(f"panel {p} outside {self.manifest.panels} panels")
         if self.root is None:
             arr = self._ram_panels[(emb_id, p)]
             nbytes = self.codec.stored_nbytes(arr)
         else:
-            hint = self.panel_rows * self.k * self.dtype.itemsize + 4096  # data + any header
-            arr, nbytes = _read_npy(self._panel_path(emb_id, p), hint)
+            path = self._panel_path(emb_id, p)
+            buf = None if maps is None else self._copy_mapped(maps, path, p)
+            if buf is None:
+                hint = self.panel_rows * self.k * self.dtype.itemsize + 4096  # data + any header
+                arr, nbytes = _read_npy(path, hint)
+            else:
+                arr, nbytes = _npy_array(buf)
         want = (self.panel_rows, self.k)
         if arr.shape != want:
             raise ValueError(f"panel {p} of {emb_id!r} stored as {arr.shape}, manifest says {want}")
         return arr, nbytes
+
+    def _open_maps(self, emb_id: str) -> _PanelMaps:
+        """The kept maps of ``emb_id``, checked against its sidecar's inode
+        (one open and one fstat); a set made under another sidecar is closed."""
+        fd = os.open(self._aux_path(emb_id), os.O_RDONLY)
+        st = os.fstat(fd)
+        ident = (st.st_dev, st.st_ino)
+        with self._maps_lock:
+            pm = self._maps.pop(emb_id, None)
+            if pm is not None and pm.ident == ident:
+                os.close(fd)
+            else:
+                if pm is not None:
+                    self._close_maps(pm)
+                pm = _PanelMaps(fd, ident)
+            self._maps[emb_id] = pm
+        return pm
+
+    def _close_maps(self, pm: _PanelMaps) -> None:
+        self._n_maps -= len(pm.maps)
+        pm.close()
+
+    def _copy_mapped(self, pm: _PanelMaps, path: Path, p: int) -> bytes | None:
+        """Panel ``p``'s file image copied out of its kept map, mapped now if
+        need be; None once ``pm`` was closed or when the store keeps
+        ``maps_limit`` maps of this artifact (the read then opens the file).
+        Other artifacts' maps, least recently opened first, make room."""
+        with self._maps_lock:
+            if pm.closed:
+                return None
+            mm = pm.maps.get(p)
+            if mm is None:
+                while self._n_maps >= self.maps_limit:
+                    victim = next((k for k, v in self._maps.items() if v is not pm), None)
+                    if victim is None:
+                        return None
+                    self._close_maps(self._maps.pop(victim))
+                fd = os.open(path, os.O_RDONLY)
+                try:
+                    mm = pm.maps[p] = mmap.mmap(fd, 0, access=mmap.ACCESS_READ)
+                finally:
+                    os.close(fd)
+                self._n_maps += 1
+            return mm[:]  # a copy: no view outlives the map
 
     def read_panel_stored(self, emb_id: str, p: int) -> np.ndarray:
         return self.read_panel_stored_info(emb_id, p)[0]
@@ -465,6 +569,9 @@ class EmbeddingStore:
                 del self._ram_panels[key]
             self._ram_aux.pop(emb_id, None)
         elif (self.root / emb_id).exists():
+            with self._maps_lock:
+                if (pm := self._maps.pop(emb_id, None)) is not None:
+                    self._close_maps(pm)
             shutil.rmtree(self.root / emb_id)
 
     # -- read path -----------------------------------------------------------
@@ -494,6 +601,11 @@ class EmbeddingHandle:
 
     store: EmbeddingStore
     emb_id: str
+
+    # Each panel is its own small file (or RAM entry), a copy out of a kept
+    # map: PanelPipeline reads a window of them on its consumer thread, with
+    # no prefetch thread (the thread's hand-offs cost more than the reads).
+    inline_reads = True
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -536,6 +648,15 @@ class EmbeddingHandle:
         deg = self.deg
         return np.where(deg > 0, 1.0 / np.maximum(deg, 1e-30), 0.0).astype(np.float32)
 
+    def _panel_maps(self) -> _PanelMaps | None:
+        """The store's kept maps of this artifact, checked at the handle's
+        first panel read (None for a RAM-backed store)."""
+        maps = getattr(self, "_maps", None)
+        if maps is None and self.store.root is not None:
+            maps = self.store._open_maps(self.emb_id)
+            object.__setattr__(self, "_maps", maps)
+        return maps
+
     def _panel_range(self, row0: int, height: int) -> range:
         pr = self.store.panel_rows
         if row0 % pr or height % pr:
@@ -546,8 +667,9 @@ class EmbeddingHandle:
         """Rows [row0, row0 + height) stacked from their store panels, and
         the stored bytes read."""
         rows, stored = [], 0
+        maps = self._panel_maps()
         for p in self._panel_range(row0, height):
-            arr, nbytes = self.store.read_panel_stored_info(self.emb_id, p)
+            arr, nbytes = self.store.read_panel_stored_info(self.emb_id, p, maps)
             rows.append(self.store.decode(arr) if decode else arr)
             stored += nbytes
         return (rows[0] if len(rows) == 1 else np.concatenate(rows, axis=0)), stored
@@ -569,8 +691,9 @@ class EmbeddingHandle:
         rows = np.asarray(rows).reshape(-1)
         pr = self.store.panel_rows
         out = np.empty((rows.size, self.store.k), self.store.dtype)
+        maps = self._panel_maps()
         for p in np.unique(rows // pr):
-            panel = self.store.read_panel(self.emb_id, int(p))
+            panel = self.store.decode(self.store.read_panel_stored_info(self.emb_id, int(p), maps)[0])
             sel = rows // pr == p
             out[sel] = panel[rows[sel] - int(p) * pr]
         return out

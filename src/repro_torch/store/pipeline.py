@@ -5,7 +5,12 @@ origins of one or more operands:
 
 * a **background prefetch thread** fetches (and codec-decodes) each
   streamed operand's panel on the host -- file reads and decode only, never
-  CUDA work;
+  CUDA work.  Operands whose panels are small reads say so with
+  ``inline_reads = True`` (an embedding artifact: one small file per panel,
+  microseconds to read, where a second Python thread costs the consumer
+  more in contention for the interpreter than it hides).  No prefetch
+  thread runs for them: the consumer reads the next ``FETCH_WINDOW`` origins
+  in one go when its window runs out, then stages them;
 * **per-operand ring buffers** of depth ``depth`` (default 2) bound host
   staging and give backpressure;
 * the consumer thread **stages panel t+1 before panel t is yielded**.  On
@@ -28,8 +33,9 @@ origins of one or more operands:
 * **accounting**: ``panels``, ``bytes_h2d``, ``bytes_read``,
   ``bytes_decoded`` and the ``stream.peak_live_bytes`` gauge on ``stats``
   exactly as the JAX pipeline counts them, plus the
-  ``pipeline.producer_fetch_seconds`` / ``pipeline.consumer_wait_seconds``
-  registry counters, ``pipeline.pin_copy_seconds`` (the consumer's host
+  ``pipeline.producer_fetch_seconds`` (every panel read, on whichever
+  thread) / ``pipeline.consumer_wait_seconds`` (the consumer blocked on
+  the prefetch thread) registry counters, ``pipeline.pin_copy_seconds`` (the consumer's host
   copies into pinned buffers) and, with tracing on, one cross-thread
   ``prefetch.panel`` span per fetched panel.
 
@@ -57,6 +63,7 @@ from repro_torch.obs.metrics import REGISTRY as _OBS_REGISTRY
 
 DEFAULT_PREFETCH_DEPTH = 2
 SIDE_STREAM_MIN_BYTES = 1 << 20  # smaller panels are copied on the compute stream
+FETCH_WINDOW = 64  # origins read in one go for inline_reads operands (their host staging)
 
 
 def _is_handle(x) -> bool:
@@ -196,18 +203,44 @@ class PanelPipeline:
         self.encoded = bool(encoded)
         self._copy_stream = None
         self._threaded = [_is_handle(s) for s in self.sources]
-        self._rings = [_Ring(self.depth) if t else None for t in self._threaded]
+        streamed = [s for s, t in zip(self.sources, self._threaded) if t]
+        self._windowed = bool(streamed) and all(
+            getattr(s, "inline_reads", False) for s in streamed)
+        self._window: deque = deque()  # (row0, per-operand fetched entries or an error)
+        self._next_origin = 0  # index of the first origin not yet read into a window
+        self._rings = [_Ring(self.depth) if t and not self._windowed else None
+                       for t in self._threaded]
         self._cancel = threading.Event()
         self._error: BaseException | None = None
         self._thread: threading.Thread | None = None
         self.device_live_bytes = 0  # pipeline-owned panel bytes currently staged
-        if any(self._threaded) and self.origins:
+        if any(self._threaded) and self.origins and not self._windowed:
             self._thread = threading.Thread(
                 target=self._produce, name="panel-prefetch", daemon=True
             )
             self._thread.start()
 
     # -- producer (background thread: host I/O + codec decode only) ----------
+
+    def _fetch(self, src, row0: int) -> tuple[np.ndarray, int, int]:
+        """One panel read (and decode): ``(panel, stored, decoded)``; counts
+        its bytes.  Runs on the prefetch thread, or the consumer's for
+        ``inline_reads`` operands."""
+        t_f0 = time.perf_counter()
+        if self.encoded:
+            panel, stored, decoded = fetch_panel_encoded_info(src, row0, self.height)
+        else:
+            panel, stored = fetch_panel_info(src, row0, self.height)
+            decoded = panel.nbytes
+        _OBS_REGISTRY.add_named({
+            "pipeline.producer_fetch_seconds": time.perf_counter() - t_f0,
+            "pipeline.panels_fetched": 1.0,
+        })
+        if self.stats is not None and stored:
+            # stored == 0 is a host-RAM replay (CachingHandle hit): nothing
+            # was read from the backing tier or decoded.
+            self.stats.add(bytes_read=stored, bytes_decoded=panel.nbytes)
+        return panel, stored, decoded
 
     def _produce(self) -> None:
         try:
@@ -218,20 +251,7 @@ class PanelPipeline:
                     if self._cancel.is_set():
                         return
                     sp = obs_trace.begin("prefetch.panel", row0=row0, operand=i)
-                    t_f0 = time.perf_counter()
-                    if self.encoded:
-                        panel, stored, decoded = fetch_panel_encoded_info(src, row0, self.height)
-                    else:
-                        panel, stored = fetch_panel_info(src, row0, self.height)
-                        decoded = panel.nbytes
-                    _OBS_REGISTRY.add_named({
-                        "pipeline.producer_fetch_seconds": time.perf_counter() - t_f0,
-                        "pipeline.panels_fetched": 1.0,
-                    })
-                    if self.stats is not None and stored:
-                        # stored == 0 is a host-RAM replay (CachingHandle hit):
-                        # nothing was read from the backing tier or decoded.
-                        self.stats.add(bytes_read=stored, bytes_decoded=panel.nbytes)
+                    panel, _, decoded = self._fetch(src, row0)
                     if not ring.put((panel, decoded, sp)):
                         obs_trace.end(sp, cancelled=True)
                         return
@@ -244,9 +264,57 @@ class PanelPipeline:
 
     # -- consumer ------------------------------------------------------------
 
+    def _read_window(self) -> None:
+        """Read the next ``FETCH_WINDOW`` origins of every streamed operand
+        into the window, in order; a failed read ends the window at its origin.
+        The reads count as ``pipeline.producer_fetch_seconds`` (``_fetch``)
+        only: the consumer waits for no other thread here."""
+        origins = self.origins[self._next_origin : self._next_origin + FETCH_WINDOW]
+        self._next_origin += len(origins)
+        for row0 in origins:
+            entry = []
+            for i, (src, threaded) in enumerate(zip(self.sources, self._threaded)):
+                if not threaded:
+                    entry.append(None)
+                    continue
+                sp = obs_trace.begin("prefetch.panel", row0=row0, operand=i)
+                try:
+                    panel, _, decoded = self._fetch(src, row0)
+                except BaseException as e:
+                    obs_trace.end(sp, cancelled=True)
+                    for fetched in entry:
+                        if fetched is not None:
+                            obs_trace.end(fetched[2], cancelled=True)
+                    self._window.append((row0, e))
+                    self._next_origin = len(self.origins)
+                    return
+                entry.append((panel, decoded, sp))
+            self._window.append((row0, entry))
+
     def _next_host_bundle(self, row0: int) -> tuple[list, list]:
-        """Panels (+ decoded byte counts) for one origin: ring pops for
-        handles, lazy slices (decoded None) for everything else."""
+        """Panels (+ decoded byte counts) for one origin: ring pops (or the
+        read window's entries) for handles, lazy slices (decoded None) for
+        everything else."""
+        if self._windowed:
+            if not self._window:
+                self._read_window()
+            if not self._window:
+                raise RuntimeError("panel pipeline closed while panels were pending")
+            r0, entry = self._window.popleft()
+            if isinstance(entry, BaseException):
+                self._window.clear()
+                raise RuntimeError(f"panel prefetch failed at row {r0}") from entry
+            bundle, decs = [], []
+            for src, fetched in zip(self.sources, entry):
+                if fetched is None:
+                    bundle.append(src[row0 : row0 + self.height])
+                    decs.append(None)
+                else:
+                    panel, decoded, sp = fetched
+                    obs_trace.end(sp)
+                    bundle.append(panel)
+                    decs.append(decoded)
+            return bundle, decs
         bundle, decs = [], []
         for src, ring in zip(self.sources, self._rings):
             if ring is None:
@@ -333,6 +401,11 @@ class PanelPipeline:
     def close(self) -> None:
         """Cancel the producer and release the rings (idempotent)."""
         self._cancel.set()
+        for _, entry in self._window:  # read but never handed on
+            for fetched in () if isinstance(entry, BaseException) else entry:
+                if fetched is not None:
+                    obs_trace.end(fetched[2], cancelled=True)
+        self._window.clear()
         for ring in self._rings:
             if ring is not None:
                 ring.close()

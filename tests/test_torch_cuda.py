@@ -43,7 +43,13 @@ def _arr(rng, shape, dev, positive=False):
     return torch.from_numpy(np.abs(x) if positive else x).to(dev)
 
 
-@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (129, 130, 131), (300, 77, 170)])
+# shapes whose row strides break TMA's 16-byte rule or that end inside a tile,
+# and k < 8 (one k step of the tensor cores)
+_BM_SHAPES = [(1, 1, 1), (7, 5, 9), (40, 3, 50), (129, 130, 131), (300, 77, 170),
+              (1000, 777, 1030)]
+
+
+@pytest.mark.parametrize("m,k,n", _BM_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_block_matmul_kernel(dev, m, k, n, dtype):
     rng = np.random.default_rng(m + k + n)
@@ -53,6 +59,53 @@ def test_block_matmul_kernel(dev, m, k, n, dtype):
                                rtol=1e-5, atol=1e-4)
     assert torch.equal(got, bm.block_matmul(a, b, out_dtype=torch.float32))
     assert kernels.launch_counts()["block_matmul"] == 2
+
+
+@pytest.mark.parametrize("n", [1, 7, 129, 300, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_matmul_kernel_b_is_a(dev, n, dtype):
+    """The chain's T T: one split pass writes both layouts; the same bits as two."""
+    a = _arr(np.random.default_rng(n), (n, n), dev).to(dtype)
+    got = bm.block_matmul(a, a, out_dtype=torch.float32)
+    torch.testing.assert_close(got, ref.block_matmul(a, a, out_dtype=torch.float32),
+                               rtol=1e-5, atol=1e-4)
+    assert torch.equal(got, bm.block_matmul(a, a.clone(), out_dtype=torch.float32))
+    assert kernels.launch_counts()["block_matmul"] == 2
+
+
+def _tf32_cases(dev):
+    """Normal values over a wide range, subnormals, +-0, powers of two and the
+    rounding ties of TF32 (bit 12 set, nothing below), numpy seed 0."""
+    rng = np.random.default_rng(0)
+    normal = (rng.normal(size=4096) * np.exp2(rng.integers(-100, 100, size=4096))).astype(np.float32)
+    sub = rng.integers(1, 1 << 23, size=1024).astype(np.uint32).view(np.float32)
+    pw = np.exp2(np.arange(-149, 128, dtype=np.float64)).astype(np.float32)
+    tie = ((rng.integers(1, 254, size=1024).astype(np.uint32) << 23)
+           | (rng.integers(0, 1 << 10, size=1024).astype(np.uint32) << 13) | 0x1000)
+    x = np.concatenate([normal, sub, pw, [0.0], tie.view(np.float32)]).astype(np.float32)
+    x = np.concatenate([x, -x])
+    x = np.resize(x, (x.size // 97 + 1) * 97).reshape(-1, 97)  # a ragged width
+    return torch.from_numpy(x).to(dev)
+
+
+def test_split_tf32_kernel_is_bitwise_the_plain_version(dev):
+    x = _tf32_cases(dev)
+    hi, lo = bm.split_tf32(x)
+    want_hi, want_lo = ref.split_tf32(x)
+    assert torch.equal(hi.view(torch.int32), want_hi.view(torch.int32))
+    assert torch.equal(lo.view(torch.int32), want_lo.view(torch.int32))
+    assert kernels.launch_counts()["block_matmul"] == 0  # the check pass is not a GEMM
+
+
+def test_block_matmul_float64_accuracy(dev):
+    """n=2048, uniform [-1, 1): max |C - float64 product| no worse than twice
+    torch.matmul's in fp32 (TF32 off)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    a, b = (torch.rand((2048, 2048), generator=g, device=dev) * 2 - 1 for _ in range(2))
+    exact = a.double() @ b.double()
+    err_kernel = float((bm.block_matmul(a, b).double() - exact).abs().max())
+    err_torch = float((torch.matmul(a, b).double() - exact).abs().max())
+    assert err_kernel <= 2.0 * err_torch, (err_kernel, err_torch)
 
 
 @pytest.mark.parametrize("n,k", [(257, 17), (100, 40)])
@@ -112,7 +165,8 @@ def test_sequence_on_card_matches_cpu(dev):
         runs[d] = SequenceDetector(cfg, top_k=10, device=d).run(seq.snapshots())
     assert kernels.launch_counts() == {"block_matmul": 33, "edge_projection": 3, "cad_scores": 2,
                                        "stream_gemm": 0, "fused_panel_matvec": 0,
-                                       "panel_topk_update": 0, "wkv": 0, "flash_attention": 0}
+                                       "panel_topk_update": 0, "wkv": 0, "flash_attention": 0,
+                                       "flash_attention_wgmma": 0}
     for g, c in zip(runs["cuda"].transitions, runs["cpu"].transitions):
         s_c = c.scores.numpy()
         np.testing.assert_allclose(g.scores.cpu().numpy(), s_c, rtol=1e-3,
@@ -393,6 +447,26 @@ def test_flash_attention_kernel(dev, bhkv, groups, s, t, d, causal, dtype):
     _rel_close(got, want, 1e-4 if dtype == torch.float32 else 2.0**-7)
     assert torch.equal(got, flash.flash_attention(q, k, v, causal=causal, groups=groups))
     assert kernels.launch_counts()["flash_attention"] == 2
+    tc = dtype == torch.bfloat16 and d in flash.WGMMA_DIMS
+    assert kernels.launch_counts()["flash_attention_wgmma"] == (2 if tc else 0)
+
+
+@pytest.mark.parametrize("s,t", [(1, 1), (63, 63), (65, 65), (1000, 1000), (1, 70), (63, 200),
+                                 (65, 17), (1000, 333)])
+@pytest.mark.parametrize("groups", [1, 6])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_wgmma_route(dev, s, t, groups, causal, d):
+    """The tensor-core route (bf16, D in {64, 128}) against the plain version:
+    ragged S and T (zero-filled TMA tiles), T != S, GQA, causal or not."""
+    rng = np.random.default_rng(s * 7 + t + d + groups)
+    q = _arr(rng, (2 * groups, s, d), dev).to(torch.bfloat16)
+    k, v = (_arr(rng, (2, t, d), dev).to(torch.bfloat16) for _ in range(2))
+    got = flash.flash_attention(q, k, v, causal=causal, groups=groups)
+    _rel_close(got, ref.flash_attention(q, k, v, causal=causal, groups=groups), 2.0**-7)
+    assert torch.equal(got, flash.flash_attention(q, k, v, causal=causal, groups=groups))
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == counts["flash_attention_wgmma"] == 2
 
 
 def test_lm_kernels_refuse_what_they_cannot_take(dev):
@@ -413,8 +487,12 @@ def test_lm_kernels_refuse_what_they_cannot_take(dev):
         flash.flash_attention(q, q[:3], q[:3], groups=2)
     with pytest.raises(ValueError, match="contiguous"):
         flash.flash_attention(q.transpose(0, 1).contiguous().transpose(0, 1), q, q)
+    qb = torch.zeros((4 * 8 * 64 + 1,), dtype=torch.bfloat16, device=dev)[1:].view(4, 8, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        flash.flash_attention(qb, qb, qb)
     assert kernels.launch_counts()["wkv"] == 0
     assert kernels.launch_counts()["flash_attention"] == 0
+    assert kernels.launch_counts()["flash_attention_wgmma"] == 0
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "rwkv6-3b"])

@@ -6,10 +6,15 @@ and bitwise-equal panels and sidecar, for the raw and the bf16 codec.
 """
 
 import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 
+import repro_torch
 from repro.kernels.tiling import fit as j_fit
 from repro.store import TileStore as JTileStore
 from repro.store.embstore import EmbeddingStore as JEmbStore
@@ -200,3 +205,59 @@ def test_panel_reader_matches_np_load(tmp_path, form):
         np.testing.assert_array_equal(got, np.load(path))
         assert got.dtype == a.dtype and got.shape == a.shape
         assert nbytes == path.stat().st_size
+
+
+@pytest.mark.parametrize("writer", ["another process", "another store"])
+def test_kept_panel_maps_follow_a_republish(tmp_path, writer):
+    """A store keeps its panel files mapped between queries, and a handle
+    checks them once against the artifact's sidecar: an id that another
+    process or store removed and published again reads its new panels."""
+    z1, vol1, deg1 = _artifact(1)
+    z2, vol2, deg2 = _artifact(2)
+    st = EmbeddingStore.create(tmp_path / "s", n=N, k=K, panel_rows=16)
+    np.testing.assert_array_equal(st.put_embedding("a", z1, vol1, deg1).to_numpy(), z1)
+    assert st._n_maps == N // 16  # every panel of "a" mapped
+    np.save(tmp_path / "z2.npy", z2)
+    np.save(tmp_path / "deg2.npy", deg2)
+    code = (
+        "import sys, numpy as np\n"
+        "from repro_torch.store import EmbeddingStore\n"
+        "st = EmbeddingStore.open(sys.argv[1])\n"
+        "st.remove_embedding('a')\n"
+        "st.put_embedding('a', np.load(sys.argv[2]), float(sys.argv[3]), np.load(sys.argv[4]))\n"
+    )
+    args = [str(tmp_path / "s"), str(tmp_path / "z2.npy"), repr(vol2), str(tmp_path / "deg2.npy")]
+    if writer == "another process":
+        src = Path(repro_torch.__file__).resolve().parents[1]
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            [str(src), *filter(None, [os.environ.get("PYTHONPATH")])])}
+        subprocess.run([sys.executable, "-c", code, *args], check=True, env=env, timeout=120)
+    else:
+        other = EmbeddingStore.open(tmp_path / "s")
+        other.remove_embedding("a")
+        other.put_embedding("a", z2, vol2, deg2)
+    h = st.embedding("a")
+    np.testing.assert_array_equal(h.to_numpy(), z2)
+    np.testing.assert_array_equal(h.read_rows([0, 17, 95]), z2[[0, 17, 95]])
+    assert h.vol == vol2 and st._n_maps == N // 16  # the old set closed, the new one kept
+    st.remove_embedding("a")
+    assert st._n_maps == 0
+
+
+def test_kept_panel_maps_stay_within_the_limit(tmp_path):
+    """At most ``maps_limit`` panel files stay mapped: other artifacts' maps
+    make room, and the panels of one artifact past the limit are read from
+    their files; every read returns the committed bytes."""
+    z1, vol, deg = _artifact(1)
+    z2, _, _ = _artifact(2)
+    st = EmbeddingStore.create(tmp_path, n=N, k=K, panel_rows=16)  # six panels
+    st.maps_limit = 4
+    ha, hb = st.put_embedding("a", z1, vol, deg), st.put_embedding("b", z2, vol, deg)
+    for _ in range(2):
+        np.testing.assert_array_equal(ha.to_numpy(), z1)
+        assert st._n_maps == 4 and len(ha._panel_maps().maps) == 4
+    np.testing.assert_array_equal(hb.to_numpy(), z2)
+    assert st._n_maps == 4 and list(st._maps) == ["b"] and ha._panel_maps().closed
+    np.testing.assert_array_equal(ha.to_numpy(), z1)  # a closed set: read from the files
+    np.testing.assert_array_equal(st.embedding("a").to_numpy(), z1)
+    assert st._n_maps == 4 and list(st._maps) == ["a"]

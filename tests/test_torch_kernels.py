@@ -120,9 +120,79 @@ def test_cpu_tensors_take_the_plain_path():
     r = torch.from_numpy(_arr(rng, (2, 8, 4)))
     wkv.wkv(r, r, r, -torch.ones_like(r), torch.zeros((2, 4)))
     flash.flash_attention(r, r[:1], r[:1], groups=2)
+    flash.flash_attention(r.bfloat16(), r[:1].bfloat16(), r[:1].bfloat16(), groups=2)
+    bm.split_tf32(a)
     assert kernels.launch_counts() == {"block_matmul": 0, "edge_projection": 0, "cad_scores": 0,
                                        "stream_gemm": 0, "fused_panel_matvec": 0,
-                                       "panel_topk_update": 0, "wkv": 0, "flash_attention": 0}
+                                       "panel_topk_update": 0, "wkv": 0, "flash_attention": 0,
+                                       "flash_attention_wgmma": 0}
+
+
+def _tf32_grid(kind: str) -> np.ndarray:
+    """fp32 values of one class, from numpy seed 0, both signs."""
+    rng = np.random.default_rng(0)
+    if kind == "normal":
+        x = rng.normal(size=4000) * np.exp2(rng.integers(-100, 100, size=4000))
+    elif kind == "subnormal":
+        x = rng.integers(1, 1 << 23, size=4000).astype(np.uint32).view(np.float32)
+    elif kind == "zeros and powers of two":
+        x = np.concatenate([[0.0], np.exp2(np.arange(-149, 128, dtype=np.float64))])
+    else:  # a set rounding bit and nothing below it: the tie, and its neighbours
+        base = rng.integers(0, 1 << 10, size=1000).astype(np.uint32) << 13
+        exp = rng.integers(1, 254, size=1000).astype(np.uint32) << 23
+        tie = exp | base | 0x1000
+        x = np.concatenate([tie, tie - 1, tie + 1]).view(np.float32)
+    x = x.astype(np.float32)
+    return np.concatenate([x, -x])
+
+
+def _tf32_rna_oracle(x: np.ndarray) -> np.ndarray:
+    """Round to 11 significant bits, ties away from zero, in float64 arithmetic
+    (TF32's quantum: 2^(e-11) for x = m 2^e, m in [0.5, 1); 2^-136 below 2^-126)."""
+    x64 = x.astype(np.float64)
+    _, e = np.frexp(x64)
+    q = np.exp2(np.maximum(e - 11, -136).astype(np.float64))
+    r = np.floor(np.abs(x64) / q + 0.5) * q
+    return np.copysign(r, x64).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["normal", "subnormal", "zeros and powers of two", "ties"])
+def test_split_tf32_plain_version(kind):
+    """ref.split_tf32: the TF32 parts of x, on the float's bits, against a
+    float64 oracle; x = hi + lo within 2^-22 |x| (half a TF32 subnormal step,
+    2^-137, where lo or x fall below the normal range)."""
+    x = _tf32_grid(kind)
+    hi, lo = (t.numpy() for t in tref.split_tf32(torch.from_numpy(x)))
+    for part in (hi, lo):
+        assert not (part.view(np.uint32) & 0x1FFF).any(), "13 low mantissa bits must be zero"
+    want_hi = _tf32_rna_oracle(x)
+    np.testing.assert_array_equal(hi.view(np.uint32), want_hi.view(np.uint32))
+    rest = x.astype(np.float64) - hi.astype(np.float64)  # exact in fp32 as well
+    np.testing.assert_array_equal(lo.view(np.uint32),
+                                  _tf32_rna_oracle(rest.astype(np.float32)).view(np.uint32))
+    err = np.abs(x.astype(np.float64) - hi - lo.astype(np.float64))
+    bound = np.maximum(2.0**-22 * np.abs(x.astype(np.float64)), 2.0**-137)
+    assert (err <= bound).all()
+    if kind == "zeros and powers of two":  # exact in TF32 down to its smallest step, 2^-136
+        exact = (np.abs(x) >= 2.0**-136) | (x == 0)
+        np.testing.assert_array_equal(hi[exact].view(np.uint32), x[exact].view(np.uint32))
+        assert not lo[exact].any()
+
+
+def test_three_tf32_products_reach_fp32_accuracy():
+    """The fp32 route's arithmetic on the CPU: A_lo B_hi + A_hi B_lo + A_hi B_hi
+    (each product exact in float64) is within 2^-20 of the float64 product,
+    relative to sum |a||b|, where the high parts alone miss by ~2^-11."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(_arr(rng, (96, 200)))
+    b = torch.from_numpy(_arr(rng, (200, 64)))
+    (ah, al), (bh, bl) = tref.split_tf32(a), tref.split_tf32(b)
+    d = [t.double() for t in (a, b, ah, al, bh, bl)]
+    exact = d[0] @ d[1]
+    scale = d[0].abs() @ d[1].abs()
+    three = d[3] @ d[4] + d[2] @ d[5] + d[2] @ d[4]
+    assert float(((three - exact).abs() / scale).max()) <= 2.0**-20
+    assert float(((d[2] @ d[4] - exact).abs() / scale).max()) > 2.0**-16
 
 
 def test_wrappers_reject_bad_inputs():
@@ -131,6 +201,8 @@ def test_wrappers_reject_bad_inputs():
         bm.block_matmul(a, torch.zeros((7, 8)))
     with pytest.raises(TypeError):
         bm.block_matmul(a, a.double())
+    with pytest.raises(ValueError):
+        bm.split_tf32(a.double())
     with pytest.raises(TypeError):
         ep.edge_projection(a.double(), seed=0, k=3)
     with pytest.raises(ValueError):

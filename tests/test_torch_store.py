@@ -7,6 +7,8 @@ port and is held bitwise against the JAX codec (which casts with
 JAX pipeline's on the same store.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,7 @@ from repro.store.tilestore import _f32_to_bf16_u16 as j_encode
 from repro_torch.core.tiles import StreamStats, is_streamable, reset_stream_stats, stream_stats
 from repro_torch.kernels.ref import decode_bits
 from repro_torch.obs import trace
-from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.metrics import REGISTRY, MetricsRegistry
 from repro_torch.store import CachingHandle, PanelPipeline, TileStore, tilestore
 from repro_torch.store.pipeline import host_tensor
 
@@ -213,6 +215,50 @@ def test_pipeline_early_exit_cancels_and_errors_reach_the_consumer():
         list(PanelPipeline([Broken()], range(0, n, 16), 16))
     assert isinstance(err.value.__cause__, OSError)
     assert is_streamable(Broken()) and not is_streamable(torch.zeros(2, 2))
+
+
+@pytest.mark.parametrize("fail_at", [None, 40])
+def test_pipeline_reads_an_inline_reads_handle_in_windows(fail_at):
+    """A handle with ``inline_reads`` is read on the consumer's thread, a
+    window of origins at a time, with no prefetch thread; panels arrive in
+    order and byte counts match, and a failed read reaches the consumer at
+    its row, after the panels before it were yielded."""
+    n, h = 64, 4
+
+    class Small:
+        shape, dtype, panel_rows = (n, 8), np.float32, h
+        inline_reads = True
+
+        def __init__(self):
+            self.threads = set()
+
+        def read_panel(self, row0, height):
+            self.threads.add(threading.get_ident())
+            if row0 == fail_at:
+                raise OSError("disk gone")
+            return np.full((height, 8), row0, np.float32)
+
+    src, got = Small(), []
+    reset_stream_stats()
+    m0 = REGISTRY.snapshot()
+    pipe = PanelPipeline([src], range(0, n, h), h, device="cpu", stats=stream_stats())
+    assert pipe._thread is None
+    if fail_at is None:
+        got = [(r0, float(p[0, 0])) for r0, (p,) in pipe]
+        assert got == [(r, float(r)) for r in range(0, n, h)]
+        assert stream_stats().bytes_read == n * 8 * 4
+        # the reads are counted once, as fetches: the consumer waits for no thread
+        met = REGISTRY.delta(m0)
+        assert met["pipeline.panels_fetched"] == n // h
+        assert met["pipeline.producer_fetch_seconds"] > 0
+        assert met.get("pipeline.consumer_wait_seconds", 0.0) == 0.0
+    else:
+        with pytest.raises(RuntimeError, match=f"prefetch failed at row {fail_at}") as err:
+            for r0, (p,) in pipe:
+                got.append(r0)
+        assert isinstance(err.value.__cause__, OSError)
+        assert got == list(range(0, fail_at - h, h))  # the failed row is staged one ahead
+    assert src.threads == {threading.get_ident()}
 
 
 def test_prefetch_spans_cross_threads():
