@@ -16,10 +16,14 @@ Phases, in order; any failure exits non-zero:
    the whole-matrix call), and timed beside the
    plain version, the one-call PyTorch yardstick where there is one, and the
    card's bound for the same work; ``block_matmul``'s split pass bitwise
-   against ``ref.split_tf32`` and its product against a float64 one,
-   ``flash_attention``'s route per form, and each redesigned kernel's
-   earlier design timed on the same inputs; then the pinned host-to-device
-   rate of one out-of-core panel (the ``[h2d]`` line);
+   against ``ref.split_tf32`` and its product against a float64 one (and
+   ``stream_gemm``'s tensor-core route bitwise equal to it), ``stream_gemm``'s
+   route per form and its K step against a float64 product beside
+   ``torch.addmm``'s, ``panel_topk_update``'s device time per launch (from a
+   ``torch.profiler`` trace) apart from the host's cost of a call and of a
+   query's merger step, ``flash_attention``'s route per form and
+   its earlier (SIMT) design timed on the same inputs; then the pinned
+   host-to-device rate of one out-of-core panel (the ``[h2d]`` line);
 3. the resident main path: ``SequenceDetector`` over the n=10512 climate
    sequence (the 2.5-degree NCEP/NCAR Reanalysis 1 grid, 73 x 144), with
    the kernel launch counts of that run alone; then a float64 yardstick
@@ -33,8 +37,9 @@ Phases, in order; any failure exits non-zero:
 5. the out-of-core main path: the same n=10512 sequence written to a tiled
    on-disk store, scored from it with the chain's working matrices in a
    host-RAM scratch store and the ``stream_gemm`` / ``fused_panel_matvec``
-   kernels; exact launch counts of that run alone, top-20 ids equal to
-   phase 3's, and the device residency bounds;
+   kernels; exact launch counts of that run alone (every K step on
+   ``stream_gemm``'s tensor-core route, every chi build on its skinny one),
+   top-20 ids equal to phase 3's, and the device residency bounds;
 6. the out-of-core pipeline at n=1536 with the bf16 tile codec, on the card
    and on the CPU: equal top-20 ids and allclose scores;
 7. the query read path: phase 3's sequence again, publishing every
@@ -130,6 +135,41 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(torch, fn, reps: int, names: tuple) -> float | None:
+    """Device time per call of ``fn``: the durations of the kernels whose names
+    contain one of ``names`` in a ``torch.profiler`` trace of ``reps`` calls,
+    summed and divided by ``reps``.  None when the trace holds no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == DeviceType.CUDA and any(n in e.name for n in names)]
+    return sum(us) / reps / 1e3 if us else None
+
+
+def host_ms(torch, fn, reps: int, warmup: int = 5) -> float:
+    """Host wall per call of ``fn`` over ``reps`` back-to-back calls, ending in a
+    device sync: the host's cost of a call wherever it exceeds the device's."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def bound_ms(ops: float, nbytes: float, peak_ops: float = PEAK_FP32_OPS) -> tuple[float, str]:
@@ -230,10 +270,10 @@ def phase_kernels(torch, rows: list) -> None:
     exact = torch.matmul(a.double(), b.double())
     err64_k = float((got.double() - exact).abs().max())
     err64_p = float((want.double() - exact).abs().max())
-    del got, want
-    got = sg.stream_gemm(a, b)  # the earlier design: gemm_tile.cuh's SIMT tile loop
-    err64_s = float((got.double() - exact).abs().max())
-    del exact, got
+    del want, exact
+    if not torch.equal(sg.stream_gemm(a, b), got):  # n > 32: the tensor-core route
+        fail("stream_gemm's tensor-core route at 10512^3 differs from block_matmul's product")
+    del got
     if err64_k > BM_ERR64_BAR:
         fail(f"block_matmul 10512^3: max |C - float64 product| {err64_k:.3e} > {BM_ERR64_BAR:g}")
     check_bitwise(torch, "block_matmul 10512^3", lambda: bm.block_matmul(a, b))
@@ -242,19 +282,17 @@ def phase_kernels(torch, rows: list) -> None:
     ms = time_ms(torch, lambda: bm.block_matmul(a, b), reps=5)
     ms_sq = time_ms(torch, lambda: bm.block_matmul(a, a), reps=5)
     lib = time_ms(torch, lambda: torch.matmul(a, b), reps=5)
-    simt = time_ms(torch, lambda: sg.stream_gemm(a, b), reps=3)
     fp32_bound, _ = bound_ms(2.0 * n**3, 3.0 * n * n * 4)
     log(f"[kernels] block_matmul {n}^3 (3xTF32): {2 * n**3 / ms / 1e9:.1f} TFLOP/s; b is a "
-        f"(one split pass) {ms_sq:.3f} ms; the SIMT tile loop {simt:.3f} ms; max |C - "
-        f"float64 product| kernel {err64_k:.3e} (bar {BM_ERR64_BAR:g}), torch.matmul "
-        f"{err64_p:.3e}, SIMT tile loop {err64_s:.3e}; fp32 CUDA-core bound {fp32_bound:.2f} ms")
+        f"(one split pass) {ms_sq:.3f} ms; max |C - float64 product| kernel {err64_k:.3e} (bar "
+        f"{BM_ERR64_BAR:g}), torch.matmul {err64_p:.3e}; stream_gemm's tensor-core route on "
+        f"the same operands bitwise equal; fp32 CUDA-core bound {fp32_bound:.2f} ms")
     rows.append(kernel_row(
         "block_matmul", "block_matmul.cu", "src/repro/kernels/block_matmul.py:45",
         f"{n}x{n}x{n} fp32 (3xTF32)", check, tol, ms,
         time_ms(torch, lambda: ref.block_matmul(a, b), reps=5), 3 * 2.0 * n**3, 3.0 * n * n * 4,
         lib, peak_ops=PEAK_TF32_OPS, err_vs_fp64=err64_k, plain_err_vs_fp64=err64_p,
-        simt_err_vs_fp64=err64_s, ms_b_is_a=ms_sq, simt_tile_loop_ms=simt,
-        kernel_route="3xTF32 wgmma"))
+        ms_b_is_a=ms_sq, kernel_route="3xTF32 wgmma"))
     del a, b
 
     # -- edge_projection: the in-kernel Q field bitwise, then Y at n=10512, k=17
@@ -365,25 +403,32 @@ def phase_stream_kernels(torch, rows: list) -> dict:
     blk, right, init, p1 = uniform(ph, ph), uniform(ph, n), uniform(ph, n), uniform(ph, n)
     y = torch.randn((n, k), generator=g, device=dev)
     blk_bits, right_bits, p1_bits = (host_bits(torch, t) for t in (blk, right, p1))
+    # one scratch for every K step, as the out-of-core chain allocates it per GEMM
+    scratch = torch.empty((sg.scratch_elems(ph, n, ph),), dtype=torch.float32, device=dev)
 
     # -- stream_gemm: the chain's K step (the accumulator as init) and the chi build
     tol = 2e-5
     variants = []
-    cases = (
-        ("K step fp32, init, sign +1", blk, right, init, 1.0),
-        ("K step A bits, init, sign +1", blk_bits, right, init, 1.0),
-        ("K step B bits, init, sign +1", blk, right_bits, init, 1.0),
-        ("K step fp32, init, sign -1", blk, right, init, -1.0),
-        ("chi build fp32, no init", p1, y, None, 1.0),
-        ("chi build A bits, no init", p1_bits, y, None, 1.0),
+    cases = (  # (case, A, B, init, sign, the route it must take)
+        ("K step fp32, init, sign +1", blk, right, init, 1.0, "tc"),
+        ("K step A bits, init, sign +1", blk_bits, right, init, 1.0, "tc"),
+        ("K step B bits, init, sign +1", blk, right_bits, init, 1.0, "tc"),
+        ("K step fp32, init, sign -1", blk, right, init, -1.0, "tc"),
+        ("chi build fp32, no init", p1, y, None, 1.0, "skinny"),
+        ("chi build A bits, no init", p1_bits, y, None, 1.0, "skinny"),
     )
-    for case, a, b, c0, sign in cases:
+    for case, a, b, c0, sign, route in cases:
         m_, k_ = a.shape
         n_ = b.shape[1]
         name = f"stream_gemm {case} ({m_}x{k_})@({k_}x{n_})"
-        got = sg.stream_gemm(a, b, c0, sign=sign)
+        sc = scratch if route == "tc" else None
+        tc0 = sg.tc_launches
+        got = sg.stream_gemm(a, b, c0, sign=sign, scratch=sc)
+        took = "tc" if sg.tc_launches > tc0 else "skinny"
+        if took != route:
+            fail(f"{name}: took the {took} route, want {route}")
         err, scale = check_close(name, got, ref.stream_gemm(a, b, c0, sign=sign), tol)
-        check_bitwise(torch, name, lambda: sg.stream_gemm(a, b, c0, sign=sign))
+        check_bitwise(torch, name, lambda: sg.stream_gemm(a, b, c0, sign=sign, scratch=sc))
         bits = a.dtype == torch.int16 or b.dtype == torch.int16
         if bits:
             da = host_decoded(torch, a) if a.dtype == torch.int16 else a
@@ -391,35 +436,59 @@ def phase_stream_kernels(torch, rows: list) -> dict:
             if not torch.equal(got, sg.stream_gemm(da, db, c0, sign=sign)):
                 fail(f"{name}: the in-kernel decode differs from the kernel on host-decoded fp32")
         reps = 20
-        ms = time_ms(torch, lambda: sg.stream_gemm(a, b, c0, sign=sign), reps=reps)
+        ms = time_ms(torch, lambda: sg.stream_gemm(a, b, c0, sign=sign, scratch=sc), reps=reps)
+        dev_ms = kernel_device_ms(torch, lambda: sg.stream_gemm(a, b, c0, sign=sign, scratch=sc),
+                                  reps, ("split_kernel", "gemm_tf32", "skinny"))
         plain = time_ms(torch, lambda: ref.stream_gemm(a, b, c0, sign=sign), reps=reps)
-        lib = None
+        lib = err64 = lib_err64 = None
         if not bits:  # one PyTorch call computes the same function (TF32 is off)
             if c0 is None:
-                lib = time_ms(torch, lambda: torch.mm(a, b), reps=reps)
+                call = lambda: torch.mm(a, b)  # noqa: E731
             else:
-                lib = time_ms(torch, lambda: torch.addmm(c0, a, b, alpha=sign), reps=reps)
-        bms, by = bound_ms(2.0 * m_ * k_ * n_, nbytes(a, b, c0) + m_ * n_ * 4.0)
-        variants.append(dict(case=case, shape=f"({m_}x{k_})@({k_}x{n_})", max_abs_err=err,
-                             max_abs_plain=scale, ms=ms, plain_ms=plain, library_ms=lib,
-                             bound_ms=bms, bound_by=by, decode_bitwise=bits or None))
-        lib_s = "" if lib is None else f", torch.{'mm' if c0 is None else 'addmm'} {lib:.3f} ms"
-        log(f"[kernels] {name}: max_abs_err {err:.3e} (tol {tol:g} x max|plain| {scale:.3e}), "
-            f"bitwise repeatable{', decode bitwise' if bits else ''}; {ms:.3f} ms, plain "
-            f"{plain:.3f} ms{lib_s}, bound {bms:.3f} ms ({by})")
+                call = lambda: torch.addmm(c0, a, b, alpha=sign)  # noqa: E731
+            lib = time_ms(torch, call, reps=reps)
+            exact = a.double() @ b.double()
+            exact = exact if c0 is None else c0.double() + sign * exact
+            err64 = float((got.double() - exact).abs().max())
+            lib_err64 = float((call().double() - exact).abs().max())
+            del exact
+        # the tensor-core route runs one TF32 product per pair of parts it
+        # does not skip (a bits operand has no lo part): 3, 2, 2 or 1
+        npa, npb = (1 if t.dtype == torch.int16 else 2 for t in (a, b))
+        products = npa * npb - (npa - 1) * (npb - 1) if route == "tc" else 1
+        bms, by = bound_ms(products * 2.0 * m_ * k_ * n_, nbytes(a, b, c0) + m_ * n_ * 4.0,
+                           PEAK_TF32_OPS if route == "tc" else PEAK_FP32_OPS)
+        variants.append(dict(case=case, shape=f"({m_}x{k_})@({k_}x{n_})", route=route,
+                             max_abs_err=err, max_abs_plain=scale, ms=ms, device_ms=dev_ms,
+                             plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+                             err_vs_fp64=err64, library_err_vs_fp64=lib_err64,
+                             decode_bitwise=bits or None))
+        lib_s = "" if lib is None else (
+            f", torch.{'mm' if c0 is None else 'addmm'} {lib:.3f} ms ({ms / lib:.2f}x); max |C - "
+            f"float64| kernel {err64:.3e}, torch {lib_err64:.3e}")
+        log(f"[kernels] {name}: {route} route; max_abs_err {err:.3e} (tol {tol:g} x max|plain| "
+            f"{scale:.3e}), bitwise repeatable{', decode bitwise' if bits else ''}; {ms:.4f} ms "
+            f"(device {fmt_ms(dev_ms)}), plain {plain:.3f} ms{lib_s}, bound {bms:.4f} ms ({by})")
     acc = init.clone()  # the chain accumulates in place: out aliases init
-    sg.stream_gemm(blk, right, acc, out=acc)
+    sg.stream_gemm(blk, right, acc, out=acc, scratch=scratch)
     if not torch.equal(acc, sg.stream_gemm(blk, right, init)):
         fail("stream_gemm: the in-place K step (out=init) differs from the out-of-place one")
     log("[kernels] stream_gemm K step in place (out=init, as the chain runs it): bitwise equal "
         "to the out-of-place launch")
-    del acc
-    v0 = variants[0]
+    del acc, scratch
+    v0, v4 = variants[0], variants[4]
+    if v0["err_vs_fp64"] > v0["library_err_vs_fp64"]:
+        fail(f"stream_gemm K step: max |C - float64| {v0['err_vs_fp64']:.3e} > torch.addmm's "
+             f"{v0['library_err_vs_fp64']:.3e}")
     rows.append(kernel_row(
         "stream_gemm", "stream_gemm.cu", "src/repro/kernels/stream_gemm.py:96",
         v0["shape"] + " fp32 + init", (v0["max_abs_err"], v0["max_abs_plain"]), tol,
-        v0["ms"], v0["plain_ms"], 2.0 * ph * ph * n, nbytes(blk, right, init) + ph * n * 4.0,
-        v0["library_ms"], variants=variants))
+        v0["ms"], v0["plain_ms"], 3 * 2.0 * ph * ph * n, nbytes(blk, right, init) + ph * n * 4.0,
+        v0["library_ms"], peak_ops=PEAK_TF32_OPS, variants=variants,
+        kernel_route="3xTF32 wgmma (n > 32); skinny fp32 FFMA (n <= 32)",
+        err_vs_fp64=v0["err_vs_fp64"], library_err_vs_fp64=v0["library_err_vs_fp64"],
+        chi_build_ms=v4["ms"], chi_build_library_ms=v4["library_ms"],
+        chi_build_bound_ms=v4["bound_ms"]))
     del blk, right, init, blk_bits, right_bits
 
     # -- fused_panel_matvec: one richardson iteration over a P2 row panel
@@ -502,9 +571,8 @@ def phase_main_path(torch) -> dict:
     disable_tracing()
     peak = torch.cuda.max_memory_allocated() / 1e9
 
-    want = {"block_matmul": 3 * CHAIN_GEMMS, "edge_projection": 3, "cad_scores": 2,
-            "stream_gemm": 0, "fused_panel_matvec": 0, "panel_topk_update": 0, "wkv": 0,
-            "flash_attention": 0, "flash_attention_wgmma": 0}
+    want = {name: 0 for name in counts} | {"block_matmul": 3 * CHAIN_GEMMS,
+                                            "edge_projection": 3, "cad_scores": 2}
     if counts != want:
         fail(f"main-path launch counts {counts} != {want}")
     event = set(seq.event_nodes.tolist())
@@ -726,11 +794,12 @@ def phase_oocore(torch, rows: list, resident: dict, per: dict) -> tuple:
         shutil.rmtree(tmp, ignore_errors=True)
 
     g = N_MAIN // PH_OOC
-    want = {"block_matmul": 0, "edge_projection": T_OOC * STORE_GRID,
-            "cad_scores": (T_OOC - 1) * STORE_GRID,
-            "stream_gemm": T_OOC * (CHAIN_GEMMS * g * g + g),
-            "fused_panel_matvec": T_OOC * REFINE_STEPS * g, "panel_topk_update": 0, "wkv": 0,
-            "flash_attention": 0, "flash_attention_wgmma": 0}
+    # every K step on stream_gemm's tensor-core route, every chi build (n = 17) on its skinny one
+    want = {name: 0 for name in counts} | {
+        "edge_projection": T_OOC * STORE_GRID, "cad_scores": (T_OOC - 1) * STORE_GRID,
+        "stream_gemm": T_OOC * (CHAIN_GEMMS * g * g + g),
+        "stream_gemm_tc": T_OOC * CHAIN_GEMMS * g * g,
+        "fused_panel_matvec": T_OOC * REFINE_STEPS * g}
     if counts != want:
         fail(f"out-of-core launch counts {counts} != {want}")
     for t, r in enumerate(res.transitions):
@@ -782,11 +851,17 @@ def phase_oocore(torch, rows: list, resident: dict, per: dict) -> tuple:
         "kernels_est_s": kern_s,
         "h2d_est_s": h2d_s,
     }
+    from repro_torch.kernels import stream_gemm as sg
+
+    gemm_scratch = sg.scratch_elems(PH_OOC, N_MAIN, PH_OOC) * 4.0
     log(f"[oocore] n={N_MAIN} T={T_OOC} d={cfg.d} q={cfg.q} k={K_MAIN}, store grid "
         f"{STORE_GRID}, scratch panels {PH_OOC} rows (host RAM, raw): run wall {wall:.3f} s; "
-        f"launches {counts}; peak device memory {peak:.3f} GB ({peak / resident['peak']:.1%} of "
-        f"the resident run's {resident['peak']:.2f} GB); stream.peak_live_bytes "
-        f"{st['peak_live_bytes'] / 1e6:.1f} MB (cap {live_cap / 1e6:.1f} MB)")
+        f"launches {counts} (stream_gemm: {counts['stream_gemm_tc']} K steps on the tensor-core "
+        f"route, {counts['stream_gemm'] - counts['stream_gemm_tc']} chi builds on the skinny "
+        f"one); peak device memory {peak:.3f} GB ({peak / resident['peak']:.1%} of the resident "
+        f"run's {resident['peak']:.2f} GB; it holds stream_gemm's per-GEMM scratch of "
+        f"{gemm_scratch / 1e6:.1f} MB); stream.peak_live_bytes "
+        f"{st['peak_live_bytes'] / 1e6:.1f} MB (cap {live_cap / 1e6:.1f} MB; panels only)")
     log(f"[oocore] stream bytes: read {st['bytes_read'] / 1e9:.2f} GB from the stores, decoded "
         f"{st['bytes_decoded'] / 1e9:.2f} GB, H2D {st['bytes_h2d'] / 1e9:.2f} GB in "
         f"{st['panels']} panels ({st['bytes_h2d_saved'] / 1e9:.2f} GB saved by stored-form "
@@ -797,7 +872,8 @@ def phase_oocore(torch, rows: list, resident: dict, per: dict) -> tuple:
           "rate; d2h_and_sync_wait includes the wait for the kernels and copies queued before "
           "each .cpu(); producer_fetch runs on the prefetch thread, overlapped)")
     yard = (p1_t0, res.transitions[0].scores.cpu().double())
-    return {"counts": counts, "wall": wall, "peak_gb": peak, "stream": st, "split": split}, yard
+    return {"counts": counts, "wall": wall, "peak_gb": peak, "gemm_scratch_bytes": gemm_scratch,
+            "stream": st, "split": split}, yard
 
 
 def phase_oocore_end_to_end(torch) -> None:
@@ -818,9 +894,12 @@ def phase_oocore_end_to_end(torch) -> None:
 
 def phase_query_kernel(torch, rows: list) -> dict:
     """panel_topk_update at the query path's shapes: q=1, one 144 x 17 panel,
-    topk 20 and 300 (> 2 x 144), raw and corrected, largest and smallest with
-    an excluded id, fp32 and bf16 bits, from a running state of an earlier
-    panel.  Returns the per-launch times by (topk, corrected, largest, bits)."""
+    topk 20 and 300 (> 2 x 144), raw and corrected, largest and smallest
+    with an excluded id, fp32 and bf16 bits, from a running state of an
+    earlier panel.  Each form's device time per launch
+    comes from a torch.profiler trace; the host's cost of a call is timed
+    apart, for the one-panel wrapper and for a query's merger step.  Returns
+    the device times per launch by (topk, corrected, largest, bits)."""
     from repro_torch.kernels import emb_query as eq
     from repro_torch.kernels import ref
 
@@ -866,25 +945,42 @@ def phase_query_kernel(torch, rows: list) -> dict:
                                                    **kw)
                         if not (torch.equal(dec[0], gv) and torch.equal(dec[1], gi)):
                             fail(f"{name}: the in-kernel decode differs from host-decoded fp32")
-                    ms = time_ms(torch, lambda: eq.panel_topk_update(*args, **kw), reps=200, warmup=5)
+                    call = lambda: eq.panel_topk_update(*args, **kw)  # noqa: E731
+                    wrapper_ms = host_ms(torch, call, reps=200)
+                    events_ms = time_ms(torch, call, reps=200, warmup=5)
+                    dev_ms = kernel_device_ms(torch, call, 50, ("panel_topk",))
+                    if dev_ms is None:
+                        fail(f"{name}: the profiler trace holds no panel_topk kernel")
+                    # a query's step: the merger (checked once) takes one more panel
+                    merger = eq.PanelTopk(zq, idq, idp, ex, vol,
+                                          panel_rows=ph, inv_deg_row0=row0, **kw)
+                    step_ms = host_ms(torch, lambda: merger.update(panel, row0), reps=200)
                     plain = time_ms(torch, lambda: ref.panel_topk_update(*args, **kw), reps=50)
                     moved = nbytes(*args[:6], ex) + nbytes(v0, i0)  # inputs, then the state out
                     bms, by = bound_ms(4.0 * ph * k + 6.0 * ph, moved)
-                    per[(topk, corrected, largest, bits)] = ms
-                    variants.append(dict(case=case, max_abs_err=err, max_abs_plain=scale, ms=ms,
-                                         plain_ms=plain, bound_ms=bms, bound_by=by,
-                                         decode_bitwise=bits or None))
-                    log(f"[kernels] {name}: ids equal, max_abs_err {err:.3e} (tol {tol:g} x "
-                        f"max|plain| {scale:.3e}), bitwise repeatable"
-                        f"{', decode bitwise' if bits else ''}; {ms:.4f} ms, plain {plain:.4f} ms, "
-                        f"bound {bms:.2e} ms ({by})")
+                    per[(topk, corrected, largest, bits)] = dev_ms
+                    variants.append(dict(case=case, max_abs_err=err,
+                                         max_abs_plain=scale, ms=dev_ms, device_ms=dev_ms,
+                                         host_ms_per_call=wrapper_ms,
+                                         merger_host_ms_per_panel=step_ms,
+                                         events_ms_back_to_back=events_ms, plain_ms=plain,
+                                         bound_ms=bms, bound_by=by, decode_bitwise=bits or None))
+                    log(f"[kernels] {name}: ids equal, max_abs_err {err:.3e} "
+                        f"(tol {tol:g} x max|plain| {scale:.3e}), bitwise repeatable{', decode bitwise' if bits else ''}; device "
+                        f"{fmt_ms(dev_ms)} a launch; host {wrapper_ms:.4f} ms a wrapper call, "
+                        f"{step_ms:.4f} ms a merger step (back to back by events {events_ms:.4f} "
+                        f"ms); plain {plain:.4f} ms, bound {bms:.2e} ms ({by})")
     v0 = variants[0]
     rows.append(dict(
         name="panel_topk_update", route="cuda", source="src/repro_torch/kernels/csrc/emb_query.cu",
         replaces="src/repro/kernels/emb_query.py:131", max_abs_err=v0["max_abs_err"], ms=v0["ms"],
         plain_ms=v0["plain_ms"], bound_ms=v0["bound_ms"], bound_by=v0["bound_by"], library_ms=None,
         tolerance=f"{tol:g} x max|plain|, ids equal", max_abs_plain=v0["max_abs_plain"],
-        shape=f"q=1, Z {ph}x{k} fp32, {v0['case']}", variants=variants))
+        shape=f"q=1, Z {ph}x{k} fp32, {v0['case']}", device_ms=v0["device_ms"],
+        ms_is="device time (torch.profiler)",
+        host_ms_per_call=v0["host_ms_per_call"],
+        merger_host_ms_per_panel=v0["merger_host_ms_per_panel"],
+        variants=variants))
     return per
 
 
@@ -1023,10 +1119,11 @@ def phase_query(torch, resident: dict, per: dict) -> dict:
         maps = {"kept": sum(s._n_maps for s in stores),
                 "limit_per_store": handles["raw"].store.maps_limit}
         log(f"[query] {tag}: {n_q} queries, launches {counts['panel_topk_update']} "
-            f"(= {n_q} x {panels}); stream.peak_live_bytes {st['peak_live_bytes']} (cap {cap}); "
+            f"(= {n_q} x {panels}); "
+            f"stream.peak_live_bytes {st['peak_live_bytes']} (cap {cap}); "
             f"bytes read {st['bytes_read']}, H2D {st['bytes_h2d']}; time split (s, host clock): "
             + ", ".join(f"{k[:-2]} {v:.4f}" for k, v in split.items() if k.endswith("_s"))
-            + " (kernels_est: panels x phase-2 per-launch ms; producer_fetch: the panel "
+            + " (kernels_est: panels x phase-2 device ms a launch; producer_fetch: the panel "
             "reads, on the consumer's thread); kept "
             f"panel maps {maps['kept']} (limit {maps['limit_per_store']} a store)")
         out[tag] = {"counts": counts, "stream": st, "split": split, "panel_maps": maps,
@@ -1523,6 +1620,8 @@ def main() -> int:
         if row["name"] == "flash_attention":
             row["launches_wgmma"] = sum(serve[arch]["counts"]["flash_attention_wgmma"]
                                         for arch, _ in SERVE_MODELS)
+        if row["name"] == "stream_gemm":
+            row["launches_tc"] = oocore["counts"]["stream_gemm_tc"]
     (OUT / "chip_smoke_oocore.json").write_text(json.dumps(
         {"card": smi, "per_launch": per_launch, **oocore, "chain_float64_yardstick": chain64},
         indent=1))

@@ -18,8 +18,11 @@ block: O(n * panel), never O(n^2).  The unary passes (S build, +I, the
 D^{-1/2} sandwich, the Laplacian) stream one panel at a time.
 
 With ``use_gemm_kernel`` each K step is one ``stream_gemm`` launch with the
-accumulator as both ``init`` and ``out`` (in place), and panels ship in their stored form (bf16 scratch
-as uint16 bits, widened in the kernel); otherwise the K step is a plain
+accumulator as both ``init`` and ``out`` (in place), and panels ship in their
+stored form (bf16 scratch as uint16 bits, widened in the kernel); the
+kernel's scratch (the operands' TF32 parts, 127 MB at n=10512 with 1314-row
+panels) is allocated once per GEMM and is not counted in
+``stream.peak_live_bytes``, which counts panels; otherwise the K step is a plain
 ``acc +-= block @ right`` product, as the JAX package's ``_gemm_step`` is
 plain XLA.  Each output panel comes back to the host (``.cpu()``, a sync)
 to be written into the scratch; the ``oochain.d2h_seconds`` and
@@ -218,6 +221,9 @@ def chain_product_oocore(
         the streamed right panels and the accumulator reach the device.
         """
         nested = [k0 for _ in origins for k0 in origins]  # right walk, per row
+        # one scratch for every K step of this GEMM, sized for fp32 operands
+        scratch = (torch.empty((_sg.scratch_elems(ph, n, ph),), dtype=torch.float32, device=dev)
+                   if use_gemm_kernel else None)
         with obs_trace.span("oochain.gemm", out=out_id, panels=len(origins)), \
                 work.writer(out_id) as w, \
                 stream(left_h, on_device=False, encoded=use_gemm_kernel) as lpipe, \
@@ -237,7 +243,7 @@ def chain_product_oocore(
                     _, (right,) = next(right_iter)
                     block = put_panel(left_host[:, k0 : k0 + ph], ph * ph * 4 if left_enc else None)
                     if use_gemm_kernel:  # both accumulate in place
-                        _sg.stream_gemm(block, right, acc, sign=sign, out=acc)
+                        _sg.stream_gemm(block, right, acc, sign=sign, out=acc, scratch=scratch)
                         transient = 0
                     else:
                         _gemm_step(acc, block, right, sign)

@@ -7,8 +7,9 @@ sketch, a read is O(n k_RP): Z streams in row panels through
 :class:`~repro_torch.store.PanelPipeline` (stored form: a bf16 artifact
 crosses to the card as its bits and widens in the kernel), and the
 ``panel_topk_update`` CUDA kernel merges each panel into the running
-(q, topk) state.  No n-long score vector and no n x n block is built; the
-card holds two panels plus the state.
+(q, topk) state, through one :class:`~repro_torch.kernels.emb_query.PanelTopk`
+per query (arguments checked once, one launch per panel).  No n-long score
+vector and no n x n block is built; the card holds two panels plus the state.
 
 * :func:`top_anomalies_from_store` -- the k nodes farthest from the volume
   centroid ``zbar`` (same ranking as mean commute distance to all nodes);
@@ -35,7 +36,7 @@ import torch
 from repro_torch.core.embedding import validate_node_indices
 from repro_torch.core.tiles import stream_stats
 from repro_torch.device import resolve_device
-from repro_torch.kernels.emb_query import panel_topk_update, topk_init
+from repro_torch.kernels.emb_query import PanelTopk
 from repro_torch.obs import REGISTRY, phase
 from repro_torch.store.pipeline import PanelPipeline
 
@@ -94,17 +95,15 @@ def _streamed_topk(
     inv_deg = torch.from_numpy(handle.inv_deg().reshape(1, n)).to(dev)
     ex = np.full((q, 1), -1, np.int32) if exclude is None else np.asarray(exclude, np.int32)
     ex = torch.from_numpy(ex.reshape(q, 1).copy()).to(dev)
-    vol = handle.vol
-    vals, idx = topk_init(q, topk, largest=largest, device=dev)
+    merger = PanelTopk(zq_t, idq, inv_deg, ex, handle.vol, topk=topk, panel_rows=pr,
+                       corrected=corrected, largest=largest)
     n_panels = 0
     with PanelPipeline([handle], range(0, n, pr), pr, depth=prefetch_depth, device=dev,
                        stats=stream_stats(), encoded=True) as pipe:
         for row0, (zp,) in pipe:
-            vals, idx = panel_topk_update(
-                vals, idx, zq_t, zp, idq, inv_deg[:, row0 : row0 + pr], vol, row0, ex,
-                topk=topk, corrected=corrected, largest=largest,
-            )
+            merger.update(zp, row0)
             n_panels += 1
+    vals, idx = merger.result()
     return vals.cpu().numpy(), idx.cpu().numpy(), n_panels
 
 

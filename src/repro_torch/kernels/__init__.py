@@ -5,8 +5,11 @@
 * ``edge_projection`` -- ``csrc/edge_projection.cu``, replaces
   ``repro/kernels/edge_projection.py``;
 * ``cad_score`` -- ``csrc/cad_score.cu``, replaces ``repro/kernels/cad_score.py``;
-* ``stream_gemm`` -- ``csrc/stream_gemm.cu``, replaces ``stream_gemm`` and
-  ``fused_panel_matvec`` of ``repro/kernels/stream_gemm.py`` (two counters);
+* ``stream_gemm`` -- ``csrc/stream_gemm.cu`` (its tensor-core route on
+  ``csrc/tf32x3.cuh``, shared with ``block_matmul``), replaces ``stream_gemm``
+  and ``fused_panel_matvec`` of ``repro/kernels/stream_gemm.py``
+  (``stream_gemm_tc`` counts the tensor-core route of ``stream_gemm``, the
+  rest took the skinny one);
 * ``emb_query`` -- ``csrc/emb_query.cu``, replaces ``panel_topk_update`` of
   ``repro/kernels/emb_query.py``;
 * ``wkv`` -- ``csrc/wkv.cu``, replaces ``repro/kernels/wkv.py``;
@@ -34,6 +37,7 @@ _COUNTERS = {
     "edge_projection": (_ep, "launches"),
     "cad_scores": (_cad, "launches"),
     "stream_gemm": (_sg, "gemm_launches"),
+    "stream_gemm_tc": (_sg, "tc_launches"),
     "fused_panel_matvec": (_sg, "matvec_launches"),
     "panel_topk_update": (_eq, "launches"),
     "wkv": (_wkv, "launches"),

@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("block_matmul.cu", "edge_projection.cu", "cad_score.cu", "stream_gemm.cu",
            "emb_query.cu", "wkv.cu", "flash_attention.cu")
-HEADERS = ("common.cuh", "gemm_tile.cuh", "hopper.cuh")
+HEADERS = ("common.cuh", "hopper.cuh", "tf32x3.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,10 +42,10 @@ SIGNATURES = {
     "rt_edge_projection": (_P, _P, _I, _I, _I, _U, _I, _F, _P),
     "rt_rademacher_field": (_P, _I, _I, _I, _I, _U, _I, _P),
     "rt_cad_scores": (_P, _P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _P),
-    "rt_stream_gemm": (_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P),
+    "rt_stream_gemm_tc": (_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P, _L, _P),
+    "rt_stream_gemm_skinny": (_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _L, _P),
     "rt_fused_panel_matvec": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "rt_panel_topk_update": (_P, _P, _P, _P, _I, _P, _P, _F, _I, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _P),
+    "rt_panel_topk_step": (_P, _P, _I, _I, _I),
     "rt_wkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "rt_flash_attention_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),

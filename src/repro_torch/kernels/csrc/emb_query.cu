@@ -22,17 +22,23 @@
 // path a launch reads one 144 x 17 panel (9.8 KB fp32, 4.9 KB as bf16 bits)
 // and 2 x 20 state entries, ~3 ns of HBM time and ~10 kFLOP, while one
 // launch costs microseconds whatever it does.  So the design is simple: one
-// block per query row.  Threads score the panel rows into shared memory
-// beside the state's values, every candidate becomes a 64-bit key
-// (order-preserving bits of the value in the high half, the complement of
-// its position in the low half, so larger key = better and ties go to the
-// lower position), and a block-wide bitonic sort orders the keys.  Keys are
-// unique, the sort network is fixed, no atomics: bitwise repeatable.
+// block per query row.  One warp sums |z_q|^2, threads score the panel rows
+// into shared memory beside the state's values, every candidate becomes a
+// 64-bit key (order-preserving bits of the value in the high half, the
+// complement of its position in the low half, so larger key = better and
+// ties go to the lower position), and a block-wide bitonic sort orders the
+// keys.  Keys are unique, the sort network is fixed, no atomics: bitwise
+// repeatable.
+//
+// The host keeps a per-query plan (`TopkPlan`): the query's constant
+// arguments and two (q, topk) state buffers used in turn, so a panel's call
+// passes only the panel, its dtype flag, its row origin and its row count.
 #include "common.cuh"
 
 namespace {
 
 constexpr int TK_THREADS = 256;
+constexpr int TK_K_MAX = 256;  // widest sketch the wrapper passes
 
 // Float bits as an unsigned key with the same order (-0 counts as +0, so a
 // zero tie goes to position order as the reference's == does).
@@ -61,10 +67,12 @@ panel_topk_kernel(const float* __restrict__ run_v, const int* __restrict__ run_i
   const int ncand = topk + ph;
   for (int c = tid; c < k; c += TK_THREADS) zqs[c] = zq[q * k + c];
   __syncthreads();
-  if (tid == 0) {
+  if (tid < RT_WARP) {  // |z_q|^2: lane-strided sums, then a butterfly
     float s = 0.0f;
-    for (int c = 0; c < k; ++c) s = fmaf(zqs[c], zqs[c], s);
-    sq_q_s = s;
+    for (int c = tid; c < k; c += RT_WARP) s = fmaf(zqs[c], zqs[c], s);
+#pragma unroll
+    for (int off = RT_WARP / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (tid == 0) sq_q_s = s;
   }
   for (int p = tid; p < topk; p += TK_THREADS) vals[p] = run_v[q * topk + p];
   __syncthreads();
@@ -122,40 +130,58 @@ panel_topk_kernel(const float* __restrict__ run_v, const int* __restrict__ run_i
   }
 }
 
+// The per-query plan the host keeps (repro_torch.kernels.emb_query._TopkPlan
+// mirrors this layout): the state is read from vals/ids[cur] and written to
+// vals/ids[cur ^ 1], then cur flips.  idp holds 1/deg of global rows
+// idp_row0, idp_row0 + 1, ...
+struct TopkPlan {
+  void* vals[2];
+  void* ids[2];
+  const void* zq;
+  const void* idq;
+  const void* idp;
+  const void* ex;
+  void* stream;
+  float vol;
+  int idp_row0;
+  int nq, k, topk, corrected, largest, cur;
+};
+
 template <typename TZ>
-int launch(const void* run_v, const void* run_i, const void* zq, const void* zp, const void* idq,
-           const void* idp, float vol, int row0, const void* ex, void* out_v, void* out_i, int nq,
-           int ph, int k, int topk, int corrected, int largest, void* stream) {
+int launch(const TopkPlan& p, const void* zp, int row0, int ph) {
+  const cudaStream_t s = static_cast<cudaStream_t>(p.stream);
+  const float* run_v = static_cast<const float*>(p.vals[p.cur]);
+  const int* run_i = static_cast<const int*>(p.ids[p.cur]);
+  float* out_v = static_cast<float*>(p.vals[p.cur ^ 1]);
+  int* out_i = static_cast<int*>(p.ids[p.cur ^ 1]);
+  const float* zq = static_cast<const float*>(p.zq);
+  const float* idq = static_cast<const float*>(p.idq);
+  const float* idp = static_cast<const float*>(p.idp) + (row0 - p.idp_row0);
+  const int* ex = static_cast<const int*>(p.ex);
+  const TZ* z = static_cast<const TZ*>(zp);
   int npow2 = 1;
-  while (npow2 < topk + ph) npow2 <<= 1;
+  while (npow2 < p.topk + ph) npow2 <<= 1;
   const size_t smem = (size_t)npow2 * sizeof(unsigned long long) +
-                      (size_t)(topk + ph + k) * sizeof(float);
+                      (size_t)(p.topk + ph + p.k) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         panel_topk_kernel<TZ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  panel_topk_kernel<TZ><<<nq, TK_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(run_v), static_cast<const int*>(run_i),
-      static_cast<const float*>(zq), static_cast<const TZ*>(zp), static_cast<const float*>(idq),
-      static_cast<const float*>(idp), vol, row0, static_cast<const int*>(ex),
-      static_cast<float*>(out_v), static_cast<int*>(out_i), ph, k, topk, npow2, corrected,
-      largest);
+  panel_topk_kernel<TZ><<<p.nq, TK_THREADS, smem, s>>>(
+      run_v, run_i, zq, z, idq, idp, p.vol, row0, ex, out_v, out_i, ph, p.k, p.topk, npow2,
+      p.corrected, p.largest);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// One launch per (panel, query block): nq blocks.  The wrapper bounds
-// topk + ph (shared memory) and k (the query row is staged in shared memory).
-extern "C" int rt_panel_topk_update(const void* run_v, const void* run_i, const void* zq,
-                                    const void* zp, int zp_bits, const void* idq,
-                                    const void* idp, float vol, int row0, const void* ex,
-                                    void* out_v, void* out_i, int nq, int ph, int k, int topk,
-                                    int corrected, int largest, void* stream) {
-  if (zp_bits)
-    return launch<uint16_t>(run_v, run_i, zq, zp, idq, idp, vol, row0, ex, out_v, out_i, nq, ph,
-                            k, topk, corrected, largest, stream);
-  return launch<float>(run_v, run_i, zq, zp, idq, idp, vol, row0, ex, out_v, out_i, nq, ph, k,
-                       topk, corrected, largest, stream);
+// One launch per (panel, plan): nq blocks.  The wrapper bounds topk + ph
+// (shared memory) and k (the query row is staged in shared memory).
+extern "C" int rt_panel_topk_step(void* plan, const void* zp, int zp_bits, int row0, int ph) {
+  TopkPlan& p = *static_cast<TopkPlan*>(plan);
+  if (p.k < 1 || p.k > TK_K_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = zp_bits ? launch<uint16_t>(p, zp, row0, ph) : launch<float>(p, zp, row0, ph);
+  if (err == 0) p.cur ^= 1;
+  return err;
 }

@@ -10,15 +10,30 @@
 // host codec `_bf16_u16_to_f32`, so a bits operand gives bitwise the same
 // result as its host-decoded fp32 copy.
 //
-// rt_stream_gemm: C = init + sign * (A @ B), init optional.
-//   Bound on an H100: operations.  The chain's K step is (1314 x 1314) @
-//   (1314 x 10512) = 36.3 GFLOP of fp32 FFMA, ~0.54 ms at 67 TFLOP/s,
-//   against 0.11 GB of operands and output (~0.03 ms of HBM).  The chain
-//   amplifies rounding 2^d-fold, so no TF32: the fp32 SIMT tile loop of
-//   gemm_tile.cuh, with the decode on the way into shared memory and the
-//   init/sign add in the epilogue (one launch per K step, the accumulator
-//   as init).  The skinny chi-build shape (n x 17 output) runs on the same
-//   tiling, most of each 128-column tile masked.
+// stream_gemm: C = init + sign * (A @ B), init optional, C may alias init.
+// Two routes, a fixed dispatch on n (the wrapper picks; neither falls back):
+// * n > 32, the chain's K step (1314 x 1314) @ (1314 x 10512) + init.
+//   Bound on an H100: operations, 36.3 GFLOP a step.  On the CUDA cores'
+//   fp32 FFMA that is ~0.54 ms (67 TFLOP/s); the route runs it as three TF32
+//   products on `wgmma` (tf32x3.cuh, the design of block_matmul.cu: the
+//   chain amplifies rounding 2^d-fold, so one TF32 product is too coarse),
+//   3 x 36.3 GFLOP at 495 TFLOP/s = 0.22 ms, with init and the sign in the
+//   epilogue.  A bits operand is exact in TF32, so its split pass writes hi
+//   only and the products that would read its lo are skipped.  The split
+//   parts live in caller-allocated scratch, (NPA m + NPB n) round_up(k, 32)
+//   floats (the out-of-core chain allocates it once per GEMM).
+// * n <= 32, the chi build and CG's direction product (1314 x 10512) @
+//   (10512 x 17).  Bound on an H100: bytes, 55 MB of A (~0.017 ms at 3.35
+//   TB/s) against 0.47 GFLOP.  `skinny_kernel`: a block takes 64 rows of A
+//   and a run of 64-deep k slabs; A streams in with 16-byte loads (prefetched
+//   into registers while the previous slab is multiplied) and is widened to
+//   fp32 in shared memory beside the slab of B, which all 64 rows share.  Its
+//   256 threads are 64 rows x 4 k groups; a thread keeps its row's n sums in
+//   registers (n padded to 8, 16, 20, 24 or 32).  The k range is split over
+//   enough blocks to fill the card (a function of m and k only); the splits'
+//   partials go to scratch and `skinny_finish` adds them in split order and
+//   applies init and the sign.  Every output is summed over k in one fixed
+//   order, with no atomics, so two runs are bitwise equal.
 //
 // rt_fused_panel_matvec: one pass over a row panel P (ph x K):
 //   gy = chi + y_panel - P y,   delta = chi - P y,
@@ -30,9 +45,216 @@
 //   the lanes' reads hit distinct banks).  Reductions are two-stage and
 //   fixed-order -- per-block partials, then one block sums them in block
 //   order -- with no atomics, so CachingHandle replays are bitwise.
-#include "gemm_tile.cuh"
+#include "tf32x3.cuh"
 
 namespace {
+
+constexpr int SK_BM = 64;                   // rows of A per block
+constexpr int SK_KG = 4;                    // k groups per block
+constexpr int SK_THREADS = SK_BM * SK_KG;   // one thread per (row, k group)
+constexpr int SK_KT = 64;                   // k of a slab
+constexpr int SK_KPG = SK_KT / SK_KG;       // k of a slab per group
+constexpr int SK_APITCH = SK_KT + 4;        // floats per A row in shared memory (16-byte rows)
+constexpr int SK_NMAX = 32;
+constexpr int SK_PER_THREAD = SK_BM * SK_KT / SK_THREADS;  // A elements a thread stages per slab
+
+// 16 bytes of A widened to fp32: 4 floats, or 8 bf16 bit patterns.
+__device__ __forceinline__ void widen16(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+__device__ __forceinline__ void widen16(const uint16_t* p, float* out) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // little endian: element 2i is the low half of word i
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+template <typename TA, typename TB, int NC>
+__global__ void __launch_bounds__(SK_THREADS, 2)
+skinny_kernel(const TA* __restrict__ A, const TB* __restrict__ B, float* __restrict__ part,
+              int m, int n, int k, int slabs, int slabs_per_split, int vec) {
+  // As (SK_BM x SK_APITCH) then Bs (SK_KT x NC); after the k loop the same
+  // words hold the k groups' sums (SK_KG - 1 groups x SK_BM rows x NC + 1).
+  __shared__ __align__(16) float smem[SK_BM * SK_APITCH + SK_KT * NC];
+  static_assert((SK_KG - 1) * SK_BM * (NC + 1) <= SK_BM * SK_APITCH + SK_KT * NC,
+                "the group sums fit in the staging buffers");
+  static_assert(NC % 4 == 0 && NC <= SK_NMAX, "n is padded to a multiple of 4");
+  float* As = smem;
+  float* Bs = smem + SK_BM * SK_APITCH;
+
+  constexpr int VW = 16 / sizeof(TA);           // A elements per 16-byte load
+  constexpr int VPR = SK_KT / VW;                // 16-byte loads per row of a slab
+  constexpr int NV = SK_PER_THREAD / VW;         // 16-byte loads a thread makes per slab
+  constexpr int BT = SK_THREADS / SK_KT;        // threads per row of a B slab
+  constexpr int NB = NC / BT;                    // B elements a thread stages per slab
+  static_assert(BT * SK_KT == SK_THREADS && NC % BT == 0, "B slab rows split evenly");
+  const int t = threadIdx.x;
+  const int r = t % SK_BM, g = t / SK_BM;  // a warp is 32 rows of one k group
+  const int row0 = blockIdx.x * SK_BM;
+  const int sl0 = blockIdx.y * slabs_per_split;
+  const int sl1 = min(slabs, sl0 + slabs_per_split);
+
+  float ra[SK_PER_THREAD];
+  float rb[NB];
+  auto load = [&](int sl) {
+    const int k0 = sl * SK_KT;
+    if (vec) {  // k is a multiple of VW and A is 16-byte aligned: whole vectors in or out
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int e = t + i * SK_THREADS;
+        const int gr = row0 + e / VPR, gk = k0 + (e % VPR) * VW;
+        if (gr < m && gk < k) {
+          widen16(A + (size_t)gr * k + gk, ra + i * VW);
+        } else {
+#pragma unroll
+          for (int j = 0; j < VW; ++j) ra[i * VW + j] = 0.0f;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < SK_PER_THREAD; ++i) {
+        const int e = t + i * SK_THREADS;
+        const int gr = row0 + e / SK_KT, gk = k0 + e % SK_KT;
+        ra[i] = (gr < m && gk < k) ? to_f32(A[(size_t)gr * k + gk]) : 0.0f;
+      }
+    }
+    const int bk = k0 + t / BT;  // this thread's B row; its columns t % BT, + BT, ...
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int c = t % BT + i * BT;
+      rb[i] = (c < n && bk < k) ? to_f32(B[(size_t)bk * n + c]) : 0.0f;  // 0 past n
+    }
+  };
+  auto store = [&]() {
+    if (vec) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int e = t + i * SK_THREADS;
+        float* dst = As + (e / VPR) * SK_APITCH + (e % VPR) * VW;
+#pragma unroll
+        for (int j = 0; j < VW; ++j) dst[j] = ra[i * VW + j];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < SK_PER_THREAD; ++i) {
+        const int e = t + i * SK_THREADS;
+        As[(e / SK_KT) * SK_APITCH + e % SK_KT] = ra[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) Bs[(t / BT) * NC + t % BT + i * BT] = rb[i];
+  };
+
+  float acc[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) acc[c] = 0.0f;
+
+  if (sl0 < sl1) load(sl0);
+  for (int sl = sl0; sl < sl1; ++sl) {
+    __syncthreads();  // the previous slab's reads are done
+    store();
+    __syncthreads();
+    if (sl + 1 < sl1) load(sl + 1);  // in flight while this slab is multiplied
+    const float* arow = As + r * SK_APITCH + g * SK_KPG;
+#pragma unroll
+    for (int j = 0; j < SK_KPG; j += 4) {
+      const float4 av = *reinterpret_cast<const float4*>(arow + j);
+      const float a4[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float* brow = Bs + (g * SK_KPG + j + jj) * NC;  // one address per warp: broadcast
+#pragma unroll
+        for (int c = 0; c < NC; c += 4) {
+          const float4 bv = *reinterpret_cast<const float4*>(brow + c);
+          acc[c] = fmaf(a4[jj], bv.x, acc[c]);
+          acc[c + 1] = fmaf(a4[jj], bv.y, acc[c + 1]);
+          acc[c + 2] = fmaf(a4[jj], bv.z, acc[c + 2]);
+          acc[c + 3] = fmaf(a4[jj], bv.w, acc[c + 3]);
+        }
+      }
+    }
+  }
+  __syncthreads();  // the staging buffers become the group sums
+
+  float* red = smem;
+  if (g > 0) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) red[((g - 1) * SK_BM + r) * (NC + 1) + c] = acc[c];
+  }
+  __syncthreads();
+  const int row = row0 + r;
+  if (g == 0 && row < m) {
+    float* out = part + (size_t)blockIdx.y * m * n + (size_t)row * n;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (c < n) {
+        float v = acc[c];
+#pragma unroll
+        for (int gg = 1; gg < SK_KG; ++gg) v += red[((gg - 1) * SK_BM + r) * (NC + 1) + c];
+        out[c] = v;
+      }
+    }
+  }
+}
+
+// C = init + sign * (the splits' partials summed in split order); C may alias init.
+__global__ void skinny_finish(const float* __restrict__ part, int splits, const float* init,
+                              int neg, float* c, long long mn) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= mn) return;
+  float s = part[i];
+  for (int sp = 1; sp < splits; ++sp) s += part[sp * mn + i];
+  if (init != nullptr) {
+    s = neg ? init[i] - s : init[i] + s;
+  } else if (neg) {
+    s = -s;
+  }
+  c[i] = s;
+}
+
+template <typename TA, typename TB>
+int skinny_launch(const void* a, const void* b, const float* init, int neg, float* c, int m,
+                  int n, int k, int splits, int slabs_per_split, float* scratch,
+                  long long scratch_elems, cudaStream_t s) {
+  const int slabs = std::max((k + SK_KT - 1) / SK_KT, 1);  // k = 0: one empty slab, C = init
+  if (n < 1 || n > SK_NMAX || slabs_per_split < 1 ||
+      splits != (slabs + slabs_per_split - 1) / slabs_per_split ||
+      scratch_elems < (long long)splits * m * n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int vec = (k % (16 / (int)sizeof(TA)) == 0) && (reinterpret_cast<uintptr_t>(a) % 16 == 0);
+  const dim3 grid((m + SK_BM - 1) / SK_BM, splits);
+  const TA* pa = static_cast<const TA*>(a);
+  const TB* pb = static_cast<const TB*>(b);
+  if (n <= 8) {
+    skinny_kernel<TA, TB, 8><<<grid, SK_THREADS, 0, s>>>(pa, pb, scratch, m, n, k, slabs,
+                                                         slabs_per_split, vec);
+  } else if (n <= 16) {
+    skinny_kernel<TA, TB, 16><<<grid, SK_THREADS, 0, s>>>(pa, pb, scratch, m, n, k, slabs,
+                                                          slabs_per_split, vec);
+  } else if (n <= 20) {
+    skinny_kernel<TA, TB, 20><<<grid, SK_THREADS, 0, s>>>(pa, pb, scratch, m, n, k, slabs,
+                                                          slabs_per_split, vec);
+  } else if (n <= 24) {
+    skinny_kernel<TA, TB, 24><<<grid, SK_THREADS, 0, s>>>(pa, pb, scratch, m, n, k, slabs,
+                                                          slabs_per_split, vec);
+  } else {
+    skinny_kernel<TA, TB, 32><<<grid, SK_THREADS, 0, s>>>(pa, pb, scratch, m, n, k, slabs,
+                                                          slabs_per_split, vec);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long mn = (long long)m * n;
+  skinny_finish<<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(scratch, splits, init, neg, c, mn);
+  return static_cast<int>(cudaGetLastError());
+}
 
 constexpr int FM_ROWS = 8;  // rows per block, one warp each
 constexpr int FM_THREADS = FM_ROWS * RT_WARP;
@@ -133,13 +355,54 @@ __global__ void fused_matvec_finish(const float* __restrict__ part_cs,
 
 }  // namespace
 
-extern "C" int rt_stream_gemm(const void* a, int a_bits, const void* b, int b_bits,
-                              const void* init, int neg, void* c, int m, int n, int k,
-                              void* stream) {
-  if (a_bits && b_bits) return launch_gemm<uint16_t, uint16_t>(a, b, init, c, m, n, k, neg, stream);
-  if (a_bits) return launch_gemm<uint16_t, float>(a, b, init, c, m, n, k, neg, stream);
-  if (b_bits) return launch_gemm<float, uint16_t>(a, b, init, c, m, n, k, neg, stream);
-  return launch_gemm<float, float>(a, b, init, c, m, n, k, neg, stream);
+// The tensor-core route (n > 32): `scratch` holds (NPA m + NPB n) round_up(k, 32)
+// floats, NP = 2 for an fp32 operand and 1 for a bits one (`scratch_elems` is checked).
+extern "C" int rt_stream_gemm_tc(const void* a, int a_bits, const void* b, int b_bits,
+                                 const void* init, int neg, void* c, int m, int n, int k,
+                                 void* scratch, long long scratch_elems, void* stream) {
+  const float* in = static_cast<const float*>(init);
+  float* out = static_cast<float*>(c);
+  float* sc = static_cast<float*>(scratch);
+  if (a_bits && b_bits) {
+    return tf32x3_gemm<uint16_t, uint16_t, 1, 1>(a, b, 0, in, neg, out, m, n, k, sc,
+                                                 scratch_elems, stream);
+  }
+  if (a_bits) {
+    return tf32x3_gemm<uint16_t, float, 1, 2>(a, b, 0, in, neg, out, m, n, k, sc, scratch_elems,
+                                              stream);
+  }
+  if (b_bits) {
+    return tf32x3_gemm<float, uint16_t, 2, 1>(a, b, 0, in, neg, out, m, n, k, sc, scratch_elems,
+                                              stream);
+  }
+  return tf32x3_gemm<float, float, 2, 2>(a, b, 0, in, neg, out, m, n, k, sc, scratch_elems,
+                                         stream);
+}
+
+// The skinny route (n <= 32): the k range in `splits` runs of `slabs_per_split`
+// 64-deep slabs (the wrapper's plan, checked here); `scratch` holds splits m n floats.
+extern "C" int rt_stream_gemm_skinny(const void* a, int a_bits, const void* b, int b_bits,
+                                     const void* init, int neg, void* c, int m, int n, int k,
+                                     int splits, int slabs_per_split, void* scratch,
+                                     long long scratch_elems, void* stream) {
+  const float* in = static_cast<const float*>(init);
+  float* out = static_cast<float*>(c);
+  float* sc = static_cast<float*>(scratch);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a_bits && b_bits) {
+    return skinny_launch<uint16_t, uint16_t>(a, b, in, neg, out, m, n, k, splits,
+                                             slabs_per_split, sc, scratch_elems, s);
+  }
+  if (a_bits) {
+    return skinny_launch<uint16_t, float>(a, b, in, neg, out, m, n, k, splits, slabs_per_split,
+                                          sc, scratch_elems, s);
+  }
+  if (b_bits) {
+    return skinny_launch<float, uint16_t>(a, b, in, neg, out, m, n, k, splits, slabs_per_split,
+                                          sc, scratch_elems, s);
+  }
+  return skinny_launch<float, float>(a, b, in, neg, out, m, n, k, splits, slabs_per_split, sc,
+                                     scratch_elems, s);
 }
 
 // part_cs (n_blocks x q) and part_ss (n_blocks) are caller-allocated

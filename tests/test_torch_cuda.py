@@ -164,8 +164,9 @@ def test_sequence_on_card_matches_cpu(dev):
         seq = gmm_snapshot_sequence(256, 3, seed=4, inject_p=0.02, device=d)
         runs[d] = SequenceDetector(cfg, top_k=10, device=d).run(seq.snapshots())
     assert kernels.launch_counts() == {"block_matmul": 33, "edge_projection": 3, "cad_scores": 2,
-                                       "stream_gemm": 0, "fused_panel_matvec": 0,
-                                       "panel_topk_update": 0, "wkv": 0, "flash_attention": 0,
+                                       "stream_gemm": 0, "stream_gemm_tc": 0,
+                                       "fused_panel_matvec": 0, "panel_topk_update": 0,
+                                       "wkv": 0, "flash_attention": 0,
                                        "flash_attention_wgmma": 0}
     for g, c in zip(runs["cuda"].transitions, runs["cpu"].transitions):
         s_c = c.scores.numpy()
@@ -209,6 +210,42 @@ def test_stream_gemm_kernel_in_place(dev, sign):
     acc = init.clone()
     assert sg.stream_gemm(a, b, acc, sign=sign, out=acc) is acc
     assert torch.equal(acc, want)
+
+
+@pytest.mark.parametrize("m", [3, 130])
+@pytest.mark.parametrize("k", [1, 129, 1314])
+@pytest.mark.parametrize("n", [1, 17, 32, 33, 257])
+@pytest.mark.parametrize("form", ["init+", "init-", "no_init", "a_bits", "b_bits", "both_bits"])
+def test_stream_gemm_routes(dev, m, k, n, form):
+    """Both routes (skinny n <= 32, tensor cores n > 32) at ragged m against the
+    plain version (phase 2's tolerance, 2e-5 of the largest value), bitwise
+    repeatable, bits bitwise the kernel on host-decoded fp32, in place (out =
+    init, with the caller's scratch) bitwise the out-of-place launch, and the
+    tensor-core route without init bitwise block_matmul's fp32 product."""
+    rng = np.random.default_rng(m + k + n)
+    a, b = _arr(rng, (m, k), dev), _arr(rng, (k, n), dev)
+    init = _arr(rng, (m, n), dev) if form.startswith("init") or form == "both_bits" else None
+    sign = -1.0 if form == "init-" else 1.0
+    if form in ("a_bits", "both_bits"):
+        a = _bits(a)
+    if form in ("b_bits", "both_bits"):
+        b = _bits(b)
+    got = sg.stream_gemm(a, b, init, sign=sign)
+    _rel_close(got, ref.stream_gemm(a, b, init, sign=sign), 2e-5)
+    assert torch.equal(got, sg.stream_gemm(a, b, init, sign=sign))
+    if form.endswith("bits"):
+        assert torch.equal(got, sg.stream_gemm(ref.decode_bits(a), ref.decode_bits(b), init,
+                                               sign=sign))
+    if init is not None:
+        acc = init.clone()
+        scratch = torch.empty(sg.scratch_elems(m, n, k) + 7, device=dev)  # oversized, fp32-sized
+        assert sg.stream_gemm(a, b, acc, sign=sign, out=acc, scratch=scratch) is acc
+        assert torch.equal(acc, got)
+    if form == "no_init" and n > 32:
+        assert torch.equal(got, bm.block_matmul(a, b))
+    counts = kernels.launch_counts()
+    assert counts["stream_gemm"] > 0
+    assert counts["stream_gemm_tc"] == (counts["stream_gemm"] if n > 32 else 0)
 
 
 def test_cad_scores_kernel_on_a_panel(dev):
@@ -352,6 +389,61 @@ def test_panel_topk_update_kernel(dev, q, ph, k, topk, corrected, largest, bits)
         assert len(real) == len(set(real))
     assert 1003 not in got_i[0].tolist() or not torch.isfinite(got_v[0]).all()
     assert kernels.launch_counts()["panel_topk_update"] == 2
+
+
+@pytest.mark.parametrize("topk", [1, 20, 32, 33, 300])
+@pytest.mark.parametrize("ph", [7, 128, 144, 300])
+@pytest.mark.parametrize("corrected", [False, True], ids=["raw", "corrected"])
+@pytest.mark.parametrize("largest", [True, False], ids=["largest", "smallest"])
+@pytest.mark.parametrize("bits", [False, True], ids=["fp32", "bf16bits"])
+def test_panel_topk_merger_kernel(dev, topk, ph, corrected, largest, bits):
+    """One PanelTopk merge from a running state against the plain version, as
+    test_panel_topk_update_kernel holds the one-panel call."""
+    rng = np.random.default_rng(topk + ph)
+    vals, ids, zq, zp, idq, idp, ex = _topk_case(dev, rng, 2, ph, 17, topk, largest, bits)
+    kw = dict(topk=topk, corrected=corrected, largest=largest)
+    merger = eq.PanelTopk(zq, idq, idp, ex, 2.5, panel_rows=ph, inv_deg_row0=1000,
+                          state=(vals, ids), **kw)
+    merger.update(zp, 1000)
+    got_v, got_i = merger.result()
+    want_v, want_i = ref.panel_topk_update(vals, ids, zq, zp, idq, idp, 2.5, 1000, ex, **kw)
+    finite = torch.isfinite(want_v)
+    assert torch.equal(torch.isfinite(got_v), finite)
+    tol = 1e-5 * float(want_v[finite].abs().max())
+    assert float((got_v[finite] - want_v[finite]).abs().max()) <= tol
+    swaps = (got_i != want_i).nonzero().tolist()
+    assert all(abs(float(got_v[r, c] - want_v[r, c])) <= tol for r, c in swaps)
+    for row in got_i.tolist():
+        real = [i for i in row if i >= 0]
+        assert len(real) == len(set(real))
+    assert kernels.launch_counts()["panel_topk_update"] == 1
+
+
+@pytest.mark.parametrize("topk", [20, 300])
+@pytest.mark.parametrize("bits", [False, True], ids=["fp32", "bf16bits"])
+def test_panel_merger_on_card_equals_per_panel_calls(dev, topk, bits):
+    """Nine panels through one PanelTopk (two state buffers in turn) bitwise a
+    chain of one-panel calls; the caller's state is left as it was."""
+    rng = np.random.default_rng(topk)
+    zq, inv = _arr(rng, (2, 17), dev), _arr(rng, (1, 9 * 144), dev, positive=True) + 0.1
+    z = _arr(rng, (9 * 144, 17), dev)
+    zs = _bits(z) if bits else z
+    idq = _arr(rng, (2, 1), dev, positive=True)
+    ex = torch.tensor([[150], [-1]], dtype=torch.int32, device=dev)
+    kw = dict(topk=topk, corrected=False, largest=True)
+    state = eq.topk_init(2, topk, largest=True, device=dev)
+    seed = tuple(t.clone() for t in state)
+    merger = eq.PanelTopk(zq, idq, inv, ex, 3.0, panel_rows=144, state=state, **kw)
+    chain = state
+    for r0 in range(0, 9 * 144, 144):
+        merger.update(zs[r0 : r0 + 144], r0)
+        chain = eq.panel_topk_update(*chain, zq, zs[r0 : r0 + 144], idq, inv[:, r0 : r0 + 144],
+                                     3.0, r0, ex, **kw)
+    got = merger.result()
+    assert torch.equal(got[0], chain[0]) and torch.equal(got[1], chain[1])
+    assert torch.equal(state[0], seed[0]) and torch.equal(state[1], seed[1])
+    assert 150 not in got[1][0].tolist()
+    assert kernels.launch_counts()["panel_topk_update"] == 18
 
 
 def test_panel_topk_update_kernel_refuses_what_it_cannot_take(dev):

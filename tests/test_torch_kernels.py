@@ -114,7 +114,7 @@ def test_cpu_tensors_take_the_plain_path():
     cad.cad_scores(a, a, z, z, 1.0, 1.0)
     sg.stream_gemm(a, z, z)
     sg.fused_panel_matvec(a, z, z, z)
-    vals, ids = eq.topk_init(1, 4, largest=True)
+    vals, ids = eq.topk_init(1, 4, largest=True, device="cpu")
     eq.panel_topk_update(vals, ids, z[:1], z, torch.zeros((1, 1)), torch.zeros((1, 32)), 1.0, 0,
                          torch.full((1, 1), -1, dtype=torch.int32), topk=4)
     r = torch.from_numpy(_arr(rng, (2, 8, 4)))
@@ -123,8 +123,9 @@ def test_cpu_tensors_take_the_plain_path():
     flash.flash_attention(r.bfloat16(), r[:1].bfloat16(), r[:1].bfloat16(), groups=2)
     bm.split_tf32(a)
     assert kernels.launch_counts() == {"block_matmul": 0, "edge_projection": 0, "cad_scores": 0,
-                                       "stream_gemm": 0, "fused_panel_matvec": 0,
-                                       "panel_topk_update": 0, "wkv": 0, "flash_attention": 0,
+                                       "stream_gemm": 0, "stream_gemm_tc": 0,
+                                       "fused_panel_matvec": 0, "panel_topk_update": 0,
+                                       "wkv": 0, "flash_attention": 0,
                                        "flash_attention_wgmma": 0}
 
 

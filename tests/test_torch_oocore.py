@@ -56,8 +56,9 @@ def adj(ctx1) -> np.ndarray:
 
 
 def _handles(a: np.ndarray, codec: str = "raw"):
-    jh = JStore.create(None, n=N, grid=GRID, codec=codec).put_snapshot("a", a)
-    th = TileStore.create(None, n=N, grid=GRID, codec=codec).put_snapshot("a", a)
+    n = a.shape[0]
+    jh = JStore.create(None, n=n, grid=GRID, codec=codec).put_snapshot("a", a)
+    th = TileStore.create(None, n=n, grid=GRID, codec=codec).put_snapshot("a", a)
     return jh, th
 
 
@@ -66,10 +67,15 @@ def _rhs(k=4, seed=100):
 
 
 @pytest.mark.parametrize("codec", ["raw", "bf16"])
-@pytest.mark.parametrize("d", [3, 6])
+@pytest.mark.parametrize("d,n", [
+    pytest.param(3, N, id="3"), pytest.param(6, N, id="6"), pytest.param(1, N, id="1"),
+    # 15-row store tiles and scratch panels: ragged against every kernel tile
+    pytest.param(3, 60, id="3-n60"),
+])
 @pytest.mark.parametrize("kernel", [False, True])
-def test_oocore_chain_matches_jax(ctx1, adj, d, codec, kernel):
-    jh, th = _handles(adj, codec)
+def test_oocore_chain_matches_jax(ctx1, adj, d, n, codec, kernel):
+    a = adj if n == N else np.array(gmm_graph_sequence(ctx1, n=n, seed=0).a1)
+    jh, th = _handles(a, codec)
     jop = j_chain(ctx1, jh, d, oocore=True, tile_codec=codec)
     op = chain_product(th, d, oocore=True, tile_codec=codec, use_gemm_kernel=kernel, device="cpu")
     bf16 = codec == "bf16"

@@ -114,14 +114,14 @@ def test_plain_panel_topk_update_matches_jax(enc, corrected, largest, data):
 def test_exact_ties_go_to_the_lower_position():
     zq, za, zb, inv_a, inv_b, inv_q, vol, ex = _call_inputs("exact", q=1)
     zb[:] = zb[3]  # every panel row ties
-    init = tuple(t.numpy() for t in eq.topk_init(1, 6, largest=True))
+    init = tuple(t.numpy() for t in eq.topk_init(1, 6, largest=True, device="cpu"))
     v, i = _torch_call(init, zq, zb, inv_q, inv_b[:, :1].repeat(32, 1), vol, 100,
                        np.array([[-1]], np.int32), topk=6, largest=True)
     assert i[0].tolist() == list(range(100, 106)) and len(set(v[0].tolist())) == 1
 
 
 def test_wrapper_rejects_bad_inputs():
-    v, i = eq.topk_init(1, 4, largest=True)
+    v, i = eq.topk_init(1, 4, largest=True, device="cpu")
     zq, zp = torch.zeros((1, 8)), torch.zeros((16, 8))
     idq, idp, ex = torch.zeros((1, 1)), torch.zeros((1, 16)), torch.full((1, 1), -1, dtype=torch.int32)
     ok = (v, i, zq, zp, idq, idp, 1.0, 0, ex)
@@ -186,7 +186,7 @@ def test_topk_larger_than_n_is_clamped(small_artifact):
 
 def test_empty_slots_stay_minus_one():
     z = np.random.default_rng(0).normal(size=(8, 4)).astype(np.float32)
-    state = tuple(t.numpy() for t in eq.topk_init(1, 12, largest=False))
+    state = tuple(t.numpy() for t in eq.topk_init(1, 12, largest=False, device="cpu"))
     v, i = _torch_call(state, z[:1], z, np.zeros((1, 1), np.float32), np.zeros((1, 8), np.float32),
                        1.0, 0, np.array([[0]], np.int32), topk=12, largest=False)
     assert sorted(i[0, :7].tolist()) == list(range(1, 8))
@@ -236,6 +236,68 @@ def test_nearest_neighbors_match_jax(artifact, codec, corrected):
     np.testing.assert_array_equal(p.idx, j.idx)
     np.testing.assert_allclose(p.val, j.val, rtol=1e-4, atol=1e-3)
     assert 41 not in p.idx
+
+
+def _merge_inputs(artifact, codec, largest):
+    """The artifact's panels in stored form, and a top-anomaly (largest) or a
+    nearest-neighbor query (smallest, node 41 excluded)."""
+    h = EmbeddingStore.open(artifact[codec]).latest()
+    z = h.to_numpy()
+    n, pr = z.shape[0], h.panel_rows
+    panels = [(r0, _f32_to_bf16_u16(z[r0:r0 + pr]) if codec == "bf16" else z[r0:r0 + pr])
+              for r0 in range(0, n, pr)]
+    inv = h.inv_deg().astype(np.float32).reshape(1, n)
+    if largest:
+        zq, inv_q, ex = h.zbar[None].astype(np.float32), inv.mean(keepdims=True), -1
+    else:
+        zq, inv_q, ex = z[41:42].copy(), inv[:, 41:42].copy(), 41
+    return h, panels, zq, inv_q.astype(np.float32), inv, np.array([[ex]], np.int32)
+
+
+@pytest.mark.parametrize("codec", ["raw", "bf16"])
+@pytest.mark.parametrize("corrected", [False, True], ids=["raw", "corrected"])
+@pytest.mark.parametrize("topk,largest", [(1, True), (20, True), (64, True), (20, False)])
+def test_panel_merger_matches_per_panel_calls_and_jax(artifact, codec, corrected, topk, largest):
+    """A query through one PanelTopk equals bitwise a chain of one-panel
+    panel_topk_update calls, and the JAX kernel's ids (topk <= 2 x 32 panel
+    rows, clear of its duplicate fill)."""
+    h, panels, zq, inv_q, inv, ex = _merge_inputs(artifact, codec, largest)
+    kw = dict(topk=topk, corrected=corrected, largest=largest)
+    t = {name: torch.from_numpy(x) for name, x in (("zq", zq), ("inv_q", inv_q), ("inv", inv),
+                                                    ("ex", ex))}
+    merger = eq.PanelTopk(t["zq"], t["inv_q"], t["inv"], t["ex"], h.vol,
+                          panel_rows=h.panel_rows, **kw)
+    state = eq.topk_init(1, topk, largest=largest, device="cpu")
+    j_state = tuple(np.asarray(x) for x in j_init(1, topk, largest=largest))
+    for r0, p in panels:
+        zp = torch.from_numpy(p.view(np.int16) if p.dtype == np.uint16 else p)
+        merger.update(zp, r0)
+        inv_p = t["inv"][:, r0 : r0 + zp.shape[0]]
+        state = eq.panel_topk_update(*state, t["zq"], zp, t["inv_q"], inv_p, h.vol, r0, t["ex"],
+                                     **kw)
+        j_state = _jax_call(j_state, zq, p, inv_q, inv_p.numpy(), h.vol, r0, ex, **kw)
+    got = merger.result()
+    assert torch.equal(got[0], state[0]) and torch.equal(got[1], state[1])
+    np.testing.assert_array_equal(got[1].numpy(), j_state[1])
+    np.testing.assert_allclose(got[0].numpy(), j_state[0], rtol=1e-5,
+                               atol=1e-5 * float(np.abs(j_state[0]).max()))
+    assert 41 not in got[1].tolist()[0] or largest
+
+
+def test_panel_merger_checks_its_arguments_once():
+    zq, idq, inv = torch.zeros((1, 8)), torch.zeros((1, 1)), torch.zeros((1, 64))
+    ex = torch.full((1, 1), -1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="inv_deg"):
+        eq.PanelTopk(zq, idq, inv[0], ex, 1.0, topk=4, panel_rows=16)
+    merger = eq.PanelTopk(zq, idq, inv, ex, 1.0, topk=4, panel_rows=16)
+    for panel, row0 in ((torch.zeros((17, 8)), 0), (torch.zeros((16, 7)), 0),
+                        (torch.zeros((16, 8)), 56), (torch.zeros((16, 8)), -1)):
+        with pytest.raises(ValueError, match="does not fit"):
+            merger.update(panel, row0)
+    with pytest.raises(TypeError):
+        merger.update(torch.zeros((16, 8), dtype=torch.float64), 0)
+    merger.update(torch.zeros((16, 8)), 48)
+    assert merger.result()[1].tolist() == [[48, 49, 50, 51]]
 
 
 @pytest.mark.parametrize("corrected", [False, True], ids=["raw", "corrected"])

@@ -132,3 +132,78 @@ def test_edge_projection_row0_is_the_panel_of_the_whole(row0):
     whole = ep.edge_projection(a, seed=11, k=7)
     panel = ep.edge_projection(a[row0:row0 + 24].contiguous(), seed=11, k=7, row0=row0)
     np.testing.assert_array_equal(panel.numpy(), whole[row0:row0 + 24].numpy())
+
+
+# ---------------------------------------------------------------------------
+# the card's routes, as pure functions of the shapes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,route", [(1, "skinny"), (17, "skinny"), (32, "skinny"), (33, "tc"),
+                                     (257, "tc"), (10512, "tc")])
+def test_route_is_a_fixed_dispatch_on_n(n, route):
+    assert sg.route_for(n) == route
+
+
+@pytest.mark.parametrize("m,n,k,a_bits,b_bits,want", [
+    (1314, 10512, 1314, False, False, (2 * 1314 + 2 * 10512) * 1344),  # the K step: 127 MB
+    (1314, 10512, 1314, True, False, (1314 + 2 * 10512) * 1344),  # bits: no lo part
+    (1314, 10512, 1314, False, True, (2 * 1314 + 10512) * 1344),
+    (1314, 10512, 1314, True, True, (1314 + 10512) * 1344),
+    (40, 33, 0, False, False, (2 * 40 + 2 * 33) * 32),  # k pads to one K tile, even k = 0
+    (1314, 17, 10512, False, False, 24 * 1314 * 17),  # the chi build: 24 k splits
+    (3, 1, 1, True, True, 1 * 3 * 1),
+])
+def test_scratch_elems(m, n, k, a_bits, b_bits, want):
+    assert sg.scratch_elems(m, n, k, a_bits=a_bits, b_bits=b_bits) == want
+
+
+@pytest.mark.parametrize("m,k", [(1314, 10512), (1, 1), (5, 0), (300, 1000), (64, 64 * 600),
+                                 (10512, 10512)])
+def test_skinny_plan_covers_k_once_in_whole_slabs(m, k):
+    splits, per = sg.skinny_plan(m, k)
+    slabs = max(-(-k // 64), 1)
+    assert per >= 1 and (splits - 1) * per < slabs <= splits * per  # no empty split
+    row_blocks = -(-m // 64)
+    assert splits == 1 or row_blocks * (splits - 1) < 4 * 132  # no more splits than it needs
+    assert sg.skinny_plan(m, k) == (splits, per)  # a function of the shapes alone
+
+
+def test_stream_gemm_checks_scratch():
+    a, b, init = torch.zeros((8, 40)), torch.ones((40, 48)), torch.ones((8, 48))
+    need = sg.scratch_elems(8, 48, 40)
+    got = sg.stream_gemm(a, b, init, scratch=torch.empty(need))  # exactly enough
+    assert torch.equal(got, init)
+    for bad in (torch.empty(need - 1), torch.empty(need, dtype=torch.float64),
+                torch.empty(2 * need)[::2], torch.empty(need, device="meta")):
+        with pytest.raises(ValueError, match="scratch"):
+            sg.stream_gemm(a, b, init, scratch=bad)
+
+
+def _three_tf32(a: torch.Tensor, b: torch.Tensor, init: torch.Tensor, sign: float) -> torch.Tensor:
+    """The tensor-core route's arithmetic in plain torch: A_lo B_hi + A_hi B_lo +
+    A_hi B_hi over each 32-deep stage (products exact in float64, the stage's
+    partial rounded to fp32), the partials added into an fp32 total, then
+    init +- the total."""
+    (ah, al), (bh, bl) = ref.split_tf32(a), ref.split_tf32(b)
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for s in range(0, a.shape[1], 32):
+        sl = slice(s, s + 32)
+        part = (al[:, sl].double() @ bh[sl].double() + ah[:, sl].double() @ bl[sl].double()
+                + ah[:, sl].double() @ bh[sl].double())
+        acc = acc + part.float()
+    return init - acc if sign < 0 else init + acc
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_three_tf32_k_step_is_no_farther_from_float64_than_fp32(sign):
+    """The chain's K step cut to 96 rows and 64 columns, (96 x 1314) @ (1314 x 64)
+    plus init, uniform [-1, 1): 3xTF32 with 32-deep partials is no farther from
+    the float64 result than the fp32 plain version."""
+    r = _rng(12)
+    a, b, init = (_t(r.uniform(-1.0, 1.0, size=s).astype(np.float32))
+                  for s in ((96, 1314), (1314, 64), (96, 64)))
+    exact = init.double() + sign * (a.double() @ b.double())
+    err_tc = float((_three_tf32(a, b, init, sign).double() - exact).abs().max())
+    err_fp32 = float((ref.stream_gemm(a, b, init, sign=sign).double() - exact).abs().max())
+    assert err_tc <= err_fp32, (err_tc, err_fp32)
