@@ -19,9 +19,13 @@ Phases, in order; any failure exits non-zero:
    against ``ref.split_tf32`` and its product against a float64 one (and
    ``stream_gemm``'s tensor-core route bitwise equal to it), ``stream_gemm``'s
    route per form and its K step against a float64 product beside
-   ``torch.addmm``'s, ``panel_topk_update``'s device time per launch (from a
+   ``torch.addmm``'s, ``fused_panel_matvec``'s gy bitwise against
+   ``stream_gemm(P, y, chi + y_panel, sign=-1)`` (the skinny route it runs
+   on) and its device time beside ``torch.addmm``'s for the same gy,
+   ``panel_topk_update``'s device time per launch (from a
    ``torch.profiler`` trace) apart from the host's cost of a call and of a
-   query's merger step, ``flash_attention``'s route per form and
+   query's merger step, ``wkv``'s device time over its three launches and
+   a bound that counts its exponentials, ``flash_attention``'s route per form and
    its earlier (SIMT) design timed on the same inputs; then the pinned
    host-to-device rate of one out-of-core panel (the ``[h2d]`` line);
 3. the resident main path: ``SequenceDetector`` over the n=10512 climate
@@ -91,6 +95,10 @@ PEAK_FP32_OPS = 67e12  # fp32 / 32-bit CUDA-core operations per second
 PEAK_BF16_OPS = 989e12  # bf16 operands on the tensor cores (dense)
 PEAK_TF32_OPS = 495e12  # TF32 operands on the tensor cores (dense)
 PEAK_BYTES = 3.35e12  # HBM3 bytes per second
+# exponentials (ex2) per second on the SFUs: 16 a clock per SM (CUDA C
+# programming guide, arithmetic instruction throughput, compute capability
+# 9.0) x 132 SMs x the H100 SXM's 1,980 MHz maximum SM clock
+PEAK_SFU_OPS = 16 * 132 * 1.98e9
 
 N_MAIN = 10512  # 73 x 144
 K_MAIN = 17  # ceil(ln(10512 / 1e-3))
@@ -172,8 +180,12 @@ def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
-def bound_ms(ops: float, nbytes: float, peak_ops: float = PEAK_FP32_OPS) -> tuple[float, str]:
-    t_ops = ops / peak_ops * 1e3
+def bound_ms(ops: float, nbytes: float, peak_ops: float = PEAK_FP32_OPS,
+             sfu_ops: float = 0.0) -> tuple[float, str]:
+    """The larger of operations over their peak (``ops`` at ``peak_ops``, and
+    ``sfu_ops`` exponentials at the SFUs' rate, whichever takes longer) and
+    bytes over the HBM rate."""
+    t_ops = max(ops / peak_ops, sfu_ops / PEAK_SFU_OPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -196,10 +208,10 @@ def check_bitwise(torch, name: str, fn) -> None:
 
 def kernel_row(name: str, source: str, replaces: str, shape: str, check: tuple, tol: float,
                ms: float, plain_ms: float, ops: float, nbytes: float, library_ms,
-               peak_ops: float = PEAK_FP32_OPS, **extra) -> dict:
+               peak_ops: float = PEAK_FP32_OPS, sfu_ops: float = 0.0, **extra) -> dict:
     """One entry of the ``kernels`` table; logs its line.  ``check`` is check_close's pair."""
     err, scale = check
-    bms, by = bound_ms(ops, nbytes, peak_ops)
+    bms, by = bound_ms(ops, nbytes, peak_ops, sfu_ops)
     lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
     log(f"[kernels] {name} {shape}: max_abs_err {err:.3e} (tol {tol:g} x max|plain| "
         f"{scale:.3e}), bitwise repeatable; {ms:.3f} ms, plain {plain_ms:.3f} ms{lib}, "
@@ -491,7 +503,8 @@ def phase_stream_kernels(torch, rows: list) -> dict:
         chi_build_bound_ms=v4["bound_ms"]))
     del blk, right, init, blk_bits, right_bits
 
-    # -- fused_panel_matvec: one richardson iteration over a P2 row panel
+    # -- fused_panel_matvec: one richardson iteration over a P2 row panel, on
+    # the skinny route with the fused finish: gy bitwise the skinny stream_gemm
     tol = 1e-4
     chi, yp = uniform(ph, k), uniform(ph, k)
     fvars = []
@@ -504,28 +517,65 @@ def phase_stream_kernels(torch, rows: list) -> dict:
         again = sg.fused_panel_matvec(p, y, chi, yp)
         if not all(torch.equal(u, v) for u, v in zip(got, again)):
             fail(f"{name}: two runs on the same input differ")
+        if not torch.equal(got[0], sg.stream_gemm(p, y, chi + yp, sign=-1.0)):
+            fail(f"{name}: gy differs from stream_gemm(P, y, chi + y_panel, sign=-1)")
         bits = p.dtype == torch.int16
         if bits:
             dec = sg.fused_panel_matvec(host_decoded(torch, p), y, chi, yp)
             if not all(torch.equal(u, v) for u, v in zip(got, dec)):
                 fail(f"{name}: the in-kernel decode differs from the kernel on host-decoded fp32")
-        ms = time_ms(torch, lambda: sg.fused_panel_matvec(p, y, chi, yp), reps=50)
+
+        def call():
+            return sg.fused_panel_matvec(p, y, chi, yp)
+
+        ms = time_ms(torch, call, reps=50)
+        dev_ms = kernel_device_ms(torch, call, 50, ("skinny_kernel", "fused_matvec"))
+        if dev_ms is None:
+            fail(f"{name}: the profiler trace holds none of its kernels")
+        # the host's cost of the wrapper's per-call scratch (caching allocator)
+        elems = sg.matvec_scratch_elems(ph, n, k)
+        alloc = host_ms(torch, lambda: torch.empty((elems,), dtype=torch.float32, device=dev),
+                        reps=200)
         plain = time_ms(torch, lambda: ref.fused_panel_matvec(p, y, chi, yp), reps=20)
+        lib = lib_dev = None
+        if not bits:  # one PyTorch call computes the same gy (TF32 is off)
+            init = chi + yp
+
+            def lib_call():
+                return torch.addmm(init, p, y, alpha=-1)
+
+            lib = time_ms(torch, lib_call, reps=50)
+            lib_dev = kernel_device_ms(torch, lib_call, 50, ("",))
         moved = nbytes(p, y, chi, yp) + ph * k * 4.0 + (k + 1) * 4.0
         bms, by = bound_ms(2.0 * ph * n * k + 5.0 * ph * k, moved)
         fvars.append(dict(case=case, max_abs_err=errs[0][0], max_abs_plain=errs[0][1],
-                          colsum_err=errs[1][0], sumsq_err=errs[2][0], ms=ms, plain_ms=plain,
-                          bound_ms=bms, bound_by=by, decode_bitwise=bits or None))
+                          colsum_err=errs[1][0], sumsq_err=errs[2][0], ms=ms, device_ms=dev_ms,
+                          plain_ms=plain, library_ms=lib, library_device_ms=lib_dev,
+                          scratch_alloc_host_ms=alloc,
+                          bound_ms=bms, bound_by=by, gy_bitwise_stream_gemm=True,
+                          decode_bitwise=bits or None))
+        lib_s = "" if lib is None else (
+            f", torch.addmm(chi + y_panel, P, y, alpha=-1) {lib:.4f} ms (device "
+            f"{fmt_ms(lib_dev)})")
         log(f"[kernels] {name}: max_abs_err gy {errs[0][0]:.3e}, colsum {errs[1][0]:.3e}, "
-            f"sumsq {errs[2][0]:.3e} (tol {tol:g} x max|plain| each), bitwise repeatable"
-            f"{', decode bitwise' if bits else ''}; {ms:.3f} ms, plain {plain:.3f} ms, "
-            f"bound {bms:.3f} ms ({by})")
+            f"sumsq {errs[2][0]:.3e} (tol {tol:g} x max|plain| each), bitwise repeatable, gy "
+            f"bitwise stream_gemm(P, y, chi + y_panel, sign=-1){', decode bitwise' if bits else ''}"
+            f"; {ms:.4f} ms (device {fmt_ms(dev_ms)}), plain {plain:.3f} ms{lib_s}, bound "
+            f"{bms:.4f} ms ({by}); its {elems * 4 / 1e6:.2f} MB scratch allocated in "
+            f"{alloc:.4f} ms of host time")
     f0 = fvars[0]
+    log(f"[kernels] fused_panel_matvec fp32 against torch.addmm for the same gy: device "
+        f"{f0['device_ms']:.4f} against {f0['library_device_ms']:.4f} ms "
+        f"({f0['device_ms'] / f0['library_device_ms']:.2f}x), events {f0['ms']:.4f} against "
+        f"{f0['library_ms']:.4f} ms")
     rows.append(kernel_row(
         "fused_panel_matvec", "stream_gemm.cu", "src/repro/kernels/stream_gemm.py:189",
         f"P {ph}x{n} fp32, y {n}x{k}", (f0["max_abs_err"], f0["max_abs_plain"]), tol,
         f0["ms"], f0["plain_ms"], 2.0 * ph * n * k + 5.0 * ph * k,
-        nbytes(p1, y, chi, yp) + ph * k * 4.0 + (k + 1) * 4.0, None, variants=fvars))
+        nbytes(p1, y, chi, yp) + ph * k * 4.0 + (k + 1) * 4.0, f0["library_ms"], variants=fvars,
+        device_ms=f0["device_ms"], library_device_ms=f0["library_device_ms"],
+        library_call="torch.addmm(chi + y_panel, P, y, alpha=-1), the sum made beforehand",
+        kernel_route="skinny fp32 FFMA (stream_gemm's n <= 32 route) + fused finish"))
 
     # -- the panel's trip: pinned H2D (the pipeline's path), D2H of an output panel
     h2d = {}
@@ -1261,12 +1311,22 @@ def phase_lm_kernels(torch, rows: list) -> dict:
     log(f"[kernels] wkv at strong decay (lw = -exp(0.5 N - 1)), shapes (3,64|96|128,16) and "
         f"({bh},{s},{dh}) fp32: within 1e-3 + 1e-3 |oracle| of the per-step recurrence")
     ms = time_ms(torch, lambda: wk.wkv(r, k, v, lw, u, return_state=True), reps=20)
+    dev_ms = kernel_device_ms(torch, lambda: wk.wkv(r, k, v, lw, u, return_state=True), 20,
+                              ("wkv_",))
     plain = time_ms(torch, lambda: ref.wkv(r, k, v, lw, u, return_state=True), reps=1)
-    # per token and head: y = r.S (2 dk dv) and S <- w S + k v^T (2 dk dv)
+    # operations on fp32 FFMA, per token and head: y = r.S (2 dk dv) and
+    # S <- w S + k v^T (2 dk dv); exponentials: the function needs three per row
+    # and channel (r to the row before, k from the chunk start, k to the chunk
+    # end), as the TPU kernel computes them
+    exps = 3.0 * bh * s * dh
+    log(f"[kernels] wkv ({bh},{s},{dh}) bf16: {ms:.4f} ms (device {fmt_ms(dev_ms)}) as three "
+        f"launches; {exps / 1e6:.1f}M exponentials at the SFUs' "
+        f"{PEAK_SFU_OPS / 1e12:g} T/s in the bound")
     rows.append(kernel_row(
         "wkv", "wkv.cu", "src/repro/kernels/wkv.py:71", f"({bh},{s},{dh}) r/k/v bf16, lw fp32",
         check, tol_b, ms, plain, 4.0 * bh * s * dh * dh,
-        nbytes(r, k, v, lw, u, y, st), None, peak_ops=PEAK_BF16_OPS,
+        nbytes(r, k, v, lw, u, y, st), None, sfu_ops=exps, device_ms=dev_ms,
+        kernel_route="chunk-parallel scan (state, scan, outputs) on fp32 FFMA",
         s_final_err=st_err, forms=forms))
 
     # -- flash_attention: qwen2-1.5b's prefill, 4 x 12 q heads over 4 x 2 KV heads of 128
@@ -1357,7 +1417,7 @@ def device_split(torch, fn) -> dict:
     busy, cur_s, cur_e = 0.0, None, None
     for start, end, name in spans:
         low = name.lower()
-        fam = ("wkv" if "wkv_kernel" in low else "flash_attention" if "flash_kernel" in low
+        fam = ("wkv" if "wkv_" in low else "flash_attention" if "flash_kernel" in low
                else "matmul" if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass"))
                else "other")
         split[fam] += (end - start) / 1e3

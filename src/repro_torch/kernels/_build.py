@@ -44,9 +44,9 @@ SIGNATURES = {
     "rt_cad_scores": (_P, _P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _P),
     "rt_stream_gemm_tc": (_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P, _L, _P),
     "rt_stream_gemm_skinny": (_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _L, _P),
-    "rt_fused_panel_matvec": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "rt_fused_panel_matvec": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _L, _P),
     "rt_panel_topk_step": (_P, _P, _I, _I, _I),
-    "rt_wkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "rt_wkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
     "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "rt_flash_attention_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
 }

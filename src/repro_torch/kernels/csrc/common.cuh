@@ -27,6 +27,28 @@ __device__ __forceinline__ float to_f32(uint16_t bits) {
   return __uint_as_float(static_cast<uint32_t>(bits) << 16);
 }
 
+// 16 bytes (a 16-byte aligned address) widened to fp32: 4 floats, or 8 bf16
+// (as __nv_bfloat16 or as bit patterns), each exactly as to_f32 widens it.
+__device__ __forceinline__ void widen16(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+__device__ __forceinline__ void widen16(const uint16_t* p, float* out) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // little endian: element 2i is the low half of word i
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void widen16(const __nv_bfloat16* p, float* out) {
+  widen16(reinterpret_cast<const uint16_t*>(p), out);
+}
+
 // Narrowing from fp32 to an output type: round to nearest even for bf16, as
 // PyTorch's .to(torch.bfloat16) does.
 template <typename T>

@@ -40,11 +40,14 @@
 //   colsum[c] = sum_rows delta[:, c],   sumsq = sum delta^2.
 //   Bound on an H100: bytes.  P is read once (55 MB fp32 at ph=1314,
 //   K=10512: ~0.017 ms at 3.35 TB/s; half of that as bits) against ~0.5
-//   GFLOP.  One warp per row streams the row with coalesced loads; the
-//   block's 8 rows share a shared-memory slab of y (256 rows x q, padded so
-//   the lanes' reads hit distinct banks).  Reductions are two-stage and
-//   fixed-order -- per-block partials, then one block sums them in block
-//   order -- with no atomics, so CachingHandle replays are bitwise.
+//   GFLOP, the chi build's shape.  So P y runs on the skinny route as it
+//   stands (the same kernel, the same k split from skinny_plan), and a fused
+//   finish takes skinny_finish's place: it sums the splits in split order,
+//   writes gy = (chi + y_panel) - s exactly as skinny_finish does with that
+//   init and neg = 1, so gy is bitwise stream_gemm(P, y, chi + y_panel,
+//   sign=-1), and writes per-block partials of delta's column sums and sum
+//   of squares; one block then sums those in block order.  Fixed-order
+//   sums, no atomics: CachingHandle replays are bitwise.
 #include "tf32x3.cuh"
 
 namespace {
@@ -57,24 +60,6 @@ constexpr int SK_KPG = SK_KT / SK_KG;       // k of a slab per group
 constexpr int SK_APITCH = SK_KT + 4;        // floats per A row in shared memory (16-byte rows)
 constexpr int SK_NMAX = 32;
 constexpr int SK_PER_THREAD = SK_BM * SK_KT / SK_THREADS;  // A elements a thread stages per slab
-
-// 16 bytes of A widened to fp32: 4 floats, or 8 bf16 bit patterns.
-__device__ __forceinline__ void widen16(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x;
-  out[1] = v.y;
-  out[2] = v.z;
-  out[3] = v.w;
-}
-__device__ __forceinline__ void widen16(const uint16_t* p, float* out) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // little endian: element 2i is the low half of word i
-    out[2 * i] = __uint_as_float(w[i] << 16);
-    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
 
 template <typename TA, typename TB, int NC>
 __global__ void __launch_bounds__(SK_THREADS, 2)
@@ -204,13 +189,22 @@ skinny_kernel(const TA* __restrict__ A, const TB* __restrict__ B, float* __restr
   }
 }
 
+// Output i's partials (splits of m n floats) summed in split order.  Both
+// finishes take it, which makes fused_panel_matvec's gy bitwise stream_gemm's.
+__device__ __forceinline__ float split_sum(const float* __restrict__ part, int splits,
+                                           long long mn, long long i) {
+  float s = part[i];
+#pragma unroll 4
+  for (int sp = 1; sp < splits; ++sp) s += part[sp * mn + i];
+  return s;
+}
+
 // C = init + sign * (the splits' partials summed in split order); C may alias init.
 __global__ void skinny_finish(const float* __restrict__ part, int splits, const float* init,
                               int neg, float* c, long long mn) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= mn) return;
-  float s = part[i];
-  for (int sp = 1; sp < splits; ++sp) s += part[sp * mn + i];
+  float s = split_sum(part, splits, mn, i);
   if (init != nullptr) {
     s = neg ? init[i] - s : init[i] + s;
   } else if (neg) {
@@ -219,14 +213,14 @@ __global__ void skinny_finish(const float* __restrict__ part, int splits, const 
   c[i] = s;
 }
 
+// The skinny product's split partials: splits x m x n floats at `part`.
 template <typename TA, typename TB>
-int skinny_launch(const void* a, const void* b, const float* init, int neg, float* c, int m,
-                  int n, int k, int splits, int slabs_per_split, float* scratch,
-                  long long scratch_elems, cudaStream_t s) {
+int skinny_partials(const void* a, const void* b, int m, int n, int k, int splits,
+                    int slabs_per_split, float* part, long long part_elems, cudaStream_t s) {
   const int slabs = std::max((k + SK_KT - 1) / SK_KT, 1);  // k = 0: one empty slab, C = init
   if (n < 1 || n > SK_NMAX || slabs_per_split < 1 ||
       splits != (slabs + slabs_per_split - 1) / slabs_per_split ||
-      scratch_elems < (long long)splits * m * n) {
+      part_elems < (long long)splits * m * n) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int vec = (k % (16 / (int)sizeof(TA)) == 0) && (reinterpret_cast<uintptr_t>(a) % 16 == 0);
@@ -234,123 +228,122 @@ int skinny_launch(const void* a, const void* b, const float* init, int neg, floa
   const TA* pa = static_cast<const TA*>(a);
   const TB* pb = static_cast<const TB*>(b);
   if (n <= 8) {
-    skinny_kernel<TA, TB, 8><<<grid, SK_THREADS, 0, s>>>(pa, pb, scratch, m, n, k, slabs,
+    skinny_kernel<TA, TB, 8><<<grid, SK_THREADS, 0, s>>>(pa, pb, part, m, n, k, slabs,
                                                          slabs_per_split, vec);
   } else if (n <= 16) {
-    skinny_kernel<TA, TB, 16><<<grid, SK_THREADS, 0, s>>>(pa, pb, scratch, m, n, k, slabs,
+    skinny_kernel<TA, TB, 16><<<grid, SK_THREADS, 0, s>>>(pa, pb, part, m, n, k, slabs,
                                                           slabs_per_split, vec);
   } else if (n <= 20) {
-    skinny_kernel<TA, TB, 20><<<grid, SK_THREADS, 0, s>>>(pa, pb, scratch, m, n, k, slabs,
+    skinny_kernel<TA, TB, 20><<<grid, SK_THREADS, 0, s>>>(pa, pb, part, m, n, k, slabs,
                                                           slabs_per_split, vec);
   } else if (n <= 24) {
-    skinny_kernel<TA, TB, 24><<<grid, SK_THREADS, 0, s>>>(pa, pb, scratch, m, n, k, slabs,
+    skinny_kernel<TA, TB, 24><<<grid, SK_THREADS, 0, s>>>(pa, pb, part, m, n, k, slabs,
                                                           slabs_per_split, vec);
   } else {
-    skinny_kernel<TA, TB, 32><<<grid, SK_THREADS, 0, s>>>(pa, pb, scratch, m, n, k, slabs,
+    skinny_kernel<TA, TB, 32><<<grid, SK_THREADS, 0, s>>>(pa, pb, part, m, n, k, slabs,
                                                           slabs_per_split, vec);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TA, typename TB>
+int skinny_launch(const void* a, const void* b, const float* init, int neg, float* c, int m,
+                  int n, int k, int splits, int slabs_per_split, float* scratch,
+                  long long scratch_elems, cudaStream_t s) {
+  const int err = skinny_partials<TA, TB>(a, b, m, n, k, splits, slabs_per_split, scratch,
+                                          scratch_elems, s);
+  if (err != 0) return err;
   const long long mn = (long long)m * n;
   skinny_finish<<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(scratch, splits, init, neg, c, mn);
   return static_cast<int>(cudaGetLastError());
 }
 
-constexpr int FM_ROWS = 8;  // rows per block, one warp each
-constexpr int FM_THREADS = FM_ROWS * RT_WARP;
-constexpr int FM_KT = 256;  // y rows staged per slab
-constexpr int FM_QMAX = 32;
+constexpr int FM_ROWS = 8;  // rows per block of the fused finish: one warp each, lane = column
+constexpr int FM_QMAX = SK_NMAX;
 
-template <typename TP>
-__global__ void __launch_bounds__(FM_THREADS)
-fused_matvec_kernel(const TP* __restrict__ P, const float* __restrict__ Y,
-                    const float* __restrict__ CHI, const float* __restrict__ YP,
-                    float* __restrict__ GY, float* __restrict__ part_cs,
-                    float* __restrict__ part_ss, int ph, int K, int q) {
-  __shared__ float ys[FM_KT][FM_QMAX + 1];
-  __shared__ float red_cs[FM_ROWS][FM_QMAX];
-  __shared__ float red_ss[FM_ROWS];
-
-  const int lane = threadIdx.x % RT_WARP;
-  const int warp = threadIdx.x / RT_WARP;
-  const int row = blockIdx.x * FM_ROWS + warp;
-  const bool active = row < ph;
-  const TP* prow = P + (size_t)(active ? row : 0) * K;
-
-  float acc[FM_QMAX];
-#pragma unroll
-  for (int c = 0; c < FM_QMAX; ++c) acc[c] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += FM_KT) {
-    const int kt = min(FM_KT, K - k0);
-    for (int e = threadIdx.x; e < kt * q; e += FM_THREADS) {
-      ys[e / q][e % q] = Y[(size_t)k0 * q + e];  // rows k0.. of y are contiguous
-    }
-    __syncthreads();
-    if (active) {
-      for (int kk = lane; kk < kt; kk += RT_WARP) {
-        const float p = to_f32(prow[k0 + kk]);
-#pragma unroll
-        for (int c = 0; c < FM_QMAX; ++c) {
-          if (c < q) acc[c] = fmaf(p, ys[kk][c], acc[c]);
-        }
-      }
-    }
-    __syncthreads();
+// The fused finish: skinny_finish's sum with init = chi + y_panel and neg = 1
+// (the same operations in the same order), then delta = chi - P y into the
+// block's column sums and sum of squares, each summed in row order.
+__global__ void __launch_bounds__(FM_ROWS * RT_WARP)
+fused_matvec_finish(const float* __restrict__ part, int splits, const float* __restrict__ chi,
+                    const float* __restrict__ yp, float* __restrict__ gy,
+                    float* __restrict__ part_cs, float* __restrict__ part_ss, int ph, int q) {
+  __shared__ float dl[FM_ROWS][FM_QMAX + 1];
+  const int r = threadIdx.x / RT_WARP, c = threadIdx.x % RT_WARP;
+  const int row = blockIdx.x * FM_ROWS + r;
+  float d = 0.0f;
+  if (row < ph && c < q) {
+    const long long i = (long long)row * q + c;
+    const float s = split_sum(part, splits, (long long)ph * q, i);
+    const float x = chi[i];
+    gy[i] = (x + yp[i]) - s;
+    d = x - s;
   }
-
-#pragma unroll
-  for (int c = 0; c < FM_QMAX; ++c) {
-    if (c < q) acc[c] = rt_warp_sum(acc[c]);  // lane 0 holds P y for this row
-  }
-  if (lane == 0) {
-    float ss = 0.0f;
-#pragma unroll
-    for (int c = 0; c < FM_QMAX; ++c) {
-      if (c < q) {
-        float d = 0.0f;
-        if (active) {
-          const size_t idx = (size_t)row * q + c;
-          const float chi = CHI[idx];
-          GY[idx] = (chi + YP[idx]) - acc[c];
-          d = chi - acc[c];
-        }
-        red_cs[warp][c] = d;
-        ss += d * d;
-      }
-    }
-    red_ss[warp] = ss;
-  }
+  dl[r][c] = d;
   __syncthreads();
   if (threadIdx.x < q) {
     float t = 0.0f;
 #pragma unroll
-    for (int w = 0; w < FM_ROWS; ++w) t += red_cs[w][threadIdx.x];
+    for (int rr = 0; rr < FM_ROWS; ++rr) t += dl[rr][threadIdx.x];
     part_cs[(size_t)blockIdx.x * q + threadIdx.x] = t;
-  }
-  if (threadIdx.x == 0) {
+  } else if (threadIdx.x == FM_QMAX) {  // a lane of the second warp
     float t = 0.0f;
-#pragma unroll
-    for (int w = 0; w < FM_ROWS; ++w) t += red_ss[w];
+    for (int rr = 0; rr < FM_ROWS; ++rr) {
+      for (int cc = 0; cc < q; ++cc) t = fmaf(dl[rr][cc], dl[rr][cc], t);
+    }
     part_ss[blockIdx.x] = t;
   }
 }
 
-// Second stage: thread c sums column c over the blocks in block order.
-__global__ void fused_matvec_finish(const float* __restrict__ part_cs,
-                                    const float* __restrict__ part_ss, float* __restrict__ cs,
-                                    float* __restrict__ ss, int n_blocks, int q) {
-  const int c = threadIdx.x;
-  if (c < q) {
-    float t = 0.0f;
-    for (int b = 0; b < n_blocks; ++b) t += part_cs[(size_t)b * q + c];
-    cs[c] = t;
+// Last stage, one block of FM_ROWS warps: lane c of warp w sums column c over
+// blocks w, w + FM_ROWS, ... in order, then warp 0 adds the warps' sums in
+// warp order (the sums of squares likewise, in lane FM_QMAX - 1 of each warp).
+__global__ void __launch_bounds__(FM_ROWS * RT_WARP)
+fused_matvec_reduce(const float* __restrict__ part_cs, const float* __restrict__ part_ss,
+                    float* __restrict__ cs, float* __restrict__ ss, int n_blocks, int q) {
+  __shared__ float wsum[FM_ROWS][FM_QMAX + 1];
+  const int w = threadIdx.x / RT_WARP, c = threadIdx.x % RT_WARP;
+  float t = 0.0f, u = 0.0f;
+#pragma unroll 4
+  for (int b = w; b < n_blocks; b += FM_ROWS) {
+    if (c < q) t += part_cs[(size_t)b * q + c];
+    if (c == FM_QMAX - 1) u += part_ss[b];
   }
-  if (c == 0) {
-    float t = 0.0f;
-    for (int b = 0; b < n_blocks; ++b) t += part_ss[b];
-    ss[0] = t;
+  wsum[w][c] = t;
+  if (c == FM_QMAX - 1) wsum[w][FM_QMAX] = u;
+  __syncthreads();
+  if (w == 0) {
+    float a = 0.0f, b = 0.0f;
+#pragma unroll
+    for (int ww = 0; ww < FM_ROWS; ++ww) {
+      a += wsum[ww][c];
+      b += wsum[ww][FM_QMAX];
+    }
+    if (c < q) cs[c] = a;
+    if (c == 0) ss[0] = b;
   }
+}
+
+template <typename TP>
+int fused_launch(const void* p, const float* y, const float* chi, const float* yp, float* gy,
+                 float* cs, float* ss, int ph, int k, int q, int splits, int slabs_per_split,
+                 float* scratch, long long scratch_elems, cudaStream_t s) {
+  const int n_blocks = (ph + FM_ROWS - 1) / FM_ROWS;
+  const long long part_elems = (long long)splits * ph * q;
+  if (ph < 1 || scratch_elems < part_elems + (long long)n_blocks * (q + 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int err = skinny_partials<TP, float>(p, y, ph, q, k, splits, slabs_per_split, scratch,
+                                             part_elems, s);
+  if (err != 0) return err;
+  float* part_cs = scratch + part_elems;
+  float* part_ss = part_cs + (size_t)n_blocks * q;
+  fused_matvec_finish<<<n_blocks, FM_ROWS * RT_WARP, 0, s>>>(scratch, splits, chi, yp, gy,
+                                                             part_cs, part_ss, ph, q);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fused_matvec_reduce<<<1, FM_ROWS * RT_WARP, 0, s>>>(part_cs, part_ss, cs, ss, n_blocks, q);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -405,29 +398,26 @@ extern "C" int rt_stream_gemm_skinny(const void* a, int a_bits, const void* b, i
                                      scratch_elems, s);
 }
 
-// part_cs (n_blocks x q) and part_ss (n_blocks) are caller-allocated
-// scratch, n_blocks = ceil(ph / 8); q <= 32.
+// P y on the skinny route with the plan (splits, slabs_per_split) of
+// skinny_plan(ph, k), then the fused finish.  `scratch` holds the splits'
+// partials (splits ph q floats), then ceil(ph / 8) x (q + 1) floats of
+// per-block column sums and sums of squares (both checked); q <= 32.
 extern "C" int rt_fused_panel_matvec(const void* p, int p_bits, const void* y, const void* chi,
-                                     const void* yp, void* gy, void* part_cs, void* part_ss,
-                                     void* cs, void* ss, int ph, int k, int q, void* stream) {
-  const int n_blocks = (ph + FM_ROWS - 1) / FM_ROWS;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+                                     const void* yp, void* gy, void* cs, void* ss, int ph, int k,
+                                     int q, int splits, int slabs_per_split, void* scratch,
+                                     long long scratch_elems, void* stream) {
   const float* yf = static_cast<const float*>(y);
   const float* chif = static_cast<const float*>(chi);
   const float* ypf = static_cast<const float*>(yp);
   float* gyf = static_cast<float*>(gy);
-  float* pcs = static_cast<float*>(part_cs);
-  float* pss = static_cast<float*>(part_ss);
+  float* csf = static_cast<float*>(cs);
+  float* ssf = static_cast<float*>(ss);
+  float* sc = static_cast<float*>(scratch);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p_bits) {
-    fused_matvec_kernel<uint16_t><<<n_blocks, FM_THREADS, 0, st>>>(
-        static_cast<const uint16_t*>(p), yf, chif, ypf, gyf, pcs, pss, ph, k, q);
-  } else {
-    fused_matvec_kernel<float><<<n_blocks, FM_THREADS, 0, st>>>(
-        static_cast<const float*>(p), yf, chif, ypf, gyf, pcs, pss, ph, k, q);
+    return fused_launch<uint16_t>(p, yf, chif, ypf, gyf, csf, ssf, ph, k, q, splits,
+                                  slabs_per_split, sc, scratch_elems, s);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_matvec_finish<<<1, FM_QMAX, 0, st>>>(pcs, pss, static_cast<float*>(cs),
-                                             static_cast<float*>(ss), n_blocks, q);
-  return static_cast<int>(cudaGetLastError());
+  return fused_launch<float>(p, yf, chif, ypf, gyf, csf, ssf, ph, k, q, splits, slabs_per_split,
+                             sc, scratch_elems, s);
 }

@@ -12,7 +12,10 @@ Counterpart of :mod:`repro.kernels.stream_gemm`:
   passes it;
 * :func:`fused_panel_matvec` -- one richardson / chebyshev iteration over a
   P2 row panel: ``gy = chi + y - P y`` and the column sums and sum of
-  squares of ``delta = chi - P y``.
+  squares of ``delta = chi - P y``.  On the card P y runs on the skinny
+  route with :func:`skinny_plan`'s k split and a fused finish, so ``gy`` is
+  bitwise ``stream_gemm(P, y, chi + y_panel, sign=-1)``; it allocates its
+  :func:`matvec_scratch_elems` floats of scratch per call.
 
 Operands may be fp32 or bf16 bit patterns carried as ``int16`` (the store's
 bf16 codec ships uint16 bits; torch holds them as int16 views), widened
@@ -40,6 +43,7 @@ _SK_BM, _SK_KT = 64, 64  # the skinny route's rows per block and k per slab
 # H100 (132).  A constant, so the k split -- and with it the order each
 # output is summed in -- depends on the shapes alone.
 _SK_BLOCKS = 4 * 132
+_FM_ROWS = 8  # rows per block of fused_panel_matvec's finish: one partial column sum each
 
 
 def route_for(n: int) -> str:
@@ -67,6 +71,13 @@ def scratch_elems(m: int, n: int, k: int, *, a_bits: bool = False, b_bits: bool 
         kp = max(-(-k // _TC_BK), 1) * _TC_BK
         return ((1 if a_bits else 2) * m + (1 if b_bits else 2) * n) * kp
     return skinny_plan(m, k)[0] * m * n
+
+
+def matvec_scratch_elems(ph: int, k: int, q: int) -> int:
+    """fp32 scratch elements a (ph, k) panel times a (k, q) y needs on the card in
+    :func:`fused_panel_matvec`: the k splits' partial sums, then per-block
+    column sums and sums of squares."""
+    return skinny_plan(ph, k)[0] * ph * q + -(-ph // _FM_ROWS) * (q + 1)
 
 
 def _check_operand(name: str, x: torch.Tensor) -> None:
@@ -172,14 +183,13 @@ def fused_panel_matvec(
     gy = torch.empty((ph, q), dtype=torch.float32, device=dev)
     cs = torch.empty((1, q), dtype=torch.float32, device=dev)
     ss = torch.empty((1, 1), dtype=torch.float32, device=dev)
-    n_blocks = (ph + 7) // 8  # FM_ROWS rows per block in the kernel
-    part_cs = torch.empty((n_blocks, q), dtype=torch.float32, device=dev)
-    part_ss = torch.empty((n_blocks,), dtype=torch.float32, device=dev)
+    scratch = torch.empty((matvec_scratch_elems(ph, kdim, q),), dtype=torch.float32, device=dev)
     lib = _build.library()
     err = lib.rt_fused_panel_matvec(
         p_panel.data_ptr(), int(p_panel.dtype == torch.int16), y.data_ptr(),
-        chi_panel.data_ptr(), y_panel.data_ptr(), gy.data_ptr(), part_cs.data_ptr(),
-        part_ss.data_ptr(), cs.data_ptr(), ss.data_ptr(), ph, kdim, q, _build.stream_handle(p_panel),
+        chi_panel.data_ptr(), y_panel.data_ptr(), gy.data_ptr(), cs.data_ptr(), ss.data_ptr(),
+        ph, kdim, q, *skinny_plan(ph, kdim), scratch.data_ptr(), scratch.numel(),
+        _build.stream_handle(p_panel),
     )
     _build.check(err, "fused_panel_matvec")
     matvec_launches += 1

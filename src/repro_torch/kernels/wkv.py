@@ -1,12 +1,15 @@
-"""RWKV6 WKV recurrence through the hand-written CUDA kernel (``csrc/wkv.cu``).
+"""RWKV6 WKV recurrence through the hand-written CUDA kernels (``csrc/wkv.cu``).
 
 Counterpart of :mod:`repro.kernels.wkv`, with the initial state ``s0`` in
 and the final state out, as :func:`repro_torch.models.rwkv6.wkv_chunked`
 computes them (prefill hands the state to decode).  A CPU tensor takes the
 plain version (:func:`repro_torch.kernels.ref.wkv`, the per-step
-recurrence); a CUDA tensor launches the kernel or raises.  The kernel masks
-a ragged last chunk itself and takes the decay ratios pairwise, so it has
-no chunk argument and no limit on the decay.
+recurrence); a CUDA tensor launches the kernels or raises.  On the card a
+call is a chunk-parallel scan of three launches over chunks of
+:data:`CHUNK` rows (each chunk's state increment, the scan over chunks,
+each chunk's outputs), with :func:`scratch_elems` floats of scratch; it
+masks a ragged last chunk itself and takes the decay ratios pairwise, so
+it has no chunk argument and no limit on the decay.
 """
 
 from __future__ import annotations
@@ -15,10 +18,17 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-launches = 0  # kernel launches since the last reset (see kernels.reset_launch_counts)
+launches = 0  # wrapper calls that launched, since the last reset (see kernels.reset_launch_counts)
 
-D_MAX = 64  # widest head the kernel takes (the state sits in shared memory)
+D_MAX = 64  # widest head the kernels take (a chunk's state is one shared-memory tile)
+CHUNK = 64  # rows per chunk of the scan (WKV_L in csrc/wkv.cu)
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def scratch_elems(bh: int, s: int, dk: int, dv: int) -> int:
+    """fp32 scratch of one call on the card: each chunk's (dk, dv) state
+    increment (then its incoming state) and its (dk,) decay."""
+    return bh * -(-s // CHUNK) * (dk * dv + dk)
 
 
 def wkv(r, k, v, lw, u, *, s0=None, return_state: bool = False):
@@ -58,10 +68,13 @@ def wkv(r, k, v, lw, u, *, s0=None, return_state: bool = False):
     y = torch.empty((bh, s, dv), dtype=r.dtype, device=r.device)
     s_fin = torch.empty((bh, dk, dv), dtype=torch.float32, device=r.device)
     if bh > 0:
+        scratch = torch.empty((scratch_elems(bh, s, dk, dv),), dtype=torch.float32,
+                              device=r.device)
         lib = _build.library()
         err = lib.rt_wkv(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(), u.data_ptr(),
                          None if s0 is None else s0.data_ptr(), y.data_ptr(), s_fin.data_ptr(),
-                         bh, s, dk, dv, int(r.dtype == torch.bfloat16), _build.stream_handle(r))
+                         scratch.data_ptr(), scratch.numel(), bh, s, dk, dv,
+                         int(r.dtype == torch.bfloat16), _build.stream_handle(r))
         _build.check(err, "wkv")
         launches += 1
     return (y, s_fin) if return_state else y

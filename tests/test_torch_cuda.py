@@ -283,6 +283,36 @@ def test_fused_panel_matvec_kernel(dev, ph, k, q, bits):
     assert kernels.launch_counts()["fused_panel_matvec"] == (3 if bits else 2)
 
 
+@pytest.mark.parametrize("ph,k", [(37, 1000), (1314, 777), (64, 1003), (130, 64)])
+@pytest.mark.parametrize("q", [1, 8, 17, 20, 32])
+@pytest.mark.parametrize("bits", [False, True])
+def test_fused_panel_matvec_gy_is_the_skinny_stream_gemm(dev, ph, k, q, bits):
+    """P y on the skinny route with the fused finish, at shapes across the plan's
+    edges (K not a multiple of 64, a bits K not a multiple of 8 -- the scalar
+    load path --, ph not a multiple of 64): gy bitwise ``stream_gemm(P, y, chi +
+    y_panel, sign=-1)``, with chi and y_panel row slices of larger tensors as
+    the streamed solve passes them; the caller's scratch gives the same bits."""
+    rng = np.random.default_rng(ph + k + q)
+    p, y = _arr(rng, (ph, k), dev), _arr(rng, (k, q), dev)
+    chi_all, yp_all = _arr(rng, (ph + 9, q), dev), _arr(rng, (ph + 9, q), dev)
+    chi, yp = chi_all[5 : 5 + ph], yp_all[3 : 3 + ph]
+    if bits:
+        p = _bits(p)
+    got = sg.fused_panel_matvec(p, y, chi, yp)
+    assert torch.equal(got[0], sg.stream_gemm(p, y, chi + yp, sign=-1.0))
+    _rel_close(got[0], ref.fused_panel_matvec(p, y, chi, yp)[0], 1e-4)
+    # the reductions against float64, to 1e-4 of the summed magnitudes
+    d64 = chi.double() - ref.decode_bits(p).double() @ y.double()
+    cs_err = (got[1].double() - d64.sum(0, keepdim=True)).abs()
+    assert (cs_err <= 1e-4 * d64.abs().sum(0, keepdim=True)).all()
+    ss64 = float((d64 * d64).sum())
+    assert abs(float(got[2]) - ss64) <= 1e-4 * ss64
+    for g, again in zip(got, sg.fused_panel_matvec(p, y, chi, yp)):
+        assert torch.equal(g, again)
+    counts = kernels.launch_counts()
+    assert counts["fused_panel_matvec"] == 2 and counts["stream_gemm"] == 1
+
+
 def test_edge_projection_kernel_at_row0(dev):
     a = _arr(np.random.default_rng(3), (300, 300), dev, positive=True)
     panel = a[120:180].contiguous()
@@ -514,6 +544,25 @@ def test_wkv_kernel(dev, bh, s, dk, dv, dtype):
         assert torch.equal(y, y2) and torch.equal(st, st2)
     assert torch.equal(wkv.wkv(r, k, v, lw, u), wkv.wkv(r, k, v, lw, u, return_state=True)[0])
     assert kernels.launch_counts()["wkv"] == 6
+
+
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 65, 1000, 2048])
+@pytest.mark.parametrize("dk,dv", [(64, 64), (5, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_kernel_across_chunk_edges(dev, s, dk, dv, dtype):
+    """The chunk-parallel scan at one chunk (S <= 64), at several, and at
+    ragged ends, at rwkv6-3b's heads and at odd widths (the scalar load
+    path), with and without s0: the plain version's tolerances, bitwise
+    repeatable, one launch counted per call."""
+    r, k, v, lw, u, s0 = _wkv_args(dev, 3, s, dk, dv, dtype, decay=(0.5, 3.0), seed=s + dk)
+    for init in (None, s0):
+        y, st = wkv.wkv(r, k, v, lw, u, s0=init, return_state=True)
+        wy, wst = ref.wkv(r, k, v, lw, u, s0=init, return_state=True)
+        _rel_close(y, wy, 1e-4 if dtype == torch.float32 else 2.0**-7)
+        _rel_close(st, wst, 1e-4)
+        y2, st2 = wkv.wkv(r, k, v, lw, u, s0=init, return_state=True)
+        assert torch.equal(y, y2) and torch.equal(st, st2)
+    assert kernels.launch_counts()["wkv"] == 4
 
 
 @pytest.mark.parametrize("s", [64, 96, 128, 1000])

@@ -126,6 +126,31 @@ def test_plain_wkv_state_in_and_out():
     assert s_fin.shape == (4, 8, 12) and s_fin.dtype == torch.float32
 
 
+@pytest.mark.parametrize("s,piece", [(128, 64), (96, 64), (130, 32), (64, 1)])
+def test_plain_wkv_piecewise_matches_pallas(s, piece):
+    """The decomposition the card's chunk-parallel scan relies on: the plain
+    wkv run piece by piece, each piece seeded with the previous piece's final
+    state, equals the Pallas wkv over the whole sequence (1e-3, as above)."""
+    r, k, v, lw, u = _wkv_inputs(np.random.default_rng(s + piece), 3, s, 16, 16)
+    want = np.asarray(jops.wkv(*(jnp.asarray(x) for x in (r, k, v, lw, u)), chunk=32))
+    ys, st = [], None
+    for c0 in range(0, s, piece):
+        part = [_t(x[:, c0 : c0 + piece]) for x in (r, k, v, lw)]
+        y, st = twkv.wkv(*part, _t(u), s0=st, return_state=True)
+        ys.append(y)
+    np.testing.assert_allclose(torch.cat(ys, dim=1).numpy(), want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("bh,s,dk,dv,want", [
+    (160, 1024, 64, 64, 160 * 16 * (64 * 64 + 64)),  # rwkv6-3b's prefill: 42 MB
+    (3, 65, 5, 7, 3 * 2 * (5 * 7 + 5)),  # a ragged last chunk counts whole
+    (2, 0, 16, 16, 0),
+])
+def test_wkv_scratch_elems(bh, s, dk, dv, want):
+    """The card's scratch: each 64-row chunk's state and decay."""
+    assert twkv.scratch_elems(bh, s, dk, dv) == want
+
+
 @pytest.mark.parametrize("s,chunk", [(24, 8), (24, 16), (13, 8)])
 def test_wkv_chunked_matches_jax(s, chunk):
     """The model's chunked form with s0 in and s_final out, 1e-5 (chunk halving

@@ -111,6 +111,39 @@ def test_fused_panel_matvec_plain_matches_pallas(encoded):
     np.testing.assert_allclose(float(ss[0, 0]) - (cs64 ** 2).sum() / ph, defl, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("encoded", [False, True])
+def test_fused_panel_matvec_plain_matches_pallas_at_q32(encoded):
+    """The widest q the card takes, at a K that neither 64 (the skinny route's
+    slab) nor 256 (the Pallas default tile) divides, the Pallas kernel walking
+    K in five steps."""
+    r = _rng(32)
+    ph, n, q = 40, 200, 32
+    p = r.normal(size=(ph, n)).astype(np.float32)
+    if encoded:
+        p = _bits(p)
+    y = r.normal(size=(n, q)).astype(np.float32)
+    chi_p = r.normal(size=(ph, q)).astype(np.float32)
+    y_p = y[7 : 7 + ph]
+    jgy, jcs, jss = (np.asarray(x) for x in j_fused(
+        jnp.asarray(p), jnp.asarray(y), jnp.asarray(chi_p), jnp.asarray(y_p), bm=8, bk=40))
+    gy, cs, ss = (x.numpy() for x in sg.fused_panel_matvec(_t(p), _t(y), _t(chi_p), _t(y_p)))
+    np.testing.assert_allclose(gy, jgy, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(cs, jcs, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ss, jss, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("ph,k,q,want", [
+    (1314, 10512, 17, 24 * 1314 * 17 + 165 * 18),  # the streamed solve's panel: 24 k splits
+    (37, 1000, 32, 16 * 37 * 32 + 5 * 33),
+    (1, 5, 1, 1 * 1 * 1 + 1 * 2),
+    (130, 4100, 20, 65 * 130 * 20 + 17 * 21),  # 65 one-slab splits, a ragged last block
+])
+def test_matvec_scratch_elems(ph, k, q, want):
+    """The skinny product's split partials, then 8-row blocks' column sums and
+    sums of squares."""
+    assert sg.matvec_scratch_elems(ph, k, q) == want
+
+
 def test_stream_wrappers_reject_bad_inputs():
     a = torch.zeros((8, 8))
     with pytest.raises(ValueError, match="inner dims"):
