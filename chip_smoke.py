@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero:
    per-step recurrence at strong decay), twice for bitwise repeatability (bf16-bit operands
    also against the same kernel on host-decoded fp32; the row-panel forms
    of ``edge_projection`` and ``cad_scores`` also against the same rows of
-   the whole-matrix call), and timed beside the
+   the whole-matrix call, and those two timed on the panel too, with their
+   ``torch.profiler`` device times), and timed beside the
    plain version, the one-call PyTorch yardstick where there is one, and the
    card's bound for the same work; ``block_matmul``'s split pass bitwise
    against ``ref.split_tf32`` and its product against a float64 one (and
@@ -69,6 +70,10 @@ Phases, in order; any failure exits non-zero:
    then each model at depth 2 in fp32 on the card and on the CPU: equal
    greedy tokens and prefill logits within 1e-3 of the largest.
 
+A copy of the script beside another tree's ``src/`` (a parent commit's
+``git archive``) runs the same phases on that tree's package, so both trees
+are measured by the same code in one call.
+
 The line before the last is the JSON ``kernels`` table (``launches`` sums
 the main paths of phases 3, 5, 7 and 8; ``launches_by_path`` splits them); the
 last line is ``{"ok": true, "device": {...}}``.  It imports neither JAX nor
@@ -99,6 +104,11 @@ PEAK_BYTES = 3.35e12  # HBM3 bytes per second
 # programming guide, arithmetic instruction throughput, compute capability
 # 9.0) x 132 SMs x the H100 SXM's 1,980 MHz maximum SM clock
 PEAK_SFU_OPS = 16 * 132 * 1.98e9
+# 32-bit integer add, shift and logic operations per second: 64 a clock per
+# SM (the same table, compute capability 9.0) x 132 SMs x 1,980 MHz.  Integer
+# multiplies may also issue on the FMA pipe beside it, so integer work is read
+# at this rate and at twice it; a bound takes the second, the lower time.
+PEAK_INT32_OPS = 64 * 132 * 1.98e9
 
 N_MAIN = 10512  # 73 x 144
 K_MAIN = 17  # ceil(ln(10512 / 1e-3))
@@ -215,12 +225,11 @@ def kernel_row(name: str, source: str, replaces: str, shape: str, check: tuple, 
     lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
     log(f"[kernels] {name} {shape}: max_abs_err {err:.3e} (tol {tol:g} x max|plain| "
         f"{scale:.3e}), bitwise repeatable; {ms:.3f} ms, plain {plain_ms:.3f} ms{lib}, "
-        f"bound {bms:.3f} ms ({by})")
+        f"bound {bms:.3f} ms ({by}; operations at {peak_ops / 1e12:g} T/s)")
     return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
                 replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=library_ms, tolerance=f"{tol:g} x max|plain|",
-                max_abs_plain=scale, shape=shape,
-                ops_rate=f"{peak_ops / 1e12:g} TFLOP/s", **extra)
+                max_abs_plain=scale, shape=shape, **extra)
 
 
 def tf32_edge_cases(torch, dev):
@@ -240,19 +249,25 @@ def tf32_edge_cases(torch, dev):
 
 
 def phase_kernels(torch, rows: list) -> None:
-    from repro_torch.core import rng
-    from repro_torch.kernels import block_matmul as bm
-    from repro_torch.kernels import cad_score as cad
-    from repro_torch.kernels import edge_projection as ep
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import stream_gemm as sg
-
+    """block_matmul, edge_projection and cad_scores, drawing their data in that
+    order from one generator."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
 
     def uniform(*shape, lo=0.0):
         return torch.rand(shape, generator=g, device=dev) * (1.0 - lo) + lo
 
+    phase_block_matmul(torch, rows, uniform)
+    a = phase_edge_projection(torch, rows, uniform)
+    phase_cad_scores(torch, rows, g, uniform, a)
+
+
+def phase_block_matmul(torch, rows: list, uniform) -> None:
+    from repro_torch.kernels import block_matmul as bm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import stream_gemm as sg
+
+    dev = torch.device("cuda")
     # -- block_matmul: a ragged shape in fp32 and bf16, then the chain's 10512^3
     tol = 2e-5
     m, k, n = 1000, 777, 1030
@@ -307,6 +322,16 @@ def phase_kernels(torch, rows: list) -> None:
         ms_b_is_a=ms_sq, kernel_route="3xTF32 wgmma"))
     del a, b
 
+
+def phase_edge_projection(torch, rows: list, uniform):
+    """edge_projection at n=10512, k=17, resident and on a 657-row panel;
+    returns its A (non-symmetric: uniform with a zero diagonal)."""
+    from repro_torch.core import rng
+    from repro_torch.kernels import edge_projection as ep
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    n = N_MAIN
     # -- edge_projection: the in-kernel Q field bitwise, then Y at n=10512, k=17
     seed, k = 0, K_MAIN
     for r0, c0 in ((0, 0), (n - 256, n - 256), (0, n - 256)):
@@ -325,14 +350,6 @@ def phase_kernels(torch, rows: list) -> None:
     check = check_close("edge_projection", ep.edge_projection(a, seed=seed, k=k),
                         ref.edge_projection(a, seed=seed, k=k), tol)
     check_bitwise(torch, "edge_projection", lambda: ep.edge_projection(a, seed=seed, k=k))
-    # per pair: k + 2 hash folds of ~10 integer ops, a sign and an add per column, sqrt/max
-    ops = float(n) * n * (10 * (k + 2) + 2 * k + 2)
-    rows.append(kernel_row(
-        "edge_projection", "edge_projection.cu", "src/repro/kernels/edge_projection.py:50",
-        f"A {n}x{n} fp32, k={k}", check, tol,
-        time_ms(torch, lambda: ep.edge_projection(a, seed=seed, k=k), reps=5),
-        time_ms(torch, lambda: ref.edge_projection(a, seed=seed, k=k), reps=1),
-        ops, n * n * 4.0 + n * k * 4.0, None, q_field_bitwise=True))
     # a streamed panel of the input store hashes its global rows (row0 != 0)
     r0, h = 5 * (n // STORE_GRID), n // STORE_GRID
     panel = a[r0 : r0 + h].contiguous()
@@ -342,10 +359,53 @@ def phase_kernels(torch, rows: list) -> None:
     if not torch.equal(got, ep.edge_projection(a, seed=seed, k=k)[r0 : r0 + h]):
         fail(f"edge_projection: the panel at row0={r0} differs from the same rows of the "
              f"resident call")
-    rows[-1]["row0_check"] = {"row0": r0, "rows": h, "max_abs_err": err0}
     log(f"[kernels] edge_projection panel {h}x{n} at row0={r0}: max_abs_err {err0:.3e} "
         f"(tol {tol:g} x max|plain|), bitwise equal to those rows of the resident call")
+
+    def call():
+        return ep.edge_projection(a, seed=seed, k=k)
+
+    def call_panel():
+        return ep.edge_projection(panel, seed=seed, k=k, row0=r0)
+
+    ms, ms_panel = time_ms(torch, call, reps=5), time_ms(torch, call_panel, reps=20)
+    dev_ms = kernel_device_ms(torch, call, 5, ("edge_projection",))
+    dev_panel = kernel_device_ms(torch, call_panel, 20, ("edge_projection",))
+    # The function's integer work, from core/rng.py's hash_u32(seed, lo, hi, c):
+    # per unordered pair one fold of hi (hash(seed, lo) is per id) and k of
+    # the columns; a fold is an xor with the part's key (a key is per id or
+    # column), a multiply, a shift, an xor and a multiply -- splitmix32's
+    # xor-shifts by 16 at its two ends cancel between consecutive folds
+    # (xs16 is its own inverse), and the last leaves the top bit alone -- ;
+    # then per ordered pair and column one operation applies the sign.  The
+    # 2 P k fp32 adds are 0.03 ms at the fp32 rate and do not bind.
+    pairs = n * (n - 1) / 2
+    int_ops = pairs * (5.0 * (k + 1) + 2.0 * k)
+    log(f"[kernels] edge_projection {n}x{n}, k={k}: {ms:.4f} ms (device {fmt_ms(dev_ms)}); "
+        f"panel {h}x{n} at row0={r0} {ms_panel:.4f} ms (device {fmt_ms(dev_panel)}); the "
+        f"function's integer work {int_ops / 1e9:.3f} G ops ({pairs / 1e6:.2f}M unordered "
+        f"pairs x (5 (k + 1) + 2 k)): {int_ops / (2 * PEAK_INT32_OPS) * 1e3:.4f} ms at 128 a "
+        f"clock per SM (ALU and multiply pipes), {int_ops / PEAK_INT32_OPS * 1e3:.4f} ms at 64 "
+        f"(ALU alone); the bound takes the first")
+    rows.append(kernel_row(
+        "edge_projection", "edge_projection.cu", "src/repro/kernels/edge_projection.py:50",
+        f"A {n}x{n} fp32, k={k}", check, tol, ms,
+        time_ms(torch, lambda: ref.edge_projection(a, seed=seed, k=k), reps=1),
+        int_ops, n * n * 4.0 + n * k * 4.0, None, peak_ops=2 * PEAK_INT32_OPS,
+        q_field_bitwise=True, device_ms=dev_ms, panel_ms=ms_panel, panel_device_ms=dev_panel,
+        row0_check={"row0": r0, "rows": h, "max_abs_err": err0}))
     del panel, got
+    return a
+
+
+def phase_cad_scores(torch, rows: list, g, uniform, a) -> None:
+    """cad_scores at n=10512, k=17, square and on a 657-row panel; A1 is
+    edge_projection's A."""
+    from repro_torch.kernels import cad_score as cad
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    n, k = N_MAIN, K_MAIN
 
     # -- cad_scores at n=10512, k=17
     a2 = uniform(n, n)
@@ -356,12 +416,6 @@ def phase_kernels(torch, rows: list) -> None:
     check = check_close("cad_scores", cad.cad_scores(a, a2, z1, z2, v1, v2),
                         ref.cad_scores(a, a2, z1, z2, v1, v2), tol)
     check_bitwise(torch, "cad_scores", lambda: cad.cad_scores(a, a2, z1, z2, v1, v2))
-    rows.append(kernel_row(
-        "cad_scores", "cad_score.cu", "src/repro/kernels/cad_score.py:49",
-        f"A1,A2 {n}x{n}, Z {n}x{k} fp32", check, tol,
-        time_ms(torch, lambda: cad.cad_scores(a, a2, z1, z2, v1, v2), reps=10),
-        time_ms(torch, lambda: ref.cad_scores(a, a2, z1, z2, v1, v2), reps=3),
-        float(n) * n * (4 * k + 12), 2.0 * n * n * 4 + 2 * n * k * 4 + n * 4, None))
     # a streamed panel scores its rows (z_i a row slice of Z) against the whole Z
     r0, h = 5 * (n // STORE_GRID), n // STORE_GRID
     rs = slice(r0, r0 + h)
@@ -371,9 +425,27 @@ def phase_kernels(torch, rows: list) -> None:
     check_bitwise(torch, "cad_scores panel", lambda: cad.cad_scores_tile(*args))
     if not torch.equal(got, cad.cad_scores(a, a2, z1, z2, v1, v2)[rs]):
         fail(f"cad_scores: the panel at row0={r0} differs from the same rows of the square call")
-    rows[-1]["panel_check"] = {"row0": r0, "rows": h, "max_abs_err": err0}
     log(f"[kernels] cad_scores panel {h}x{n} at row0={r0}: max_abs_err {err0:.3e} "
         f"(tol {tol:g} x max|plain|), bitwise equal to those rows of the square call")
+
+    def call():
+        return cad.cad_scores(a, a2, z1, z2, v1, v2)
+
+    def call_panel():
+        return cad.cad_scores_tile(*args)
+
+    ms, ms_panel = time_ms(torch, call, reps=10), time_ms(torch, call_panel, reps=20)
+    dev_ms = kernel_device_ms(torch, call, 10, ("cad_scores",))
+    dev_panel = kernel_device_ms(torch, call_panel, 20, ("cad_scores",))
+    log(f"[kernels] cad_scores {n}x{n}, k={k}: {ms:.4f} ms (device {fmt_ms(dev_ms)}); panel "
+        f"{h}x{n} at row0={r0} {ms_panel:.4f} ms (device {fmt_ms(dev_panel)})")
+    rows.append(kernel_row(
+        "cad_scores", "cad_score.cu", "src/repro/kernels/cad_score.py:49",
+        f"A1,A2 {n}x{n}, Z {n}x{k} fp32", check, tol, ms,
+        time_ms(torch, lambda: ref.cad_scores(a, a2, z1, z2, v1, v2), reps=3),
+        float(n) * n * (4 * k + 12), 2.0 * n * n * 4 + 2 * n * k * 4 + n * 4, None,
+        device_ms=dev_ms, panel_ms=ms_panel, panel_device_ms=dev_panel,
+        panel_check={"row0": r0, "rows": h, "max_abs_err": err0}))
 
 
 def host_bits(torch, x):
@@ -881,13 +953,14 @@ def phase_oocore(torch, rows: list, resident: dict, per: dict) -> tuple:
              f"{resident['peak']:.3f} GB")
 
     # Where the time goes.  Host-clock counters of the run, and two estimates
-    # from phase 2: kernel time = launches x per-launch time, H2D time =
+    # from phase 2: kernel time = launches x per-launch time (the input
+    # store's panel launches at their own measured time), H2D time =
     # bytes_h2d / the pinned rate of one panel.
-    ms_full = {r["name"]: r["ms"] for r in rows}
+    ms_panel = {r["name"]: r.get("panel_ms") for r in rows}
     kern_s = ((counts["stream_gemm"] - T_OOC * g) * per["kstep_ms"] + T_OOC * g * per["chi_ms"]
               + counts["fused_panel_matvec"] * per["matvec_ms"]
-              + (counts["edge_projection"] * ms_full["edge_projection"]
-                 + counts["cad_scores"] * ms_full["cad_scores"]) / STORE_GRID) / 1e3
+              + counts["edge_projection"] * ms_panel["edge_projection"]
+              + counts["cad_scores"] * ms_panel["cad_scores"]) / 1e3
     h2d_s = st["bytes_h2d"] / (per["h2d_pinned_fp32"]["gb_s"] * 1e9)
     split = {
         "run_wall_s": wall,

@@ -39,9 +39,10 @@ SIGNATURES = {
     "rt_block_matmul_f32": (_P, _P, _P, _I, _I, _I, _P, _L, _I, _P),
     "rt_block_matmul_bf16": (_P, _P, _P, _I, _I, _I, _P, _L, _I, _P),
     "rt_split_tf32": (_P, _P, _P, _I, _I, _P),
-    "rt_edge_projection": (_P, _P, _I, _I, _I, _U, _I, _F, _P),
+    "rt_edge_projection": (_P, _P, _P, _I, _I, _I, _U, _I, _F, _P),
     "rt_rademacher_field": (_P, _I, _I, _I, _I, _U, _I, _P),
-    "rt_cad_scores": (_P, _P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _P),
+    "rt_cad_scores": (_P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _I, _I, _I, _P),
+    "rt_cad_scores_k_max": (),
     "rt_stream_gemm_tc": (_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P, _L, _P),
     "rt_stream_gemm_skinny": (_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _L, _P),
     "rt_fused_panel_matvec": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _L, _P),
@@ -49,6 +50,11 @@ SIGNATURES = {
     "rt_wkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
     "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "rt_flash_attention_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+}
+# entry points that return a size (long long): the scratch a launch takes
+SIZES = {
+    "rt_edge_projection_scratch_elems": (_I, _I, _I),
+    "rt_cad_scores_scratch_elems": (_I, _I, _I),
 }
 
 _lock = threading.Lock()
@@ -129,6 +135,10 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = list(args)
             fn.restype = ctypes.c_int
+        for name, args in SIZES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_longlong
         lib.rt_error_string.argtypes = [ctypes.c_int]
         lib.rt_error_string.restype = ctypes.c_char_p
         BUILD_INFO.update(path=str(so), seconds=time.perf_counter() - t0,

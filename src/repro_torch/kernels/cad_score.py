@@ -1,7 +1,9 @@
 """Fused CAD node scores through the CUDA kernel (``csrc/cad_score.cu``).
 
 Counterpart of :mod:`repro.kernels.cad_score`.  A CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises.
+version; a CUDA tensor launches the kernel or raises.  A call launches three
+kernels (embedding prep, column-chunk partials, their fixed-order sum) and
+counts once.
 """
 
 from __future__ import annotations
@@ -11,8 +13,6 @@ import torch
 from repro_torch.kernels import _build, ref
 
 launches = 0  # kernel launches since the last reset (see kernels.reset_launch_counts)
-
-K_MAX = 64  # widest embedding the kernel takes
 
 
 def cad_scores_tile(a1, a2, z1i, z1j, z2i, z2j, vol1, vol2) -> torch.Tensor:
@@ -42,15 +42,18 @@ def cad_scores_tile(a1, a2, z1i, z1j, z2i, z2j, vol1, vol2) -> torch.Tensor:
         raise ValueError(f"cad_scores: unsupported device {a1.device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("cad_scores: operands must be contiguous")
-    if not 1 <= k <= K_MAX:
-        raise ValueError(f"cad_scores: embedding width k={k} outside 1..{K_MAX}")
-    f = torch.empty((m,), dtype=torch.float32, device=a1.device)
-    if m == 0:
-        return f
     lib = _build.library()
+    k_max = lib.rt_cad_scores_k_max()
+    if not 1 <= k <= k_max:
+        raise ValueError(f"cad_scores: embedding width k={k} outside 1..{k_max}")
+    if m == 0 or n == 0:
+        return torch.zeros((m,), dtype=torch.float32, device=a1.device)
+    f = torch.empty((m,), dtype=torch.float32, device=a1.device)
+    scratch = torch.empty((lib.rt_cad_scores_scratch_elems(m, n, k),), dtype=torch.float32,
+                          device=a1.device)
     err = lib.rt_cad_scores(
         *(t.data_ptr() for t in tensors), float(vol1), float(vol2), f.data_ptr(),
-        m, n, k, _build.stream_handle(a1),
+        scratch.data_ptr(), m, n, k, _build.stream_handle(a1),
     )
     _build.check(err, "cad_scores")
     launches += 1

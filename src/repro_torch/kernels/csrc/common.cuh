@@ -63,6 +63,16 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 // ---------------------------------------------------------------------------
 // splitmix32 counter hash, bit-identical to repro_torch.core.rng (and to the
 // JAX package's repro.core.rng): uint32_t arithmetic wraps natively.
+//
+// hash_u32(p0, p1, ...) folds each part as h <- splitmix32(h ^ K(p)), with
+// K(p) = p * GOLD + GOLD.  splitmix32 ends and starts with the same
+// xor-shift by 16, xs16(v) = v ^ (v >> 16), which is its own inverse and
+// distributes over xor.  So a fold's input after its first xor-shift is
+// xs16(h) ^ xs16(K(p)) = w ^ key(p), where w is the previous fold's state
+// before its last xor-shift: the helpers below carry w, never h, and each
+// fold costs one xor, two multiplies and one xor-shift.  The top bit of h
+// is the top bit of w (v >> 16 has a zero top bit), so a sign bit needs no
+// last xor-shift either.
 // ---------------------------------------------------------------------------
 
 #define RT_HASH_M1 0x7FEB352Du
@@ -70,25 +80,36 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 #define RT_HASH_GOLD 0x9E3779B9u
 #define RT_HASH_INIT 0x243F6A88u
 
-__device__ __forceinline__ uint32_t rt_splitmix32(uint32_t h) {
-  h = (h ^ (h >> 16)) * RT_HASH_M1;
-  h = (h ^ (h >> 15)) * RT_HASH_M2;
-  return h ^ (h >> 16);
+// xs16(K(p)): a part's key.  constexpr, so a column constant folds.
+__host__ __device__ constexpr uint32_t rt_hash_key(uint32_t part) {
+  return (part * RT_HASH_GOLD + RT_HASH_GOLD) ^ ((part * RT_HASH_GOLD + RT_HASH_GOLD) >> 16);
 }
 
-// One step of hash_u32: fold the next integer part into the state.
-__device__ __forceinline__ uint32_t rt_hash_fold(uint32_t h, uint32_t part) {
-  return rt_splitmix32(h ^ (part * RT_HASH_GOLD + RT_HASH_GOLD));
+// The hash's initial state, as the w of a fold before the first part.
+constexpr uint32_t RT_HASH_W0 = RT_HASH_INIT ^ (RT_HASH_INIT >> 16);
+
+// v >> s on the multiply pipe (IMAD.HI) instead of the integer ALU, which
+// the xors and shifts of the hash keep busy; 0 < s < 32.
+__device__ __forceinline__ uint32_t rt_shr(uint32_t v, int s) {
+  return __umulhi(v, 1u << (32 - s));
 }
 
-// hash_u32(seed, min(i,j), max(i,j)): the per-pair prefix of the edge hash.
-__device__ __forceinline__ uint32_t rt_pair_hash(uint32_t seed_state, uint32_t i, uint32_t j) {
-  uint32_t lo = i < j ? i : j;
-  uint32_t hi = i < j ? j : i;
-  return rt_hash_fold(rt_hash_fold(seed_state, lo), hi);
+// One fold on the carried state: w of hash(..., p) from w of hash(...).
+__device__ __forceinline__ uint32_t rt_fold_w(uint32_t w, uint32_t key) {
+  uint32_t h = (w ^ key) * RT_HASH_M1;
+  return (h ^ rt_shr(h, 15)) * RT_HASH_M2;
 }
 
-// Q_c[i, j] sign bit: true when the entry is -1 (top hash bit, flipped for i > j).
-__device__ __forceinline__ bool rt_rademacher_negative(uint32_t pair_state, uint32_t c, bool flip) {
-  return ((rt_hash_fold(pair_state, c) >> 31) != 0u) != flip;
+// w of hash(seed, v): the per-row prefix, one per id and call.
+__device__ __forceinline__ uint32_t rt_row_w(uint32_t seed, uint32_t v) {
+  return rt_fold_w(rt_fold_w(RT_HASH_W0, rt_hash_key(seed)), rt_hash_key(v));
+}
+
+// A word whose top bit is Q_c's sign bit for the unordered pair whose w of
+// hash(seed, lo, hi) is `pair_w`: set when base(lo, hi, c) is -1 (the top
+// bit of hash(seed, lo, hi, c)); the lower bits mean nothing.  Q_c[i, j] =
+// base for i < j and -base for i > j.  Every kernel that regenerates the
+// field takes its sign from here.
+__device__ __forceinline__ uint32_t rt_sign_word(uint32_t pair_w, uint32_t col_key) {
+  return rt_fold_w(pair_w, col_key);
 }

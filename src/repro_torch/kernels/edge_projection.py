@@ -3,7 +3,8 @@
 Counterpart of :mod:`repro.kernels.edge_projection`: Y (m, k) =
 B^T W^{1/2} Q / sqrt(k) with Q regenerated in the kernel from the counter
 hash.  A CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises.
+kernel or raises.  A call launches two kernels (per-column-tile partials,
+then their fixed-order sum) and counts once.
 """
 
 from __future__ import annotations
@@ -41,12 +42,14 @@ def edge_projection(a: torch.Tensor, *, seed: int, k: int, row0: int = 0) -> tor
     if not a.is_contiguous():
         raise ValueError("edge_projection: A must be contiguous")
     m, n = a.shape
+    if m == 0 or n == 0:
+        return torch.zeros((m, k), dtype=torch.float32, device=a.device)
     y = torch.empty((m, k), dtype=torch.float32, device=a.device)
-    if m == 0:
-        return y
     lib = _build.library()
+    part = torch.empty((lib.rt_edge_projection_scratch_elems(m, n, k),), dtype=torch.float32,
+                       device=a.device)
     err = lib.rt_edge_projection(
-        a.data_ptr(), y.data_ptr(), row0, m, n, int(seed) & 0xFFFFFFFF, k,
+        a.data_ptr(), y.data_ptr(), part.data_ptr(), row0, m, n, int(seed) & 0xFFFFFFFF, k,
         1.0 / math.sqrt(k), _build.stream_handle(a),
     )
     _build.check(err, "edge_projection")

@@ -324,6 +324,64 @@ def test_edge_projection_kernel_at_row0(dev):
                                rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("n", [257, 130])
+@pytest.mark.parametrize("k", [17, 33, 40])
+def test_edge_projection_kernel_tiles_and_panels(dev, n, k):
+    """A non-symmetric A (numpy seed, signed, so max(A, 0) clips too): the
+    kernel, which hashes each unordered pair once, close to the plain
+    version; row panels at row0 0, 63, 120 and one across the 64-column tile
+    edge at 128 bitwise the same rows of the resident call (k > 32 takes two
+    mask words)."""
+    rng = np.random.default_rng(100 * n + k)
+    a = _arr(rng, (n, n), dev)
+    assert not torch.equal(a, a.T)
+    whole = ep.edge_projection(a, seed=11, k=k)
+    torch.testing.assert_close(whole, ref.edge_projection(a, seed=11, k=k), rtol=1e-5, atol=1e-4)
+    for r0, h in ((0, 40), (63, 30), (120, 10), (100, 60)):
+        h = min(h, n - r0)
+        panel = a[r0 : r0 + h].contiguous()
+        assert torch.equal(ep.edge_projection(panel, seed=11, k=k, row0=r0), whole[r0 : r0 + h])
+    assert kernels.launch_counts()["edge_projection"] == 5
+
+
+@pytest.mark.parametrize("n", [97, 300, 1100])
+@pytest.mark.parametrize("k", [17, 33, 64])
+def test_cad_scores_kernel_chunks_and_panels(dev, n, k):
+    """Close to the plain version at n across the 1024-column chunk (1100)
+    and rows not 16-byte aligned (97); row panels scored against the whole Z
+    -- one at row0=1, whose z_i slice starts 4k bytes in (not 16-byte aligned
+    for k=17, 33) -- close to the plain version and bitwise the same rows of
+    the square call."""
+    rng = np.random.default_rng(n + k)
+    a1, a2 = _arr(rng, (n, n), dev, positive=True), _arr(rng, (n, n), dev, positive=True)
+    z1, z2 = _arr(rng, (n, k), dev), _arr(rng, (n, k), dev)
+    whole = cad.cad_scores(a1, a2, z1, z2, 10.0, 12.5)
+    torch.testing.assert_close(whole, ref.cad_scores(a1, a2, z1, z2, 10.0, 12.5),
+                               rtol=1e-4, atol=1e-2)
+    for r0, h in ((0, 40), (1, 33), (n // 2, n - n // 2)):
+        rs = slice(r0, r0 + h)
+        args = (a1[rs], a2[rs], z1[rs], z1, z2[rs], z2, 10.0, 12.5)
+        got = cad.cad_scores_tile(*args)
+        torch.testing.assert_close(got, ref.cad_scores_tile(*args), rtol=1e-4, atol=1e-2)
+        assert torch.equal(got, whole[rs])
+    assert kernels.launch_counts()["cad_scores"] == 4
+
+
+def test_cad_scores_kernel_misaligned_adjacency(dev):
+    """n % 4 == 0 but A1 starts 4 bytes past a 16-byte boundary: the kernel
+    takes its 4-byte load path and gives the bits of the 16-byte path."""
+    rng = np.random.default_rng(9)
+    n, k = 300, 17
+    a1, a2 = _arr(rng, (n, n), dev, positive=True), _arr(rng, (n, n), dev, positive=True)
+    z1, z2 = _arr(rng, (n, k), dev), _arr(rng, (n, k), dev)
+    buf = torch.empty((n * n + 1,), device=dev)
+    shifted = buf[1:].view(n, n)
+    shifted.copy_(a1)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    assert torch.equal(cad.cad_scores(shifted, a2, z1, z2, 10.0, 12.5),
+                       cad.cad_scores(a1, a2, z1, z2, 10.0, 12.5))
+
+
 def test_pipeline_stages_through_pinned_memory(dev):
     from repro_torch.core.tiles import StreamStats
     from repro_torch.obs.metrics import MetricsRegistry

@@ -61,12 +61,27 @@ def test_block_matmul_plain_matches_pallas(m, k, n, dtype):
     np.testing.assert_allclose(got, want_ref, rtol=tol, atol=tol * 10)
 
 
-@pytest.mark.parametrize("n,k", [(128, 4), (192, 15), (96, 17)])
+@pytest.mark.parametrize("n,k", [(128, 4), (192, 15), (96, 17), (130, 33), (100, 40)])
 def test_edge_projection_plain_matches_pallas(n, k):
     a = _arr(np.random.default_rng(n), (n, n), positive=True)
     want = np.asarray(jops.edge_projection(jnp.asarray(a), seed=3, k=k, bm=64, bn=64))
     want_ref = np.asarray(jref.edge_projection(jnp.asarray(a), seed=3, k=k))
     got = ep.edge_projection(torch.from_numpy(a), seed=3, k=k).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got, want_ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("r0,h", [(0, 40), (63, 30), (120, 10)])
+def test_edge_projection_plain_panel_matches_pallas_rows(r0, h):
+    """A row panel at global row r0 of a non-symmetric A (signed, numpy seed):
+    the plain version hashes its global rows, so it gives the same rows of the
+    JAX function's whole-matrix result."""
+    n, k = 130, 17
+    a = _arr(np.random.default_rng(5), (n, n))
+    assert not np.array_equal(a, a.T)
+    want = np.asarray(jops.edge_projection(jnp.asarray(a), seed=3, k=k, bm=64, bn=64))[r0 : r0 + h]
+    want_ref = np.asarray(jref.edge_projection(jnp.asarray(a), seed=3, k=k))[r0 : r0 + h]
+    got = ep.edge_projection(torch.from_numpy(a[r0 : r0 + h].copy()), seed=3, k=k, row0=r0).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(got, want_ref, rtol=1e-5, atol=1e-4)
 
