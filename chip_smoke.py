@@ -8,7 +8,7 @@ Phases, in order; any failure exits non-zero:
 1. the card's name and power limit (nvidia-smi), and the build of the CUDA
    kernels from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a;
 2. each kernel held against its plain PyTorch version on the card at the
-   main paths' shapes (``wkv`` and ``flash_attention`` at phase 8's prefill
+   main paths' shapes (``wkv`` and ``flash_attention`` at phase 9's prefill
    shapes, with a ragged prompt and an fp32 form, and ``wkv`` against the
    per-step recurrence at strong decay), twice for bitwise repeatability (bf16-bit operands
    also against the same kernel on host-decoded fp32; the row-panel forms
@@ -47,7 +47,24 @@ Phases, in order; any failure exits non-zero:
    top-20 ids equal to phase 3's, and the device residency bounds;
 6. the out-of-core pipeline at n=1536 with the bf16 tile codec, on the card
    and on the CPU: equal top-20 ids and allclose scores;
-7. the query read path: phase 3's sequence again, publishing every
+7. the incremental delta chain (``--incremental-chain``, rank 4, budget 0.1)
+   on the slowly drifting GMM sequence of ``tests/test_delta_chain.py`` at
+   n=10512 with the main path's d, q and eps: resident over T=4 against a
+   full rebuild of the same snapshots (1 rebuild, 3 delta updates, 0
+   fallbacks; ``block_matmul`` launched 11 times against 44; each delta's
+   logical FLOPs and scratch at most a third of a full build's; its run
+   report and Chrome trace written under ``OUT`` and held to the port's
+   validators and the registry; scores against the full rebuild's within
+   1e-2 of V_G E|z|^2, top-20 overlap at least 18), then out of core over
+   T=3 from an on-disk raw store with a host-RAM scratch (exact launch
+   counts, scores within rtol 1e-3, atol 1e-3 of V_G E|z|^2 of the
+   resident incremental run's, the 4-panel residency cap, an empty scratch
+   after ``finalize()``), then n=1536 on the card and on the CPU, resident
+   and out of core, drifting and with a fresh GMM draw mid-sequence (equal
+   drift decisions and chain counters, one fallback and one rebuild for
+   the fresh draw, scores within 1e-2 of the largest, top-20 ids equal but
+   for ties within 1e-3 of it);
+8. the query read path: phase 3's sequence again, publishing every
    embedding to an on-disk raw ``EmbeddingStore`` (plus a bf16 copy of the
    last artifact), then top-anomaly queries (raw and corrected, k=20 and
    k=300) and a nearest-neighbor query through ``caddelag-query-torch``'s
@@ -58,7 +75,7 @@ Phases, in order; any failure exits non-zero:
    transition; then the
    same queries on a synthetic n=259,200 artifact (a 0.5-degree global grid,
    360 x 720, k=20, Z from numpy seed 0) with no write path;
-8. the serve path of the LM substrate: rwkv6-3b and qwen2-1.5b at full
+9. the serve path of the LM substrate: rwkv6-3b and qwen2-1.5b at full
    width and depth (random weights from seed 0, fp32 parameters, bf16
    compute) through ``ServeEngine.generate``, a batch of 4 prompts of 1024
    tokens and 32 greedy new tokens each: time to first token, decode time
@@ -75,11 +92,11 @@ A copy of the script beside another tree's ``src/`` (a parent commit's
 are measured by the same code in one call.
 
 The line before the last is the JSON ``kernels`` table (``launches`` sums
-the main paths of phases 3, 5, 7 and 8; ``launches_by_path`` splits them); the
+the main paths of phases 3, 5, 7, 8 and 9; ``launches_by_path`` splits them); the
 last line is ``{"ok": true, "device": {...}}``.  It imports neither JAX nor
 the JAX package.  Long logs go to ``OUT``, a gitignored directory beside
-the script; the on-disk stores of phases 5 and 7 live under ``build/`` and
-are removed at the end of their phase.
+the script; the on-disk stores of phases 5, 7 and 8 live under ``build/``
+and are removed at the end of their phase.
 """
 
 from __future__ import annotations
@@ -117,6 +134,16 @@ BM_ERR64_BAR = 1.04e-3  # max |C - float64| at 10512^3 of the SIMT tile loop thi
 STORE_GRID = 16  # input store of the out-of-core path: 657-row panels
 PH_OOC = 1314  # its scratch panels (scratch grid 8)
 T_OOC = 3  # snapshots of the out-of-core main path
+T_INC = 4  # snapshots of the resident incremental run (phase 7)
+T_INC_OOC = 3  # and of the out-of-core one
+N_INC_SMALL = 1536  # phase 7's card-against-CPU runs
+# Phase 7's accuracy gates, set from its readings on an H100 (PERF.md): the
+# resident delta run against the full rebuild, max error 1.0e-3, 4.2e-3,
+# 2.3e-3 of V_G E|z|^2 and top-20 overlap 20, 20, 20; the n=1536 card against
+# the CPU, at most 3.6e-3 of the largest score.
+INC_ERR_LIMIT = 1e-2  # of V_G E|z|^2
+INC_OVERLAP_MIN = 18
+INC_CARD_CPU_RTOL = 1e-2  # of the largest score
 CHAIN_GEMMS = 2 * (6 - 1) + 1  # d = 6: T and P per level, then P2
 REFINE_STEPS = 10 - 1  # q = 10
 PH_QUERY = 144  # the embedding store's default panel at n=10512: 73 panels
@@ -815,28 +842,65 @@ def report_chain_yardstick(torch, ys: dict) -> dict:
     return out
 
 
-def check_card_vs_cpu(tag: str, gpu, cpu) -> None:
-    """Equal top-20 ids (per transition and sequence-wide), scores within 1e-3."""
+def _ranking_flips(card: list, cpu: list, score, tol: float) -> list:
+    """Where two top-k rankings of the same entries disagree, the pairs
+    involved whose CPU scores (``score[entry]``) lie more than ``tol`` apart
+    (empty: they differ only at ties).
+
+    An entry in one top-k and not the other is held against the CPU's k-th
+    score; two entries in both, ranked in opposite orders, against each other."""
+    bad = []
+    edge = float(score[cpu[-1]])
+    for i in set(card) ^ set(cpu):
+        if abs(float(score[i]) - edge) > tol:
+            bad.append((i, cpu[-1]))
+    both = [i for i in card if i in cpu]
+    pos = {i: cpu.index(i) for i in both}
+    for a_i, a in enumerate(both):
+        for b in both[a_i + 1:]:
+            if pos[a] > pos[b] and abs(float(score[a]) - float(score[b])) > tol:
+                bad.append((a, b))
+    return bad
+
+
+def check_card_vs_cpu(tag: str, gpu, cpu, rtol: float = 1e-3, ties: bool = False) -> list:
+    """Scores within ``rtol`` of each transition's largest CPU score; top-20
+    ids equal per transition and sequence-wide ((node, transition) entries),
+    or with ``ties``, differing only between entries whose CPU scores lie
+    within 1e-3 of the largest score of each other.  Returns each
+    transition's max |diff| as a share of its largest score."""
     import numpy as np
 
-    rtol = 1e-3
+    rel, cpu_scores = [], []
     for t, (rg, rc) in enumerate(zip(gpu.transitions, cpu.transitions)):
         sg, sc = rg.scores.cpu().numpy(), rc.scores.cpu().numpy()
+        cpu_scores.append(sc)
         err = float(np.abs(sg - sc).max())
         scale = float(np.abs(sc).max())
         if not np.isfinite(sg).all() or err > rtol * scale:
             fail(f"{tag} transition {t}: card vs CPU max |diff| {err:.3e} > {rtol:g} x "
                  f"max score {scale:.3e}")
-        if rg.top_idx.tolist() != rc.top_idx.tolist():
-            fail(f"{tag} transition {t}: top-{TOP_K} ids differ: {rg.top_idx.tolist()} "
-                 f"vs {rc.top_idx.tolist()}")
+        card_ids, cpu_ids = rg.top_idx.tolist(), rc.top_idx.tolist()
+        if card_ids != cpu_ids and (not ties
+                                    or _ranking_flips(card_ids, cpu_ids, sc, 1e-3 * scale)):
+            fail(f"{tag} transition {t}: top-{TOP_K} ids differ: {card_ids} vs {cpu_ids}"
+                 + (" beyond ties within 1e-3 of the largest score" if ties else ""))
         srt = np.sort(sc)[::-1]
         log(f"[e2e] {tag} transition {t}: card vs CPU max |diff| {err:.3e} (tol {rtol:g} x "
-            f"max score {scale:.3e}); top-{TOP_K} ids equal; score gap at rank {TOP_K} "
-            f"{srt[TOP_K - 1] - srt[TOP_K]:.3e}")
-    if gpu.global_top_idx.tolist() != cpu.global_top_idx.tolist():
-        fail(f"{tag}: sequence-wide top-{TOP_K} ids differ between card and CPU")
-    log(f"[e2e] {tag} sequence-wide top-{TOP_K} ids equal on card and CPU")
+            f"max score {scale:.3e}; {err / scale:.3e} of it); top-{TOP_K} ids "
+            f"{'equal' if card_ids == cpu_ids else 'equal but for ties'}; score gap at rank "
+            f"{TOP_K} {srt[TOP_K - 1] - srt[TOP_K]:.3e}")
+        rel.append(err / scale)
+    keys = [list(zip(r.global_top_idx.tolist(), r.global_top_step.tolist())) for r in (gpu, cpu)]
+    if keys[0] != keys[1]:
+        score = {(i, s): float(cpu_scores[s][i]) for i, s in keys[0] + keys[1]}
+        tol = 1e-3 * max(float(np.abs(s).max()) for s in cpu_scores)
+        if not ties or _ranking_flips(keys[0], keys[1], score, tol):
+            fail(f"{tag}: sequence-wide top-{TOP_K} differs between card and CPU: {keys[0]} vs "
+                 f"{keys[1]}")
+    log(f"[e2e] {tag} sequence-wide top-{TOP_K} "
+        f"{'equal' if keys[0] == keys[1] else 'equal but for ties'} on card and CPU")
+    return rel
 
 
 def phase_end_to_end(torch) -> None:
@@ -1013,6 +1077,326 @@ def phase_oocore_end_to_end(torch) -> None:
     out = {dev: SequenceDetector(cfg, top_k=TOP_K, device=dev).run(store.snapshot(i) for i in ids)
            for dev in ("cuda", "cpu")}
     check_card_vs_cpu("out-of-core bf16 n=1536", out["cuda"], out["cpu"])
+
+
+def _drifting_gmm(n: int, t_steps: int, device: str, seed: int = 5):
+    """tests/test_delta_chain.py's slowly drifting sequence: 3 movers a step,
+    no injected edges."""
+    from repro_torch.graphs import gmm_snapshot_sequence
+
+    return gmm_snapshot_sequence(n, t_steps, seed=seed, noise=0.02, inject_steps=set(),
+                                 drift_nodes=3, device=device)
+
+
+def _chain_counts(met: dict | None) -> dict:
+    """A push's chain counters: rebuilds, delta updates, fallbacks and the
+    logical pass sizes, as the run report's ``chain`` section reads them."""
+    from repro_torch.obs.report import CHAIN_FIELDS
+
+    return {f: (met or {}).get(f"chain.{f}", 0.0) for f in CHAIN_FIELDS}
+
+
+def _inc_decisions(res) -> list:
+    """(rebuilds, delta updates, fallbacks) of the first push, then of each transition."""
+    return [tuple(int(_chain_counts(m)[f]) for f in ("full_rebuilds", "incremental_updates",
+                                                      "drift_fallbacks"))
+            for m in (res.warmup_metrics, *res.transition_metrics)]
+
+
+def _check_inc_counts(tag: str, res, want: tuple) -> None:
+    """Run totals (rebuilds, delta updates, fallbacks) equal to ``want``."""
+    got = tuple(sum(d[i] for d in _inc_decisions(res)) for i in range(3))
+    if got != want:
+        fail(f"{tag}: full rebuilds / incremental updates / drift fallbacks {got} != {want}")
+
+
+def _inc_score_errors(tag: str, res, ref_scores: list, scale: float) -> tuple:
+    """Scores of ``res`` against ``ref_scores``: the largest error of each
+    transition as a share of ``scale``, and the transitions outside
+    tests/test_delta_chain.py's acceptance tolerance, rtol 1e-3 and atol
+    1e-3 x ``scale``."""
+    import numpy as np
+
+    errs, outside = [], []
+    for t, r in enumerate(res.transitions):
+        s = r.scores.cpu().numpy().astype(np.float64)
+        f = np.asarray(ref_scores[t], np.float64)
+        if s.shape != f.shape or not np.isfinite(s).all():
+            fail(f"{tag} transition {t}: scores not finite of shape {f.shape}")
+        if (np.abs(s - f) - (1e-3 * np.abs(f) + 1e-3 * scale)).max() > 0:
+            outside.append(t)
+        errs.append(float(np.abs(s - f).max() / scale))
+    return errs, outside
+
+
+def _inc_run(torch, cfg, snaps, tag: str, trace_to: Path | None = None) -> dict:
+    """One sequence run on the card with fenced phase seconds, its launch counts,
+    registry delta and peak device memory; with ``trace_to``, the tracer holds
+    this run alone and its Chrome trace is written there."""
+    from repro_torch import kernels
+    from repro_torch.core import SequenceDetector, reset_stream_stats, stream_stats
+    from repro_torch.obs import REGISTRY, disable_tracing, enable_tracing, tracer
+
+    det = SequenceDetector(cfg, top_k=TOP_K, device="cuda")
+    if trace_to is not None:
+        tracer().clear()
+    enable_tracing(fence=True)  # phase seconds are device walls
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_stream_stats()
+    m0 = REGISTRY.snapshot()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = det.run(snaps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    disable_tracing()
+    if trace_to is not None:
+        tracer().save(str(trace_to))
+    chain_s = [m.get("phase.chain.seconds", 0.0) for m in res.transition_metrics]
+    log(f"[incremental] {tag}: run wall {wall:.3f} s; chain builds {res.chain_builds}; chain "
+        f"seconds per transition {', '.join(f'{s:.4f}' for s in chain_s)}; (rebuilds, delta "
+        f"updates, fallbacks) per push {_inc_decisions(res)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    return {"res": res, "counts": counts, "met": REGISTRY.delta(m0), "wall": wall,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "chain_s": chain_s,
+            "stream": stream_stats().snapshot()}
+
+
+def phase_incremental(torch) -> dict:
+    """The incremental delta chain on the card (phase 7): resident at n=10512
+    against a full rebuild of the same drifting sequence, with a validated run
+    report and Chrome trace; out of core from an on-disk store; then n=1536
+    card against CPU, resident and out of core, and an abrupt snapshot."""
+    import gc
+    import itertools
+    import shutil
+    import tempfile
+    from dataclasses import replace
+
+    from repro_torch.core import (
+        CommuteConfig,
+        SequenceDetector,
+        commute_time_embedding,
+        full_build_gemm_cost,
+    )
+    from repro_torch.obs import REGISTRY
+    from repro_torch.obs import report as obs_report
+    from repro_torch.obs.report import CHAIN_FIELDS
+    from repro_torch.store import TileStore
+
+    full_cfg = CommuteConfig(eps_rp=1e-3, d=6, q=10)  # the main path's, richardson
+    inc_cfg = replace(full_cfg, incremental_chain=True)  # the CLI's rank 4, budget 0.1
+    out: dict = {}
+
+    # -- 1. resident, n=10512, T=4: incremental against full rebuild ----------
+    seq = _drifting_gmm(N_MAIN, T_INC, "cuda")
+    full = _inc_run(torch, full_cfg, seq.snapshots(), f"resident full rebuild n={N_MAIN} "
+                    f"T={T_INC}")
+    full_scores = [r.scores.cpu().numpy() for r in full["res"].transitions]
+    full_top = [r.top_idx.tolist() for r in full["res"].transitions]
+    full_secs = full["res"].transition_seconds
+    del full["res"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    OUT.mkdir(exist_ok=True)
+    inc = _inc_run(torch, inc_cfg, seq.snapshots(), f"resident incremental n={N_MAIN} "
+                   f"T={T_INC}", trace_to=OUT / "incremental_trace.json")
+    res = inc["res"]
+    _check_inc_counts("resident incremental", res, (1, T_INC - 1, 0))
+    want = {name: 0 for name in inc["counts"]} | {
+        "block_matmul": CHAIN_GEMMS, "edge_projection": T_INC, "cad_scores": T_INC - 1}
+    if inc["counts"] != want:
+        fail(f"resident incremental launch counts {inc['counts']} != {want}")
+    if full["counts"]["block_matmul"] != T_INC * CHAIN_GEMMS:
+        fail(f"full-rebuild block_matmul launches {full['counts']['block_matmul']} != "
+             f"{T_INC * CHAIN_GEMMS}")
+    emb = commute_time_embedding(next(seq.snapshots()), full_cfg, device="cuda")
+    z = emb.z.double()
+    scale = float(emb.vol) * float((z * z).sum(1).mean())
+    del emb, z
+    # At n=10512 the reference's algorithm misses its own acceptance
+    # tolerance against the full rebuild from the second delta on (the sketch
+    # truncates the degree-scaling part of dS, which every neighbour of a
+    # mover carries; tests/test_torch_delta_chain.py's slow
+    # test_reference_and_port_share_the_accuracy_limit shows the JAX package
+    # doing the same at n=2048), so that tolerance is printed and the gate is
+    # INC_ERR_LIMIT, set from this run's readings.
+    errs, outside = _inc_score_errors("resident incremental", res, full_scores, scale)
+    flops_full, _, scratch_full = full_build_gemm_cost(N_MAIN, full_cfg.d)
+    ratios = []
+    for t, m in enumerate(res.transition_metrics):
+        c = _chain_counts(m)
+        if not (0 < c["gemm_flops"] <= flops_full / 3
+                and 0 < c["scratch_bytes"] <= scratch_full / 3):
+            fail(f"incremental transition {t}: chain.gemm_flops {c['gemm_flops']:.4e} / "
+                 f"scratch_bytes {c['scratch_bytes']:.4e} not within a third of a full build's "
+                 f"{flops_full:.4e} / {scratch_full:.4e}")
+        ratios.append((flops_full / c["gemm_flops"], scratch_full / c["scratch_bytes"]))
+    overlap = [len(set(r.top_idx.tolist()) & set(f)) for r, f in zip(res.transitions, full_top)]
+    if max(errs) > INC_ERR_LIMIT or min(overlap) < INC_OVERLAP_MIN:
+        fail(f"resident incremental against the full rebuild: max score error "
+             f"{', '.join(f'{e:.3e}' for e in errs)} of the scale {scale:.4e} (limit "
+             f"{INC_ERR_LIMIT:g}), top-{TOP_K} overlap {overlap} (at least {INC_OVERLAP_MIN})")
+    drift = REGISTRY.series("chain.drift")[-(T_INC - 1):]
+
+    # the run report and the trace of the incremental run
+    doc = obs_report.build_run_report(
+        config={"n": N_MAIN, "t_steps": T_INC, "d": inc_cfg.d, "q": inc_cfg.q,
+                "eps": inc_cfg.eps_rp, "incremental_chain": True,
+                "delta_rank": inc_cfg.delta_rank, "delta_budget": inc_cfg.delta_budget,
+                "device": "cuda"},
+        result=res, n=N_MAIN, k_rp=K_MAIN)
+    obs_report.save_run_report(doc, str(OUT / "incremental_report.json"))
+    for path in ("incremental_report.json", "incremental_trace.json"):
+        try:
+            obs_report.validate_file(str(OUT / path))
+        except ValueError as e:
+            fail(f"{path} does not pass the port's validator: {e}")
+    for f in CHAIN_FIELDS:
+        if doc["chain"][f] != REGISTRY.value(f"chain.{f}"):
+            fail(f"run report chain.{f} {doc['chain'][f]} != the registry's "
+                 f"{REGISTRY.value(f'chain.{f}')}")
+        pushes = _chain_counts(res.warmup_metrics)[f] + sum(t["chain"][f]
+                                                            for t in doc["transitions"])
+        if not math.isclose(pushes, inc["met"].get(f"chain.{f}", 0.0), rel_tol=1e-12):
+            fail(f"run report: chain.{f} over the pushes {pushes} != the run's "
+                 f"{inc['met'].get(f'chain.{f}', 0.0)}")
+    n_events = len(json.loads((OUT / "incremental_trace.json").read_text())["traceEvents"])
+    log(f"[incremental] resident n={N_MAIN} T={T_INC} (d={inc_cfg.d}, q={inc_cfg.q}, "
+        f"k={K_MAIN}, rank {inc_cfg.delta_rank}, budget {inc_cfg.delta_budget}): 1 rebuild, "
+        f"{T_INC - 1} delta updates, 0 fallbacks; drift {', '.join(f'{d:.4e}' for d in drift)}; "
+        f"block_matmul launches {inc['counts']['block_matmul']} against the full run's "
+        f"{full['counts']['block_matmul']}; chain seconds per transition "
+        f"{', '.join(f'{s:.4f}' for s in inc['chain_s'])} against "
+        f"{', '.join(f'{s:.4f}' for s in full['chain_s'])}; full-build / delta FLOPs and "
+        f"scratch {', '.join(f'{a:.1f}x / {b:.1f}x' for a, b in ratios)}; peak device memory "
+        f"{inc['peak_gb']:.3f} GB against {full['peak_gb']:.3f} GB; top-{TOP_K} overlap with "
+        f"the full rebuild {overlap}")
+    log(f"[incremental] scores against the full rebuild: max error "
+        f"{', '.join(f'{e:.3e}' for e in errs)} of the scale V_G E|z|^2 = {scale:.4e} "
+        f"(limit {INC_ERR_LIMIT:g}); top-{TOP_K} overlap {overlap} (at least "
+        f"{INC_OVERLAP_MIN}); transitions outside the JAX tolerance (rtol 1e-3, atol 1e-3 x "
+        f"scale): {outside}")
+    log(f"[incremental] run report (schema {doc['schema']}) and Chrome trace ({n_events} "
+        f"events) of the incremental run pass the port's validators; its chain section (the "
+        f"process's totals, as in the reference) equals the registry's counters, its pushes' "
+        f"chain deltas sum to this run's: "
+        f"{', '.join(f'{f} {inc['met'].get(f'chain.{f}', 0.0):.6g}' for f in CHAIN_FIELDS)}")
+    out["resident"] = {
+        "counts": inc["counts"], "counts_full": full["counts"], "wall_s": inc["wall"],
+        "wall_full_s": full["wall"], "chain_s": inc["chain_s"], "chain_full_s": full["chain_s"],
+        "peak_gb": inc["peak_gb"], "peak_full_gb": full["peak_gb"], "drift": list(drift),
+        "flops_ratio": [a for a, _ in ratios], "scratch_ratio": [b for _, b in ratios],
+        "max_err_of_scale": errs, "outside_tolerance": outside, "scale": scale,
+        "top20_overlap": overlap,
+        "transition_s": res.transition_seconds, "transition_full_s": full_secs}
+    inc_scores = [r.scores.cpu().numpy() for r in res.transitions]
+    del res, inc["res"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 2. out of core, incremental, T=3 from an on-disk raw store ------------
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_inc_store_", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        store = TileStore.create(tmp, n=N_MAIN, grid=STORE_GRID, codec="raw")
+        for t, a in enumerate(itertools.islice(seq.snapshots(), T_INC_OOC)):
+            store.put_snapshot(f"t{t:03d}", a.cpu().numpy())
+            del a
+        del seq
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[incremental] wrote {T_INC_OOC} snapshots of n={N_MAIN} into a raw "
+            f"{STORE_GRID}x{STORE_GRID} tile store on disk in {time.perf_counter() - t0:.1f} s")
+        # the host-RAM scratch the chain build would make for itself (grid 8:
+        # 1314-row panels), handed in so it can be inspected after finalize()
+        scratch = TileStore.create(None, n=N_MAIN, grid=N_MAIN // PH_OOC, codec="raw")
+        cfg = replace(inc_cfg, oocore=True, use_gemm_kernel=True, oocore_dir=scratch)
+        handles = [store.snapshot(f"t{t:03d}") for t in range(T_INC_OOC)]
+        ooc = _inc_run(torch, cfg, handles, f"out-of-core incremental n={N_MAIN} T={T_INC_OOC}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = ooc["res"]
+    _check_inc_counts("out-of-core incremental", res, (1, T_INC_OOC - 1, 0))
+    g = N_MAIN // PH_OOC
+    want = {name: 0 for name in ooc["counts"]} | {
+        "edge_projection": T_INC_OOC * STORE_GRID, "cad_scores": (T_INC_OOC - 1) * STORE_GRID,
+        "stream_gemm": CHAIN_GEMMS * g * g + T_INC_OOC * g, "stream_gemm_tc": CHAIN_GEMMS * g * g,
+        "fused_panel_matvec": T_INC_OOC * REFINE_STEPS * g}
+    if ooc["counts"] != want:
+        fail(f"out-of-core incremental launch counts {ooc['counts']} != {want}")
+    # gated against run 1's incremental scores (the same algorithm on the other route)
+    vs_res, off = _inc_score_errors("out-of-core incremental", res, inc_scores, scale)
+    if off:
+        fail(f"out-of-core incremental transitions {off}: scores off the resident incremental "
+             f"run's by more than rtol 1e-3, atol 1e-3 x scale {scale:.4e}")
+    errs_ooc, _ = _inc_score_errors("out-of-core incremental", res, full_scores, scale)
+    live_cap = 4 * PH_OOC * N_MAIN * 4
+    if ooc["stream"]["peak_live_bytes"] > live_cap:
+        fail(f"out-of-core incremental stream.peak_live_bytes {ooc['stream']['peak_live_bytes']} "
+             f"> 4 panels ({live_cap})")
+    if scratch.snapshot_ids:
+        fail(f"out-of-core incremental: after finalize() the scratch store holds "
+             f"{scratch.snapshot_ids} (retained levels leaked)")
+    log(f"[incremental] out-of-core n={N_MAIN} T={T_INC_OOC}: 1 rebuild, {T_INC_OOC - 1} delta "
+        f"updates, 0 fallbacks; launches {ooc['counts']}; chain seconds per transition "
+        f"{', '.join(f'{s:.3f}' for s in ooc['chain_s'])}; max score error against the "
+        f"resident incremental run {', '.join(f'{e:.3e}' for e in vs_res)} of the scale (tol "
+        f"1e-3, rtol 1e-3), against the full rebuild {', '.join(f'{e:.3e}' for e in errs_ooc)}; "
+        f"stream.peak_live_bytes {ooc['stream']['peak_live_bytes'] / 1e6:.1f} MB (cap "
+        f"{live_cap / 1e6:.1f} MB); scratch store empty after finalize()")
+    out["oocore"] = {"counts": ooc["counts"], "wall_s": ooc["wall"], "chain_s": ooc["chain_s"],
+                     "peak_gb": ooc["peak_gb"], "max_err_of_scale": errs_ooc,
+                     "max_err_of_scale_vs_resident": vs_res,
+                     "transition_s": res.transition_seconds, "stream": ooc["stream"]}
+    del res, ooc["res"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 3. n=1536: card against CPU, resident and out of core; an abrupt snapshot.
+    # Scores within INC_CARD_CPU_RTOL of the largest, not phase 4's 1e-3: the
+    # sketch carries the card's and the CPU's different fp32 roundings into a
+    # quiet transition's scores several times more than a full rebuild does.
+    # Top-20 ids equal but for ties within phase 4's tolerance (1e-3 of the
+    # largest score): a quiet transition's rank-20/21 gap can be far narrower
+    # than the two devices' rounding moves a score.
+    n = N_INC_SMALL
+    quiet = [a.cpu() for a in _drifting_gmm(n, T_INC, "cpu").snapshots()]
+    # a fresh GMM draw (tests/test_delta_chain.py:168) mid-sequence, then its own slow drift
+    abrupt = [*quiet[:2], *(a.cpu() for a in _drifting_gmm(n, 2, "cpu", seed=99).snapshots())]
+    for storage in ("resident", "out-of-core"):
+        cfg = inc_cfg if storage == "resident" else replace(inc_cfg, oocore=True,
+                                                           use_gemm_kernel=True)
+        for name, snaps, want_d in (("drifting", quiet, [(1, 0, 0)] + [(0, 1, 0)] * (T_INC - 1)),
+                                    ("abrupt", abrupt, [(1, 0, 0), (0, 1, 0), (1, 0, 1),
+                                                        (0, 1, 0)])):
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                if storage == "resident":
+                    src = [a.to(dev) for a in snaps]
+                else:
+                    st = TileStore.create(None, n=n, grid=STORE_GRID, codec="raw")
+                    src = [st.put_snapshot(f"t{t:03d}", a.numpy()) for t, a in enumerate(snaps)]
+                runs[dev] = SequenceDetector(cfg, top_k=TOP_K, device=dev).run(src)
+            tag = f"incremental n={n} {storage} {name}"
+            dec = {dev: _inc_decisions(r) for dev, r in runs.items()}
+            if dec["cuda"] != dec["cpu"] or dec["cuda"] != want_d:
+                fail(f"{tag}: (rebuilds, delta updates, fallbacks) per push card {dec['cuda']}, "
+                     f"CPU {dec['cpu']}, want {want_d}")
+            cnt = {dev: [_chain_counts(m) for m in (r.warmup_metrics, *r.transition_metrics)]
+                   for dev, r in runs.items()}
+            if cnt["cuda"] != cnt["cpu"]:
+                fail(f"{tag}: chain counters differ between card and CPU")
+            rel = check_card_vs_cpu(tag, runs["cuda"], runs["cpu"], rtol=INC_CARD_CPU_RTOL,
+                                    ties=True)
+            log(f"[incremental] {tag}: (rebuilds, delta updates, fallbacks) per push "
+                f"{dec['cuda']} on card and CPU; chain counters equal; card against CPU max "
+                f"|diff| {', '.join(f'{e:.3e}' for e in rel)} of the largest score (limit "
+                f"{INC_CARD_CPU_RTOL:g})")
+    return out
 
 
 def phase_query_kernel(torch, rows: list) -> dict:
@@ -1330,7 +1714,7 @@ def phase_query(torch, resident: dict, per: dict) -> dict:
 
 def phase_lm_kernels(torch, rows: list) -> dict:
     """wkv and flash_attention at the serve path's prefill shapes (batch 4,
-    prompt 1024).  Returns per-launch times (ms) for the split of phase 8."""
+    prompt 1024).  Returns per-launch times (ms) for the split of phase 9."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -1739,12 +2123,16 @@ def main() -> int:
     del yardstick
     phase_oocore_end_to_end(torch)
     torch.cuda.empty_cache()
+    incremental = phase_incremental(torch)
+    torch.cuda.empty_cache()
     query = phase_query(torch, resident, per_query)
     torch.cuda.empty_cache()
     serve = phase_serve(torch, per_lm)
     for row in rows:
         by_path = {"resident": resident["counts"][row["name"]],
                    "oocore": oocore["counts"][row["name"]],
+                   "incremental": incremental["resident"]["counts"][row["name"]],
+                   "incremental oocore": incremental["oocore"]["counts"][row["name"]],
                    "query": query["n=10512"]["counts"][row["name"]],
                    f"query n={N_LARGE}": query[f"n={N_LARGE}"]["counts"][row["name"]]}
         by_path |= {f"serve {arch}": serve[arch]["counts"][row["name"]] for arch, _ in SERVE_MODELS}
@@ -1754,10 +2142,13 @@ def main() -> int:
             row["launches_wgmma"] = sum(serve[arch]["counts"]["flash_attention_wgmma"]
                                         for arch, _ in SERVE_MODELS)
         if row["name"] == "stream_gemm":
-            row["launches_tc"] = oocore["counts"]["stream_gemm_tc"]
+            row["launches_tc"] = (oocore["counts"]["stream_gemm_tc"]
+                                  + incremental["oocore"]["counts"]["stream_gemm_tc"])
     (OUT / "chip_smoke_oocore.json").write_text(json.dumps(
         {"card": smi, "per_launch": per_launch, **oocore, "chain_float64_yardstick": chain64},
         indent=1))
+    (OUT / "chip_smoke_incremental.json").write_text(json.dumps({"card": smi, **incremental},
+                                                                indent=1))
     (OUT / "chip_smoke_query.json").write_text(json.dumps({"card": smi, **query}, indent=1))
     (OUT / "chip_smoke_serve.json").write_text(json.dumps({"card": smi, **serve}, indent=1))
 

@@ -2,6 +2,13 @@
 
 from repro_torch.core.cad import CADResult, detect_anomalies, node_anomaly_scores, top_anomalies
 from repro_torch.core.chain import ChainOperator, chain_build_count, chain_product
+from repro_torch.core.delta_chain import (
+    BaseChain,
+    build_base_chain,
+    full_build_gemm_cost,
+    truncate_factors,
+    try_delta_update,
+)
 from repro_torch.core.distmatrix import (
     SCHEDULES,
     add_scaled_identity,
@@ -30,6 +37,7 @@ from repro_torch.core.solvers import SolveReport, SolverSpec, estimate_rho, solv
 from repro_torch.core.tiles import is_streamable, reset_stream_stats, stream_stats, tile_stream
 
 __all__ = [
+    "BaseChain",
     "CADResult",
     "ChainOperator",
     "CommuteConfig",
@@ -41,6 +49,7 @@ __all__ = [
     "SolveReport",
     "SolverSpec",
     "add_scaled_identity",
+    "build_base_chain",
     "build_from_nodes",
     "chain_build_count",
     "chain_product",
@@ -52,6 +61,7 @@ __all__ = [
     "edge_projection",
     "estimate_rho",
     "exact_commute_distances",
+    "full_build_gemm_cost",
     "is_streamable",
     "matmul",
     "matmul_rowblock",
@@ -64,5 +74,7 @@ __all__ = [
     "tile_stream",
     "top_anomalies",
     "top_anomalies_from_store",
+    "truncate_factors",
+    "try_delta_update",
     "validate_node_indices",
 ]

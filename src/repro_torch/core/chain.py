@@ -12,7 +12,9 @@ Cost: 2(d-1) + 1 dense n x n GEMMs, every one through the hand-written fp32
 ``block_matmul`` CUDA kernel on the card.  ``fuse_l=True`` forms
 P2 = Z^ D - Z^ A instead of materializing L.  ``oocore=True`` runs the chain
 against store-backed working matrices instead
-(:func:`repro_torch.core.oochain.chain_product_oocore`).
+(:func:`repro_torch.core.oochain.chain_product_oocore`).  ``level_sink``
+keeps the chain's levels for incremental delta updates
+(:mod:`repro_torch.core.delta_chain`).
 """
 
 from __future__ import annotations
@@ -44,6 +46,14 @@ class ChainOperator:
     solver.  ``prefetch_depth`` and ``use_gemm_kernel`` ride along for the
     streamed consumers: the staging depth and whether solves go through the
     ``stream_gemm`` / ``fused_panel_matvec`` kernels.
+
+    An incremental update (:func:`repro_torch.core.delta_chain.try_delta_update`)
+    keeps the base chain's ``p1`` / ``p2`` and sets the low-rank correction:
+    the operator then stands for P1' = diag(p1_scale) P1 diag(p1_scale) +
+    u1 v1^T and P2' = P2 + u2 v2^T, which the solver applies as rank-r
+    epilogues around every product.  ``shared_base`` marks P1 / P2 as a live
+    base chain's, shared with other operators: :meth:`release_scratch` then
+    leaves them alone, and ``BaseChain.release`` is their one owner.
     """
 
     p1: torch.Tensor  # (n, n)  Z^ = D^{-1/2} P D^{-1/2}  (tensor or handle)
@@ -53,11 +63,20 @@ class ChainOperator:
     rho: float | None = None
     prefetch_depth: int = 2
     use_gemm_kernel: bool = False
+    p1_scale: torch.Tensor | None = None  # (n,)
+    u1: torch.Tensor | None = None  # (n, r)
+    v1: torch.Tensor | None = None  # (n, r)
+    u2: torch.Tensor | None = None  # (n, r)
+    v2: torch.Tensor | None = None  # (n, r)
+    shared_base: bool = False
 
     def release_scratch(self) -> None:
         """Retire store-backed P1 / P2 from their scratch store (no-op when
-        resident).  A failed removal warns: scoring already succeeded and
-        the scratch is disposable, but a growing scratch dir must show."""
+        resident, or while ``shared_base`` is set).  A failed removal warns:
+        scoring already succeeded and the scratch is disposable, but a
+        growing scratch dir must show."""
+        if self.shared_base:
+            return
         for buf in (self.p1, self.p2):
             store = getattr(buf, "store", None)
             if store is not None and hasattr(buf, "snap_id"):
@@ -91,6 +110,7 @@ def chain_product(
     prefetch_depth: int | None = None,
     use_gemm_kernel: bool = False,
     device=None,
+    level_sink: dict | None = None,
 ) -> ChainOperator:
     """Build the chain operator of ``a``: a device tensor or a snapshot handle.
 
@@ -102,6 +122,13 @@ def chain_product(
     :func:`repro_torch.core.oochain.chain_product_oocore` for the panel-I/O
     knobs.  ``device`` is read only for a handle (a tensor's own device is
     used otherwise).
+
+    ``level_sink`` (a caller's dict) keeps the levels the incremental delta
+    path multiplies against: on return ``level_sink["t"]`` holds T_0 ..
+    T_{d-1} and ``level_sink["p"]`` P_1 .. P_{d-2} (P_0 = I + T_0 is applied
+    implicitly, the last P is never needed), as tensors, or as scratch
+    snapshots out of core.  The caller owns their lifetime
+    (``BaseChain.release``).
     """
     if d_len < 1:
         raise ValueError("chain length d must be >= 1")
@@ -111,6 +138,8 @@ def chain_product(
         "chain.builds": 1.0,
         "chain.gemm_flops": n_gemms * 2.0 * float(n) ** 3,
         "chain.gemm_bytes": n_gemms * 3.0 * float(n) ** 2 * 4.0,
+        # one fresh n^2 matrix per GEMM plus the S~ assembly
+        "chain.scratch_bytes": (n_gemms + 1) * float(n) ** 2 * 4.0,
     })
     if not is_streamable(a):
         device = a.device
@@ -121,6 +150,7 @@ def chain_product(
             a, d_len, deflate=deflate, fuse_l=fuse_l, work=oocore_work,
             panel_rows=oocore_panel_rows, tile_codec=tile_codec,
             prefetch_depth=prefetch_depth, use_gemm_kernel=use_gemm_kernel, device=device,
+            level_sink=level_sink,
         )
     if is_streamable(a):
         a = tile_stream(_load, a, device=device, prefetch_depth=prefetch_depth)
@@ -135,14 +165,23 @@ def chain_product(
     t = s
     p = add_scaled_identity(s, 1.0)  # I + S
     del s
-    for _ in range(1, d_len):
+    if level_sink is not None:
+        level_sink["t"], level_sink["p"] = [t], []
+    for lvl in range(1, d_len):
         t = mm(t, t)  # S^{2^k}
         # P (I + T) = P T + P: add P into the fresh product in place, so no
-        # third n^2 buffer holds the sum.
-        p = mm(p, t).add_(p)
+        # third n^2 buffer holds the sum.  Every level is a fresh tensor, so
+        # a retained one is never written again.
+        p_prev, p = p, mm(p, t).add_(p)
+        if level_sink is not None:
+            level_sink["t"].append(t)
+            if lvl > 1:  # P_0 = I + T_0 is applied implicitly
+                level_sink["p"].append(p_prev)
+        del p_prev
     del t
 
-    p1 = lap.sym_scale_(p, lap.inv_sqrt_degrees(deg))  # in place: P is not needed again
+    # in place: the last P is never retained and not needed again
+    p1 = lap.sym_scale_(p, lap.inv_sqrt_degrees(deg))
     del p
     if fuse_l:
         # P2 = Z^ (D - A) = (Z^ col-scaled by d) - Z^ @ A

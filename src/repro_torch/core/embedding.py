@@ -41,7 +41,7 @@ class CommuteConfig:
     # Out-of-core chain: S/T/P/P1/P2 spill through a TileStore scratch, so the
     # chain build and the solve hold a few row panels on the card, not n^2.
     oocore: bool = False
-    oocore_dir: str | None = None  # scratch dir; None = host-RAM scratch
+    oocore_dir: str | None = None  # scratch dir (or a TileStore); None = host-RAM scratch
     oocore_panel_rows: int | None = None  # override the streaming unit
     # Panel I/O: staging depth of the prefetch thread, scratch tile codec
     # (raw / bf16 / zstd), and solver iterations per store read of P2.
@@ -56,6 +56,18 @@ class CommuteConfig:
     solver_max_iters: int | None = None
     delta: float | None = None
     warm_start: bool = False  # seed sequence solves with the previous solution
+    # Incremental delta-chain updates (repro_torch.core.delta_chain): on a
+    # slowly drifting transition, skip the O(n^3) chain rebuild -- compress
+    # the change in S to a rank-`delta_rank` factorisation, propagate it
+    # through the squaring recurrence as skinny passes against the retained
+    # base chain (O(n^2 r) per level), and attach the result to the operator
+    # as a low-rank correction every solve applies.  `delta_budget` is the
+    # drift gate: the sketched relative drift ||dS|| / ||S|| (always measured
+    # against the last full rebuild, so corrections never compound) above
+    # which the detector falls back to a full rebuild that becomes the new base.
+    incremental_chain: bool = False
+    delta_rank: int = 4
+    delta_budget: float = 0.1
 
     def k_rp(self, n: int) -> int:
         if self.k_override is not None:

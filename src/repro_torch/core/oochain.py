@@ -1,8 +1,7 @@
 """Out-of-core Peng-Spielman chain product: the squaring chain against
 store-backed working matrices.
 
-Port of :mod:`repro.core.oochain` (one device; ``level_sink`` waits for the
-delta chains).  The recurrence
+Port of :mod:`repro.core.oochain` (one device).  The recurrence
 
     T <- T @ T          P <- P @ T + P
 
@@ -139,6 +138,7 @@ def chain_product_oocore(
     prefetch_depth: int | None = None,
     use_gemm_kernel: bool = False,
     device=None,
+    level_sink: dict | None = None,
 ) -> ChainOperator:
     """Build the chain operator with store-backed working matrices.
 
@@ -153,6 +153,12 @@ def chain_product_oocore(
     by :meth:`ChainOperator.release_scratch`).  ``use_gemm_kernel`` routes
     the GEMM K steps through ``stream_gemm`` and rides on the operator, so
     its solves take the kernel path too.
+
+    With a ``level_sink`` the levels the incremental delta path streams
+    against survive the build as scratch snapshots: ``level_sink["t"]``
+    holds T_0 .. T_{d-1} and ``level_sink["p"]`` P_1 .. P_{d-2}, owned by
+    the caller from then on (``BaseChain.release``).  The last P and the
+    implicit P_0 = I + T_0 are removed as usual.
     """
     from repro_torch.store import DEFAULT_PREFETCH_DEPTH, PanelPipeline, TileStore
     from repro_torch.store.pipeline import to_device
@@ -270,11 +276,16 @@ def chain_product_oocore(
             _write_panel(wp, r0, p_blk)
     t_h, p_h = work.snapshot(s_id), work.snapshot(p_id)
 
+    retain = level_sink is not None
+    t_levels, p_levels = [t_h], []
     for lvl in range(1, d_len):
+        p_levels.append(p_h)
         t_new = oo_gemm(f"{tag}Tlvl{lvl}", t_h, t_h)
         p_new = oo_gemm(f"{tag}Plvl{lvl}", p_h, t_new, init="left")
-        work.remove_snapshot(t_h.snap_id)
-        work.remove_snapshot(p_h.snap_id)
+        t_levels.append(t_new)
+        if not retain:
+            work.remove_snapshot(t_h.snap_id)
+            work.remove_snapshot(p_h.snap_id)
         t_h, p_h = t_new, p_new
 
     # the P1 sandwich is the same row/col scaling as the undeflated S build
@@ -285,8 +296,16 @@ def chain_product_oocore(
         l_h = unary_pass(tag + "L", a, _l_panel, deg)
         p2_h = oo_gemm(tag + "P2", p1_h, l_h)
         work.remove_snapshot(l_h.snap_id)
-    work.remove_snapshot(t_h.snap_id)
     work.remove_snapshot(p_h.snap_id)
+    if retain:
+        # T_0..T_{d-1} and P_1..P_{d-2} stay live for the delta path; the
+        # last P (removed above) and the implicit P_0 are not needed.
+        if p_levels:
+            work.remove_snapshot(p_levels[0].snap_id)
+        level_sink["t"] = t_levels
+        level_sink["p"] = p_levels[1:]
+    else:
+        work.remove_snapshot(t_h.snap_id)
 
     # rho(S~^{2^d}) once at build: P2 is wrapped in a CachingHandle, so the
     # estimate costs one real scratch pass.

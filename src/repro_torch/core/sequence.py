@@ -11,6 +11,12 @@ as its last transition is scored -- callers must not touch a donated
 snapshot again.  With an ``emb_store`` attached, each snapshot's embedding
 is published to it (a host copy, before scoring) for the query read path.
 
+With ``cfg.incremental_chain`` the detector keeps one base chain (a full
+build with its levels retained) and serves later snapshots by low-rank delta
+updates against it (:mod:`repro_torch.core.delta_chain`), rebuilding only
+when the sketched drift passes ``cfg.delta_budget``; :meth:`finalize`
+releases the base.
+
 The sequence-wide top-k is merged on the host from each transition's
 top-k, ties to the lower candidate index as ``lax.top_k`` breaks them.
 """
@@ -25,7 +31,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import chain
+from repro_torch.core.chain import ChainOperator
 from repro_torch.core.cad import CADResult, node_anomaly_scores, top_anomalies
+from repro_torch.core.delta_chain import BaseChain, build_base_chain, try_delta_update
 from repro_torch.core.embedding import CommuteConfig, Embedding, commute_time_embedding
 from repro_torch.core.tiles import is_streamable
 from repro_torch.device import resolve_device, synchronize
@@ -83,6 +91,7 @@ class SequenceDetector:
         # Duck-typed (put_embedding): the core imports no store.
         self.emb_store = emb_store
         self._prev: tuple[torch.Tensor, Embedding] | None = None
+        self._base: BaseChain | None = None  # incremental-chain base (cfg.incremental_chain)
         self._t = 0
         self._transitions: list[CADResult] = []
         self._seconds: list[float] = []
@@ -112,17 +121,42 @@ class SequenceDetector:
     def _release(self, a, emb: Embedding) -> None:
         """Retire the outgoing snapshot: its out-of-core scratch always, its
         device buffers with ``donate=True`` (store handles are the user's
-        data and are left alone)."""
+        data and are left alone).  An operator on a shared base chain keeps
+        its P1 / P2: they are the base's, which may still serve later
+        transitions, and ``BaseChain.release`` owns them."""
         if emb.op is not None:
-            emb.op.release_scratch()
+            emb.op.release_scratch()  # no-op on a shared base
         if not self.donate:
             return
         bufs = [a, emb.z]
-        if emb.op is not None:
+        if emb.op is not None and not emb.op.shared_base:
             bufs += [emb.op.p1, emb.op.p2]
         for buf in bufs:
             if isinstance(buf, torch.Tensor):
                 _free(buf)
+
+    def _incremental_op(self, a) -> ChainOperator:
+        """The chain operator of ``a`` in incremental mode.
+
+        A delta update against the base chain when there is one and the drift
+        monitor accepts it; otherwise (no base yet, or drift over budget) a
+        full build that becomes the new base.  Timed under the same
+        ``phase("chain")`` counter as a full build, annotated with the mode.
+        """
+        with phase("chain", n=int(a.shape[0]), d=self.cfg.d, oocore=self.cfg.oocore,
+                   incremental=True) as sp:
+            if self._base is not None:
+                op = try_delta_update(self._base, a, self.cfg)
+                if op is not None:
+                    sp.annotate(mode="delta")
+                    return op
+                self._base.release()  # drift over budget: retire it, then rebuild
+                self._base = None
+            self._base = build_base_chain(a, self.cfg, device=self.device)
+            sp.annotate(mode="rebuild")
+            op = self._base.op
+            sp.fence(op.vol)
+        return op
 
     def _publish(self, emb: Embedding) -> None:
         """Publish snapshot t's embedding to the attached store as ``tNNNN``.
@@ -148,7 +182,9 @@ class SequenceDetector:
             warm_from = (
                 self._prev[1].z if (self.cfg.warm_start and self._prev is not None) else None
             )
-            emb = commute_time_embedding(a, self.cfg, warm_from=warm_from, device=self.device)
+            op_in = self._incremental_op(a) if self.cfg.incremental_chain else None
+            emb = commute_time_embedding(a, self.cfg, op=op_in, warm_from=warm_from,
+                                         device=self.device)
             if self.emb_store is not None:
                 self._publish(emb)
             out = None
@@ -182,6 +218,11 @@ class SequenceDetector:
                 "finalize() on an empty sequence: 0 snapshots were pushed "
                 "(scoring transitions needs at least 2)"
             )
+        if self._base is not None:
+            # Retire the base chain: its retained levels (and, out of core,
+            # their scratch snapshots) die here; the scores are on hand.
+            self._base.release()
+            self._base = None
         empty = not self._transitions
         return SequenceResult(
             transitions=self._transitions,

@@ -18,6 +18,12 @@ which cancel near convergence; see :func:`_kernel_stream_pass`).  ``solver_batch
 P2's panels from host RAM between store reads (``CachingHandle.refresh`` at
 every batch boundary).
 
+An operator corrected by an incremental delta update
+(:mod:`repro_torch.core.delta_chain`) carries ``p1_scale, u1, v1, u2, v2``:
+the chi build becomes ``s * (P1 (s * b)) + u1 (v1^T b)`` and every P2
+product gains ``u2 (v2^T x)``, plain (n, r) products beside the unchanged
+base pass, on every route (on the fused one, ``gy' = gy - u2 (v2^T y)``).
+
 All methods stop on the relative preconditioned residual
 ``||Z^(b - L y)||_F / ||Z^ b||_F`` measured on the deflated subspace; the
 denominator stays ``||Z^ b||`` under a warm start.  See the JAX module for
@@ -92,6 +98,19 @@ def _unrotate_hist(hist: np.ndarray, iters: int) -> list[float]:
     return [float(r) for r in out]
 
 
+def _low_rank(u: torch.Tensor, v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """u (v^T x) in fp32: a rank-r correction term, never an n^2 product."""
+    return u @ (v.T @ x.to(torch.float32))
+
+
+def _p2_matvec(p2, y: torch.Tensor, u2, v2) -> torch.Tensor:
+    """P2' y = P2 y (+ u2 (v2^T y) on a corrected operator)."""
+    out = matmul_rowblock(p2, y)
+    if u2 is not None:
+        out = (out.to(torch.float32) + _low_rank(u2, v2, y)).to(y.dtype)
+    return out
+
+
 def _metric_deflate(delta: torch.Tensor, deflate: bool) -> torch.Tensor:
     # The nullspace component of the residual never decays: measure without it.
     if deflate:
@@ -99,7 +118,7 @@ def _metric_deflate(delta: torch.Tensor, deflate: bool) -> torch.Tensor:
     return delta
 
 
-def _run_stationary(p2, chi, y0, method, deflate, tol, max_steps, rho):
+def _run_stationary(p2, chi, y0, method, deflate, tol, max_steps, rho, u2=None, v2=None):
     """Richardson / Chebyshev; returns (y, iterations, residual, ring, rho_final)."""
     den = torch.clamp(_frob(chi), min=1e-30)
     hist = np.zeros((RES_HIST_CAP,), np.float32)
@@ -110,7 +129,7 @@ def _run_stationary(p2, chi, y0, method, deflate, tol, max_steps, rho):
     while k < max_steps and res > tol:
         gamma = _F32(2.0 / (2.0 - rho_c))
         sigma2 = _F32((rho_c / (2.0 - rho_c)) ** 2)
-        gy = y - matmul_rowblock(p2, y) + chi  # G y + chi; gy - y is the residual
+        gy = y - _p2_matvec(p2, y, u2, v2) + chi  # G y + chi; gy - y is the residual
         if method == "richardson":
             y_new, p_new = gy, p_prev
         else:
@@ -144,7 +163,7 @@ def _run_stationary(p2, chi, y0, method, deflate, tol, max_steps, rho):
     return y, k, float(res), hist, float(rho_c)
 
 
-def _run_cg(p2, chi, y0, w, deflate, tol, max_steps):
+def _run_cg(p2, chi, y0, w, deflate, tol, max_steps, u2=None, v2=None):
     """CG on the deflated SPD form with degree-weighted inner products."""
     den = torch.clamp(_frob(chi), min=1e-30)
     wcol = torch.clamp(w.to(torch.float32), min=0.0).reshape(-1, 1)
@@ -157,14 +176,14 @@ def _run_cg(p2, chi, y0, w, deflate, tol, max_steps):
         # project onto range(P2): remove the deg-weighted mean
         return x - torch.sum(wcol * x, dim=0, keepdim=True) / wsum
 
-    r = chi.to(torch.float32) - matmul_rowblock(p2, y0.to(torch.float32)).to(torch.float32)
+    r = chi.to(torch.float32) - _p2_matvec(p2, y0.to(torch.float32), u2, v2).to(torch.float32)
     if deflate:
         r = dproj(r)
     y, p, rz = y0, r, wdot(r, r)
     hist = np.zeros((RES_HIST_CAP,), np.float32)
     k, res, tol = 0, _F32(np.inf), _F32(tol)
     while k < max_steps and res > tol:
-        q = matmul_rowblock(p2, p)
+        q = _p2_matvec(p2, p, u2, v2)
         if deflate:
             q = dproj(q)
         pq = wdot(p, q)
@@ -225,8 +244,9 @@ def _kernel_stream_pass(handle, y, chi, *, depth, fused):
 
 
 def _solve_streamed(p2_handle, chi, y0, method, deflate, tol, max_steps, rho,
-                    solver_batch, prefetch_depth, use_kernel=False, w=None):
-    """The streamed solve: a host loop with one pass over P2 per mat-vec."""
+                    solver_batch, prefetch_depth, use_kernel=False, w=None, u2=None, v2=None):
+    """The streamed solve: a host loop with one pass over P2 per mat-vec (plus
+    the rank-r correction ``u2 (v2^T x)``, which never touches the stream)."""
     p2, cached = p2_handle, None
     if solver_batch > 1:
         from repro_torch.store import CachingHandle  # the store is optional
@@ -244,8 +264,12 @@ def _solve_streamed(p2_handle, chi, y0, method, deflate, tol, max_steps, rho,
     def stream_matvec(x):
         next_pass()
         if use_kernel:
-            return _kernel_stream_pass(p2, x, None, depth=prefetch_depth, fused=False)
-        return matmul_rowblock(p2, x.to(torch.float32), prefetch_depth=prefetch_depth)
+            mv = _kernel_stream_pass(p2, x, None, depth=prefetch_depth, fused=False)
+        else:
+            mv = matmul_rowblock(p2, x.to(torch.float32), prefetch_depth=prefetch_depth)
+        if u2 is not None:
+            mv = mv + _low_rank(u2, v2, x)
+        return mv
 
     def metric(delta):
         if deflate:
@@ -301,7 +325,12 @@ def _solve_streamed(p2_handle, chi, y0, method, deflate, tol, max_steps, rho,
     while k < max_steps and res > tol:
         if use_kernel:  # one fused pass over the P2 stream
             next_pass()
-            gy = _kernel_stream_pass(p2, y, chi, depth=prefetch_depth, fused=True).to(chi.dtype)
+            gy = _kernel_stream_pass(p2, y, chi, depth=prefetch_depth, fused=True)
+            if u2 is not None:
+                # the fused pass applied the base P2: fold in the rank-r term;
+                # the residual below is still measured from gy' - y
+                gy = gy - _low_rank(u2, v2, y)
+            gy = gy.to(chi.dtype)
         else:
             gy = y - stream_matvec(y).to(chi.dtype) + chi
         if method == "richardson":
@@ -379,10 +408,16 @@ def solve(
     read0, panels0, h2d0 = st.bytes_read, st.panels, st.bytes_h2d
     warm = y0 is not None
     with trace.span("solve", method=spec.method, streamed=streamed, warm=warm) as sp:
+        b_in = b
+        if op.p1_scale is not None:  # corrected: P1' b = s (P1 (s b)) + u1 (v1^T b)
+            scale_col = op.p1_scale.to(torch.float32).reshape(-1, 1)
+            b_in = (b.to(torch.float32) * scale_col).to(b.dtype)
         if use_k and is_streamable(op.p1):
-            chi = _kernel_stream_pass(op.p1, b, None, depth=depth, fused=False).to(b.dtype)
+            chi = _kernel_stream_pass(op.p1, b_in, None, depth=depth, fused=False).to(b.dtype)
         else:
-            chi = matmul_rowblock(op.p1, b, prefetch_depth=depth)
+            chi = matmul_rowblock(op.p1, b_in, prefetch_depth=depth)
+        if op.p1_scale is not None:
+            chi = (chi.to(torch.float32) * scale_col + _low_rank(op.u1, op.v1, b)).to(b.dtype)
         if deflate:
             chi = deflate_constant(chi)
         if warm:
@@ -402,15 +437,18 @@ def solve(
             y, iters, res, res_hist, rho_c = _solve_streamed(
                 op.p2, chi, y_start, spec.method, deflate, tol, max_steps, rho or 0.0,
                 solver_batch, depth, use_kernel=use_k and is_streamable(op.p2), w=op.deg,
+                u2=op.u2, v2=op.v2,
             )
             if spec.method == "chebyshev":
                 rho_final = rho_c
         elif spec.method == "cg":
-            y, iters, res, hist = _run_cg(op.p2, chi, y_start, op.deg, deflate, tol, max_steps)
+            y, iters, res, hist = _run_cg(op.p2, chi, y_start, op.deg, deflate, tol, max_steps,
+                                          op.u2, op.v2)
             res_hist = _unrotate_hist(hist, iters)
         else:
             y, iters, res, hist, rho_c = _run_stationary(
-                op.p2, chi, y_start, spec.method, deflate, tol, max_steps, rho or 0.0
+                op.p2, chi, y_start, spec.method, deflate, tol, max_steps, rho or 0.0,
+                op.u2, op.v2,
             )
             if spec.method == "chebyshev":
                 rho_final = rho_c

@@ -3,9 +3,10 @@
 CADDeLaG has no weights; its state is the chain operator and the embedding.
 These helpers turn the JAX package's objects, handed over as numpy arrays,
 into the port's, so one module can be checked at a time: a JAX-built
-operator into the port's solver, two JAX-built embeddings into the port's
-scorer, or a JAX-initialized LM parameter tree into the port's serving
-path.  This module imports neither JAX nor the JAX package.
+operator (plain or delta-corrected) into the port's solver, a JAX-built base
+chain into the port's incremental update, two JAX-built embeddings into the
+port's scorer, or a JAX-initialized LM parameter tree into the port's
+serving path.  This module imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.chain import ChainOperator
+from repro_torch.core.delta_chain import BaseChain
 from repro_torch.core.embedding import Embedding
 from repro_torch.device import resolve_device
 from repro_torch.models.common import Params
@@ -24,13 +26,41 @@ def _tensor(x, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, np.float32)).to(dev)  # a writable copy
 
 
-def chain_operator_from_numpy(p1, p2, deg, vol, rho, device="cuda") -> ChainOperator:
-    """A :class:`ChainOperator` on ``device`` from numpy P1, P2, deg, vol and rho."""
+def chain_operator_from_numpy(p1, p2, deg, vol, rho, device="cuda", *, p1_scale=None,
+                              u1=None, v1=None, u2=None, v2=None) -> ChainOperator:
+    """A :class:`ChainOperator` on ``device`` from numpy P1, P2, deg, vol and rho.
+
+    ``p1_scale, u1, v1, u2, v2`` carry a delta-corrected operator's low-rank
+    correction (all five or none); such an operator shares its P1 / P2 with
+    a base chain, so it is marked ``shared_base``.
+    """
     dev = resolve_device(device)
+    corr = dict(p1_scale=p1_scale, u1=u1, v1=v1, u2=u2, v2=v2)
+    if len({x is None for x in corr.values()}) > 1:
+        raise ValueError("p1_scale, u1, v1, u2 and v2 come all together or not at all")
+    corrected = p1_scale is not None
     return ChainOperator(
         p1=_tensor(p1, dev), p2=_tensor(p2, dev), deg=_tensor(deg, dev),
         vol=_tensor(vol, dev).reshape(()), rho=None if rho is None else float(rho),
+        **{k: _tensor(x, dev) if corrected else None for k, x in corr.items()},
+        shared_base=corrected,
     )
+
+
+def base_chain_from_numpy(t_levels, p_levels, op: ChainOperator, d_len: int,
+                          deflate: bool) -> BaseChain:
+    """A resident :class:`BaseChain` from the JAX package's retained levels.
+
+    ``t_levels`` are T_0 .. T_{d-1} and ``p_levels`` P_1 .. P_{d-2} as numpy
+    arrays (a JAX ``BaseChain``'s lists); ``op`` is its base operator, already
+    carried across (:func:`chain_operator_from_numpy`), whose device the
+    levels go to.
+    """
+    dev = op.deg.device
+    op.shared_base = True
+    return BaseChain(op=op, t_levels=[_tensor(t, dev) for t in t_levels],
+                     p_levels=[_tensor(p, dev) for p in p_levels], d_len=d_len,
+                     deflate=deflate)
 
 
 def embedding_from_numpy(z, vol, device="cuda") -> Embedding:

@@ -7,6 +7,10 @@ sequence into a tiled on-disk snapshot store and scores it from there, one
 row panel at a time; ``--oocore-chain`` also spills the chain's working
 matrices to a scratch store.  ``--emb-store DIR`` publishes each snapshot's
 embedding to an embedding store that ``caddelag-query-torch`` serves reads from.
+``--incremental-chain`` serves slowly drifting snapshots by low-rank delta
+updates against a retained base chain instead of full rebuilds;
+``--run-report`` and ``--trace`` write the run report (schema 2) and a
+Chrome trace, both checked by ``python -m repro_torch.obs.report FILE...``.
 
   caddelag-run-torch --n 10512 --t-steps 3 --dataset climate        # on the card
   caddelag-run-torch --device cpu --n 64 --t-steps 3 --d 3 --q 4    # plain PyTorch
@@ -14,6 +18,8 @@ embedding to an embedding store that ``caddelag-query-torch`` serves reads from.
       --oocore-chain --use-gemm-kernel                               # out-of-core
   caddelag-run-torch --n 10512 --t-steps 3 --dataset climate --emb-store DIR
   caddelag-query-torch --store DIR --top-k 20                        # then query it
+  caddelag-run-torch --n 10512 --t-steps 4 --drift-nodes 3 --incremental-chain \
+      --run-report report.json --trace trace.json                    # delta chain
 """
 
 from __future__ import annotations
@@ -91,6 +97,26 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--solver-batch", type=int, default=1,
                     help="solver iterations per store read of P2 (the rest replay panels "
                          "from host RAM; identical scores)")
+    ap.add_argument("--incremental-chain", action="store_true",
+                    help="incremental delta-chain updates: on slowly drifting transitions "
+                         "the O(n^3) chain rebuild is replaced by a rank-r correction "
+                         "propagated with skinny O(n^2 r) passes against the retained base "
+                         "chain; a sketched drift monitor falls back to a full rebuild when "
+                         "||dS||/||S|| exceeds --delta-budget")
+    ap.add_argument("--delta-rank", type=int, default=4,
+                    help="rank of the incremental chain correction")
+    ap.add_argument("--delta-budget", type=float, default=0.1,
+                    help="drift gate for --incremental-chain: sketched ||dS||_F / ||S||_F "
+                         "(against the last full rebuild) above which a transition rebuilds")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="record a Chrome trace-event JSON of the run (Perfetto / "
+                         "chrome://tracing); fences the phase spans, so they measure device "
+                         "walls at the cost of extra synchronisation")
+    ap.add_argument("--run-report", default=None, metavar="OUT.json",
+                    help="write a structured run report (schema 2, see repro_torch.obs.report): "
+                         "per-transition phase, bytes, chain and solver telemetry")
+    ap.add_argument("--strict-convergence", action="store_true",
+                    help="exit with code 2 if any transition's solve finished NOT-CONVERGED")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda runs the hand-written kernels; cpu their plain versions")
     return ap.parse_args(argv)
@@ -98,7 +124,12 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    from repro_torch.obs import REGISTRY, enable_tracing, tracer
+    from repro_torch.obs.report import build_run_report, save_run_report
     from repro_torch.store import TileStore, resolve_codec
+
+    if args.trace is not None:
+        enable_tracing(fence=True)
 
     # A backend-less zstd request degrades to raw (with a warning) here, once,
     # so the stores and the summary lines report what the tiles really are.
@@ -110,6 +141,8 @@ def main(argv=None) -> None:
         warm_start=args.warm_start, oocore=args.oocore_chain, oocore_dir=args.oocore_dir,
         prefetch_depth=args.prefetch_depth, tile_codec=effective_codec,
         solver_batch=args.solver_batch, use_gemm_kernel=args.use_gemm_kernel,
+        incremental_chain=args.incremental_chain, delta_rank=args.delta_rank,
+        delta_budget=args.delta_budget,
     )
     if args.dataset == "gmm":
         n_nodes = args.n
@@ -150,6 +183,7 @@ def main(argv=None) -> None:
                                  meta=meta)
         ids = store_snapshot_sequence(store, seq)
         reset_stream_stats()
+        m0 = REGISTRY.snapshot()
         res = det.run(store.snapshot(sid) for sid in ids)
         st = stream_stats()
         what = "adjacency + chain scratch" if args.oocore_chain else "adjacency"
@@ -164,6 +198,7 @@ def main(argv=None) -> None:
         )
     else:
         reset_stream_stats()
+        m0 = REGISTRY.snapshot()
         res = det.run(seq.snapshots())
     if args.oocore_chain:
         st = stream_stats()
@@ -193,6 +228,19 @@ def main(argv=None) -> None:
         f"d={args.d} q={args.q} eps={args.eps}: "
         f"{res.chain_builds} chain builds for {len(res.transitions)} transitions"
     )
+    if args.incremental_chain:
+        run = REGISTRY.delta(m0)  # this run's counts, whatever the process did before
+        print(
+            f"[caddelag] incremental chain: "
+            f"{int(run.get('chain.full_rebuilds', 0))} full rebuilds, "
+            f"{int(run.get('chain.incremental_updates', 0))} incremental "
+            f"updates, {int(run.get('chain.drift_fallbacks', 0))} drift "
+            f"fallbacks (rank={args.delta_rank}, budget={args.delta_budget}, "
+            f"last drift={REGISTRY.gauge('chain.drift_last'):.2e}); "
+            f"delta GEMM {run.get('chain.delta_gemm_flops', 0) / 1e9:.3f} "
+            f"GFLOP, {run.get('chain.delta_gemm_bytes', 0) / 1e6:.1f} MB "
+            f"operand traffic"
+        )
     for t, (r, dt) in enumerate(zip(res.transitions, res.transition_seconds)):
         found = r.top_idx.cpu().numpy().tolist()
         truth = set(np.asarray(seq.truth[t])[: args.top_k].tolist())
@@ -227,6 +275,21 @@ def main(argv=None) -> None:
     if bad:
         print(f"[caddelag] WARNING: {bad}/{len(res.transitions)} transitions "
               f"had a NOT-CONVERGED solve")
+
+    if args.run_report is not None:
+        doc = build_run_report(
+            config={k.replace("-", "_"): v for k, v in vars(args).items()},
+            result=res, n=n_nodes, k_rp=cfg.k_rp(n_nodes),
+        )
+        save_run_report(doc, args.run_report)
+        print(f"[caddelag] run report -> {args.run_report}")
+    if args.trace is not None:
+        tracer().save(args.trace)
+        print(f"[caddelag] trace -> {args.trace} "
+              f"({len(tracer().events())} events; open in Perfetto)")
+
+    if bad and args.strict_convergence:
+        raise SystemExit(2)
 
 
 if __name__ == "__main__":

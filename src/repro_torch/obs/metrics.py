@@ -56,6 +56,10 @@ class MetricsRegistry:
         with self._lock:
             return self._counters.get(name, default)
 
+    def set_gauge(self, name: str, value: float) -> None:
+        with self._lock:
+            self._gauges[name] = value
+
     def max_gauge(self, name: str, value: float) -> None:
         """High-water-mark gauge: keep the maximum ever set."""
         with self._lock:
@@ -66,6 +70,10 @@ class MetricsRegistry:
     def gauge(self, name: str, default: float = 0.0) -> float:
         with self._lock:
             return self._gauges.get(name, default)
+
+    def append(self, name: str, value: float) -> None:
+        """Append one entry to a bounded series (dropped past the cap)."""
+        self.extend(name, (value,))
 
     def extend(self, name: str, values: Iterable[float]) -> None:
         """Append to a bounded series; entries past the cap are dropped."""

@@ -2,8 +2,10 @@
 
 Port of :mod:`repro.obs.trace`: same-thread spans, and cross-thread spans
 (:func:`begin` on one thread, :func:`end` on another -- the panel pipeline's
-``prefetch.panel`` spans).  File export waits for the RunReport port.  Tracing is off by
-default and the disabled path returns a shared null span.  CUDA work is
+``prefetch.panel`` spans).  :meth:`Tracer.save` writes them as Chrome
+trace-event JSON ("X" complete events plus "M" thread-name metadata),
+loadable in Perfetto or chrome://tracing.  Tracing is off by default and
+the disabled path returns a shared null span.  CUDA work is
 queued asynchronously, so a span that only brackets the enqueue
 under-reports the device wall: with ``enable_tracing(fence=True)`` a span on
 which ``sp.fence(x)`` was called runs ``torch.cuda.synchronize()`` before it
@@ -12,6 +14,7 @@ closes, and its duration is the device phase's wall.
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
@@ -84,6 +87,7 @@ class Tracer:
         self.fence_enabled = False
         self._lock = threading.Lock()
         self._events: list[dict[str, Any]] = []
+        self._thread_names: dict[int, str] = {}
         # Cross-thread spans in flight: handle -> (name, t0_us, owner tid, args)
         self._pending: dict[int, tuple[str, float, int, dict[str, Any]]] = {}
         self._next_handle = 1
@@ -96,6 +100,13 @@ class Tracer:
     def disable(self) -> None:
         self.enabled = False
         self.fence_enabled = False
+
+    def clear(self) -> None:
+        """Drop every recorded and pending span."""
+        with self._lock:
+            self._events.clear()
+            self._thread_names.clear()
+            self._pending.clear()
 
     def span(self, name: str, **args: Any):
         if not self.enabled:
@@ -110,11 +121,13 @@ class Tracer:
         """
         if not self.enabled:
             return 0
+        tid = threading.get_ident()
         t0 = _now_us()
         with self._lock:
             handle = self._next_handle
             self._next_handle += 1
-            self._pending[handle] = (name, t0, threading.get_ident(), args)
+            self._pending[handle] = (name, t0, tid, args)
+            self._note_thread_locked(tid)
         return handle
 
     def end(self, handle: int, **args: Any) -> None:
@@ -135,15 +148,43 @@ class Tracer:
 
     def _record(self, name: str, t0: float, dur: float, tid: int, args: dict) -> None:
         with self._lock:
+            self._note_thread_locked(tid)
             self._events.append({
                 "name": name, "ph": "X", "ts": t0, "dur": max(dur, 0.0),
                 "pid": os.getpid(), "tid": tid, "args": args,
             })
 
+    def _note_thread_locked(self, tid: int) -> None:
+        # Called on the span's owning thread (a cross-thread span's owner is
+        # named at begin), so the current thread's name is the track's.
+        if tid not in self._thread_names and tid == threading.get_ident():
+            self._thread_names[tid] = threading.current_thread().name
+
     def events(self) -> list[dict[str, Any]]:
         """Recorded spans as Chrome trace-event ("X") dicts."""
         with self._lock:
             return [dict(e) for e in self._events]
+
+    def to_chrome_trace(self) -> dict[str, Any]:
+        """Chrome trace-event JSON object (Perfetto / chrome://tracing)."""
+        with self._lock:
+            pid = os.getpid()
+            meta = [{"name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+                     "args": {"name": tname}}
+                    for tid, tname in sorted(self._thread_names.items())]
+            return {
+                "traceEvents": meta + [dict(e) for e in self._events],
+                "displayTimeUnit": "ms",
+                "otherData": {"clock": "perf_counter", "unit": "us"},
+            }
+
+    def save(self, path: str) -> None:
+        """Write :meth:`to_chrome_trace` to ``path`` (atomically, via a temporary)."""
+        doc = self.to_chrome_trace()
+        tmp = f"{path}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+        os.replace(tmp, path)
 
 
 _TRACER = Tracer()

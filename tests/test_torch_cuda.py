@@ -717,3 +717,50 @@ def test_smoke_models_on_card_match_cpu(dev, arch):
         p = params if d == "cpu" else ServeEngine(spec, params, s_max=48, device=d).params
         logits[d], _ = lm.prefill(spec, p, torch.from_numpy(prompts).long().to(d), 48)
     _rel_close(logits["cuda"].cpu(), logits["cpu"], 1e-4)
+
+
+@pytest.mark.parametrize("oocore", [False, True], ids=["resident", "oocore"])
+def test_incremental_cli_report_on_card(dev, tmp_path, oocore):
+    """``caddelag-run-torch --incremental-chain --run-report --trace`` at n=64 on
+    the card: both files pass the port's validators, and the report's chain
+    sections equal a CPU run's on the same arguments (integer counts and
+    logical sizes: equal)."""
+    import json
+
+    from repro_torch.launch import caddelag_run
+    from repro_torch.obs import REGISTRY, disable_tracing, report, tracer
+
+    args = ["--n", "64", "--t-steps", "3", "--d", "3", "--q", "4", "--drift-nodes", "3",
+            "--incremental-chain"]
+    docs = {}
+    try:
+        for d in ("cuda", "cpu"):
+            out = tmp_path / d
+            out.mkdir()
+            extra = (["--store", str(out / "st"), "--oocore-chain", "--use-gemm-kernel"]
+                     if oocore else [])
+            before = REGISTRY.snapshot().counters
+            caddelag_run.main(["--device", d, *args, *extra, "--run-report", str(out / "r.json"),
+                               "--trace", str(out / "t.json")])
+            assert report.validate_file(str(out / "r.json")) == "caddelag_run_report"
+            assert report.validate_file(str(out / "t.json")) == "chrome_trace"
+            doc = json.loads((out / "r.json").read_text())
+            docs[d] = ({f: doc["chain"][f] - before.get(f"chain.{f}", 0.0)
+                        for f in report.CHAIN_FIELDS}, [t["chain"] for t in doc["transitions"]])
+    finally:
+        disable_tracing()
+        tracer().clear()
+    assert docs["cuda"] == docs["cpu"]
+    assert (docs["cuda"][0]["full_rebuilds"], docs["cuda"][0]["incremental_updates"]) == (1, 2)
+    counts = kernels.launch_counts()
+    assert counts["edge_projection"] > 0 and counts["cad_scores"] > 0
+    assert counts["stream_gemm" if oocore else "block_matmul"] > 0
+
+
+def test_rademacher_omega_on_card_bitwise_cpu(dev):
+    """The delta chain's sketch matrix hashed on the card equals the CPU's bit for bit."""
+    from repro_torch.core.delta_chain import _rademacher_omega
+
+    for n, m, seed in ((10512, 6, 0x5EED), (1536, 6, 0xD2), (7, 3, 2**32 + 5)):
+        np.testing.assert_array_equal(_rademacher_omega(n, m, seed, dev),
+                                      _rademacher_omega(n, m, seed))
