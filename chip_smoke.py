@@ -85,17 +85,36 @@ Phases, in order; any failure exits non-zero:
    decode step under
    ``torch.profiler`` (device time by kernel family, the card's idle share);
    then each model at depth 2 in fp32 on the card and on the CPU: equal
-   greedy tokens and prefill logits within 1e-3 of the largest.
+   greedy tokens and prefill logits within 1e-3 of the largest;
+10. the paper's workloads (``[paper]`` lines): (a) the synthetic transition
+   of section 4.2.1 (``gmm_graph_sequence``, A1 = P, A2 = Q + (R + R^T)/2,
+   about 300 injected node pairs) at n=10512 through ``detect_anomalies``
+   with ``CLIMATE.commute`` (exact launch counts, precision@20 against the
+   injected truth, seconds and peak memory), and ``estimate_solution`` /
+   ``residual_norm`` at q=1 and q=10 on its A1; the same at n=1536 on the
+   card and on the CPU (truth, components and injection mask bitwise,
+   scores within 1e-3 of the largest, top-20 ids equal but for ties,
+   residuals within rel 1e-4 plus fp32's rounding bound for L x - b);
+   (b) ``gmm_store_sequence`` writing T=2 snapshots of n=10512 tile by tile
+   (every tile of the first within rtol 1e-6, atol 1e-6 of the card's
+   ``similarity_graph``), and at n=4096 an out-of-core chain from that
+   writer's store, ``estimate_solution`` with ``solver_batch`` 1 and 4
+   (bitwise equal, at least 2x fewer scratch reads) and ``residual_norm`` on
+   a store-backed L against the resident one; (c) the four
+   ``examples/torch_*.py``: top-k ids equal but for ties, card against CPU,
+   at their defaults (the telemetry example's CPU run scores the card run's
+   report), then climate at 73 x 144, T=4 and election at n=10512, T=3 on
+   the card, with their verdict lines.
 
 A copy of the script beside another tree's ``src/`` (a parent commit's
 ``git archive``) runs the same phases on that tree's package, so both trees
 are measured by the same code in one call.
 
 The line before the last is the JSON ``kernels`` table (``launches`` sums
-the main paths of phases 3, 5, 7, 8 and 9; ``launches_by_path`` splits them); the
+the main paths of phases 3, 5, 7, 8, 9 and 10; ``launches_by_path`` splits them); the
 last line is ``{"ok": true, "device": {...}}``.  It imports neither JAX nor
 the JAX package.  Long logs go to ``OUT``, a gitignored directory beside
-the script; the on-disk stores of phases 5, 7 and 8 live under ``build/``
+the script; the on-disk stores of phases 5, 7, 8 and 10 live under ``build/``
 and are removed at the end of their phase.
 """
 
@@ -150,6 +169,10 @@ PH_QUERY = 144  # the embedding store's default panel at n=10512: 73 panels
 N_LARGE, K_LARGE, PH_LARGE = 360 * 720, 20, 128  # the synthetic artifact: 2025 panels
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 1024, 32  # the serve path's requests
 SERVE_MODELS = (("rwkv6-3b", "wkv"), ("qwen2-1.5b", "flash_attention"))  # (arch, its kernel)
+N_PAPER_SMALL = 1536  # phase 10's card-against-CPU size
+N_OOC_SOLVE = 4096  # phase 10's out-of-core chain and solver calls
+T_PAPER_STORE = 2  # snapshots gmm_store_sequence writes at n=10512
+PAPER_PAIRS = 300  # phase 10's injected entries of R (inject_p = PAPER_PAIRS / n^2)
 QUERIES = (  # (label, k, corrected, nearest-neighbor node or None)
     ("top raw k=20", 20, False, None),
     ("top raw k=300", 300, False, None),
@@ -2070,6 +2093,334 @@ def phase_serve(torch, per: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the paper's workloads
+# ---------------------------------------------------------------------------
+
+
+def _inject_p(n: int) -> float:
+    """Phase 10's injection rate: each of the n^2 entries of R with probability
+    PAPER_PAIRS / n^2, so n^2 p / 2 = 150 and about 300 node pairs get an
+    edge.  The JAX default 0.05 gives every node hundreds of injected edges at
+    n=10512, and then every node is truth."""
+    return PAPER_PAIRS / n ** 2
+
+
+def _residual_floor(torch, l_mat, x, b) -> float:
+    """fp32's forward-error bound for ||L x - b|| / ||b||: eps32 x || |L| |x| || / ||b||
+    (in float64): how far an fp32 evaluation of the residual may stray, apart
+    from any difference in x."""
+    eps32 = torch.finfo(torch.float32).eps
+    return float(eps32 * (l_mat.double().abs() @ x.double().abs()).norm() / b.double().norm())
+
+
+def _paper_solver(torch, a1, cfg) -> dict:
+    """``estimate_solution`` at q=1 and q=10 on A1's chain, with the embedding's
+    right-hand sides (Y = B^T W^1/2 Q), and ``residual_norm`` of each."""
+    from repro_torch.core import (chain_product, edge_projection, estimate_solution,
+                                  laplacian, residual_norm)
+
+    op = chain_product(a1, cfg.d, schedule=cfg.schedule, dtype=cfg.dtype, deflate=cfg.deflate,
+                       fuse_l=cfg.fuse_l, device=a1.device)
+    b = edge_projection(a1, cfg.seed, cfg.k_rp(int(a1.shape[0])))
+    l_mat = laplacian.laplacian(a1, op.deg)
+    out = {}
+    for q in (1, 10):
+        x = estimate_solution(op, b, q)
+        out[q] = {"residual": float(residual_norm(l_mat, x, b)),
+                  "floor": _residual_floor(torch, l_mat, x, b)}
+    return out
+
+
+def _paper_synthetic(torch, n: int, device: str) -> dict:
+    """The synthetic transition on ``device``: ``gmm_graph_sequence`` and
+    ``detect_anomalies`` with ``CLIMATE.commute``, then the solver calls."""
+    from repro_torch.configs.caddelag import CLIMATE
+    from repro_torch.core import detect_anomalies
+    from repro_torch.graphs import gmm_graph_sequence
+
+    cfg = CLIMATE.commute
+    t0 = time.perf_counter()
+    seq = gmm_graph_sequence(n, seed=0, inject_p=_inject_p(n), device=device)
+    gen_s = time.perf_counter() - t0
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = detect_anomalies(seq.a1, seq.a2, cfg, top_k=TOP_K, device=device)
+    if cuda:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    if res.scores.shape != (n,) or not bool(torch.isfinite(res.scores).all()):
+        fail(f"paper n={n} on {device}: scores not finite of shape ({n},)")
+    truth = seq.anomalous_nodes
+    top = res.top_idx.tolist()
+    out = {"res": res, "truth": truth, "components": seq.components, "gen_s": gen_s,
+           "seconds": seconds, "peak_gb": peak,
+           "precision20": len(set(top) & set(truth.tolist())),
+           "strongest20": len(set(top) & set(truth[:TOP_K].tolist())),
+           "solver": _paper_solver(torch, seq.a1, cfg)}
+    if n <= N_PAPER_SMALL:  # the injection mask: A2 against the same draws without R
+        clean = gmm_graph_sequence(n, seed=0, inject_p=0.0, device=device)
+        out["mask"] = (seq.a2 != clean.a2).cpu().numpy()
+    return out
+
+
+def _check_topk_card_cpu(tag: str, card: list, cpu: list) -> None:
+    """Per transition: top-k ids equal, or differing only between entries whose
+    CPU scores lie within 1e-3 of the largest of each other."""
+    for t, (rg, rc) in enumerate(zip(card, cpu, strict=True)):
+        sc = rc.scores.cpu().numpy()
+        tol = 1e-3 * float(abs(sc).max())
+        g, c = rg.top_idx.tolist(), rc.top_idx.tolist()
+        if g != c and _ranking_flips(g, c, sc, tol):
+            fail(f"{tag} transition {t}: top-{len(c)} ids differ between card and CPU beyond ties "
+                 f"within 1e-3 of the largest score: {g} vs {c}")
+        log(f"[paper] {tag} transition {t}: top-{len(c)} ids "
+            f"{'equal' if g == c else 'equal but for ties'} on card and CPU")
+
+
+def _run_example(name: str, argv: list) -> tuple:
+    """``examples/torch_<name>.py``'s ``main(argv)``: (its results, its printed
+    lines, seconds)."""
+    import contextlib
+    import importlib.util
+    import io
+
+    path = ROOT / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        results = mod.main(argv)
+    return results, [ln for ln in buf.getvalue().splitlines() if ln.strip()], \
+        time.perf_counter() - t0
+
+
+def phase_paper(torch, smi: str) -> dict:
+    """The paper's workloads through the port's entry points (phase 10):
+    (a) the synthetic transition at n=10512 and the solver API, n=1536 card
+    against CPU; (b) the tile-by-tile writer at n=10512 and the out-of-core
+    chain and solver at n=4096; (c) the four examples, card against CPU at
+    their defaults, then at full size on the card."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import kernels
+
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    out: dict = {}
+
+    # (a) the synthetic benchmark, resident
+    before = kernels.launch_counts()
+    big = _paper_synthetic(torch, N_MAIN, "cuda")
+    seg = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+    want = {k: 0 for k in seg} | {"block_matmul": 3 * CHAIN_GEMMS, "edge_projection": 3,
+                                  "cad_scores": 1}
+    if seg != want:
+        fail(f"paper n={N_MAIN}: launch counts {seg} != {want} (two chains for the transition, "
+             f"one for the solver calls)")
+    sol = big["solver"]
+    log(f"[paper] synthetic n={N_MAIN} (gmm_graph_sequence, inject_p {_inject_p(N_MAIN):.4e}: "
+        f"n^2 p / 2 = {PAPER_PAIRS // 2}; {big['truth'].size} truth nodes), CLIMATE.commute "
+        f"(eps 1e-3, d=6, q=10, k={K_MAIN}): transition {big['seconds']:.3f} s, peak device "
+        f"memory {big['peak_gb']:.2f} GB on {smi}; graphs built in {big['gen_s']:.2f} s (host draws "
+        f"of R included); precision@{TOP_K} {big['precision20']}/{TOP_K}, overlap with the "
+        f"{TOP_K} strongest truth nodes {big['strongest20']}/{TOP_K}; estimate_solution + "
+        f"residual_norm: q=1 {sol[1]['residual']:.4e}, q=10 {sol[10]['residual']:.4e} (fp32 "
+        f"floor {sol[10]['floor']:.1e}); launches {seg}")
+    out["synthetic"] = {k: big[k] for k in ("seconds", "peak_gb", "gen_s", "precision20",
+                                            "strongest20", "solver")}
+    out["synthetic"] |= {"n": N_MAIN, "inject_p": _inject_p(N_MAIN),
+                         "truth_nodes": int(big["truth"].size), "counts": seg}
+    del big
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The same draws with no point noise (A2 = P + (R + R^T)/2): how much of
+    # the ranking the injections alone decide at this n.
+    from repro_torch.configs.caddelag import CLIMATE
+    from repro_torch.core import detect_anomalies
+    from repro_torch.graphs import gmm_graph_sequence
+
+    seq = gmm_graph_sequence(N_MAIN, seed=0, noise=0.0, inject_p=_inject_p(N_MAIN), device="cuda")
+    top = detect_anomalies(seq.a1, seq.a2, CLIMATE.commute, top_k=TOP_K).top_idx.tolist()
+    quiet = {"precision20": len(set(top) & set(seq.anomalous_nodes.tolist())),
+             "strongest20": len(set(top) & set(seq.anomalous_nodes[:TOP_K].tolist()))}
+    log(f"[paper] synthetic n={N_MAIN} with noise 0 (the same injections; A2 - A1 is R alone): "
+        f"precision@{TOP_K} {quiet['precision20']}/{TOP_K}, overlap with the {TOP_K} strongest "
+        f"truth nodes {quiet['strongest20']}/{TOP_K}")
+    out["synthetic"]["noise0"] = quiet
+    del seq
+    torch.cuda.empty_cache()
+
+    small = {d: _paper_synthetic(torch, N_PAPER_SMALL, d) for d in ("cuda", "cpu")}
+    g, c = small["cuda"], small["cpu"]
+    for key in ("truth", "components", "mask"):
+        if not np.array_equal(g[key], c[key]):
+            fail(f"paper n={N_PAPER_SMALL}: {key} differs between card and CPU")
+    sc = c["res"].scores.cpu().numpy()
+    err = float(np.abs(g["res"].scores.cpu().numpy() - sc).max())
+    scale = float(np.abs(sc).max())
+    if err > 1e-3 * scale:
+        fail(f"paper n={N_PAPER_SMALL}: card vs CPU max |diff| {err:.3e} > 1e-3 x {scale:.3e}")
+    _check_topk_card_cpu(f"synthetic n={N_PAPER_SMALL}", [g["res"]], [c["res"]])
+    res_line = []
+    for q in (1, 10):
+        rg, rc = g["solver"][q]["residual"], c["solver"][q]["residual"]
+        # rel 1e-4 where fp32 resolves the residual; at its floor, the two
+        # evaluations' rounding bounds on top
+        tol = 1e-4 * rc + g["solver"][q]["floor"] + c["solver"][q]["floor"]
+        if not abs(rg - rc) <= tol:
+            fail(f"paper n={N_PAPER_SMALL} q={q}: residual {rg:.6e} on the card, {rc:.6e} on the "
+                 f"CPU: |diff| > {tol:.3e} (1e-4 rel + both fp32 floors)")
+        res_line.append(f"q={q} {rg:.6e} vs {rc:.6e} (rel diff {abs(rg - rc) / rc:.2e}; fp32 "
+                        f"floor {c['solver'][q]['floor'] / rc:.2e} rel)")
+    log(f"[paper] synthetic n={N_PAPER_SMALL} card vs CPU: truth ({g['truth'].size} nodes), "
+        f"components and injection mask bitwise; scores max |diff| {err:.3e} ({err / scale:.2e} "
+        f"of the largest, tol 1e-3); precision@{TOP_K} {g['precision20']} / {c['precision20']}; "
+        f"residuals " + "; ".join(res_line))
+    out["synthetic_small"] = {"n": N_PAPER_SMALL, "scores_rel_err": err / scale,
+                              "residuals": {q: (g["solver"][q], c["solver"][q]) for q in (1, 10)}}
+    del small, g, c
+    gc.collect()
+
+    # (b) the out-of-core writer and solver
+    from repro_torch.core import (chain_product, edge_projection, estimate_solution, laplacian,
+                                  reset_stream_stats, residual_norm, stream_stats)
+    from repro_torch.graphs import gmm_points, gmm_store_sequence, similarity_graph
+    from repro_torch.store import TileStore
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_paper_", dir=ROOT / "build"))
+    try:
+        store = TileStore.create(tmp / "n10512", n=N_MAIN, grid=STORE_GRID, codec="raw")
+        t0 = time.perf_counter()
+        ids = gmm_store_sequence(store, T_PAPER_STORE, seed=0)
+        write_s = time.perf_counter() - t0
+        pts, _ = gmm_points(N_MAIN, 0)
+        a_card = similarity_graph(pts, device="cuda").cpu().numpy()
+        tr, worst = store.tile_rows, 0.0
+        for r in range(STORE_GRID):
+            for cc in range(STORE_GRID):
+                tile = store.read_tile(ids[0], r, cc, mmap=False)
+                blk = a_card[r * tr:(r + 1) * tr, cc * tr:(cc + 1) * tr]
+                if not np.allclose(tile, blk, rtol=1e-6, atol=1e-6):
+                    fail(f"gmm_store_sequence tile ({r}, {cc}) differs from the card's "
+                         f"similarity_graph beyond rtol 1e-6, atol 1e-6")
+                worst = max(worst, float(np.abs(tile - blk).max()))
+        del a_card
+        log(f"[paper] gmm_store_sequence wrote {T_PAPER_STORE} snapshots of n={N_MAIN} tile by "
+            f"tile ({STORE_GRID}x{STORE_GRID} tiles of {tr} rows, "
+            f"{T_PAPER_STORE * store.snapshot_nbytes / 1e9:.2f} GB raw on disk) in {write_s:.1f} s; "
+            f"every tile of {ids[0]} within rtol 1e-6, atol 1e-6 of the card's similarity_graph "
+            f"(max |diff| {worst:.2e})")
+        out["writer"] = {"n": N_MAIN, "t_steps": T_PAPER_STORE, "seconds": write_s,
+                         "max_abs_diff": worst}
+        store.remove_snapshot(ids[1])
+        store.remove_snapshot(ids[0])
+
+        store = TileStore.create(tmp / "n4096", n=N_OOC_SOLVE, grid=8, codec="raw")
+        (sid,) = gmm_store_sequence(store, 1, seed=1)
+        h = store.snapshot(sid)
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        op = chain_product(h, 6, oocore=True, use_gemm_kernel=True, device=torch.device("cuda"))
+        y = edge_projection(h, 0, CLIMATE.commute.k_rp(N_OOC_SOLVE), device=torch.device("cuda"))
+        torch.cuda.synchronize()
+        chain_s = time.perf_counter() - t0
+        sols, reads, secs = {}, {}, {}
+        for batch in (1, 4):
+            reset_stream_stats()
+            t0 = time.perf_counter()
+            sols[batch] = estimate_solution(op, y, 10, solver_batch=batch)
+            torch.cuda.synchronize()
+            secs[batch] = time.perf_counter() - t0
+            reads[batch] = stream_stats().bytes_read
+        op.release_scratch()
+        seg = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+        if not torch.equal(sols[1], sols[4]):
+            fail("out-of-core estimate_solution: solver_batch 4 is not bitwise equal to 1")
+        if not reads[1] >= 2 * reads[4] > 0:
+            fail(f"out-of-core estimate_solution: scratch reads {reads[1]} (batch 1) vs "
+                 f"{reads[4]} (batch 4), not 2x fewer")
+        if min(seg["stream_gemm"], seg["fused_panel_matvec"], seg["edge_projection"]) == 0:
+            fail(f"out-of-core chain and solve at n={N_OOC_SOLVE}: launch counts {seg}")
+        a_dev = torch.from_numpy(h.to_numpy()).cuda()
+        l_mat = laplacian.laplacian(a_dev, laplacian.degrees(a_dev))
+        l_h = store.put_snapshot("L", l_mat.cpu().numpy())
+        x = sols[1]
+        r_res = float(residual_norm(l_mat, x, y))
+        r_str = float(residual_norm(l_h, x, y, prefetch_depth=2))
+        floor = _residual_floor(torch, l_mat, x, y)
+        if not abs(r_str - r_res) <= 1e-5 * r_res + 2 * floor:
+            fail(f"residual_norm on the store-backed L {r_str:.8e} vs resident {r_res:.8e}: "
+                 f"beyond rel 1e-5 plus twice the fp32 floor {floor:.2e}")
+        log(f"[paper] out-of-core n={N_OOC_SOLVE} from gmm_store_sequence (grid 8, host-RAM "
+            f"scratch, kernels on): chain + edge_projection {chain_s:.2f} s; estimate_solution "
+            f"q=10 solver_batch 1 {secs[1]:.3f} s / 4 {secs[4]:.3f} s, bitwise equal, scratch reads "
+            f"{reads[1] / 1e6:.1f} / {reads[4] / 1e6:.1f} MB ({reads[1] / reads[4]:.2f}x fewer); "
+            f"residual_norm store-backed {r_str:.8e} vs resident {r_res:.8e} (rel diff "
+            f"{abs(r_str - r_res) / r_res:.2e}, fp32 floor {floor / r_res:.2e} rel); launches {seg}")
+        out["oocore"] = {"n": N_OOC_SOLVE, "chain_s": chain_s, "solve_s": secs,
+                         "scratch_read_bytes": reads, "residual_resident": r_res,
+                         "residual_streamed": r_str, "residual_floor": floor, "counts": seg}
+        del op, y, sols, a_dev, l_mat, x
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the examples: card against CPU at their defaults, then full size on the card
+    old_tmp = tempfile.tempdir
+    tempfile.tempdir = str(OUT)  # the telemetry example's run report lands under OUT
+    try:
+        ex = {}
+        for name in ("quickstart", "climate_anomaly", "election_anomaly"):
+            card, lines, secs = _run_example(name, ["--device", "cuda"])
+            cpu, _, _ = _run_example(name, ["--device", "cpu"])
+            _check_topk_card_cpu(f"{name} (defaults)", card, cpu)
+            ex[name] = {"defaults_s": secs, "defaults_lines": lines}
+        card, lines, secs = _run_example("training_telemetry_anomaly", ["--device", "cuda"])
+        report = next(ln.split("-> ")[1] for ln in lines if "report ->" in ln)
+        cpu, _, _ = _run_example("training_telemetry_anomaly",
+                                 ["--device", "cpu", "--report", report])
+        _check_topk_card_cpu("training_telemetry_anomaly (defaults, one report)", card, cpu)
+        ex["training_telemetry_anomaly"] = {"defaults_s": secs, "defaults_lines": lines}
+        full = {"climate_anomaly": ["--lat", "73", "--lon", "144", "--t-steps", "4"],
+                "election_anomaly": ["--n", str(N_MAIN), "--t-steps", "3"]}
+        for name, argv in full.items():
+            _, lines, secs = _run_example(name, argv + ["--device", "cuda"])
+            ex[name] |= {"full_s": secs, "full_lines": lines, "full_argv": argv}
+    finally:
+        tempfile.tempdir = old_tmp
+    for name, e in ex.items():  # quickstart runs at its defaults only: phase 10a is its full size
+        size = " ".join(e.get("full_argv", [])) or "its defaults"
+        secs = e.get("full_s", e["defaults_s"])
+        log(f"[paper] examples/torch_{name}.py at {size} on the card, {secs:.2f} s:")
+        for ln in e.get("full_lines", e["defaults_lines"]):
+            if not ln.startswith(("[telemetry] report", "[telemetry] generating")):
+                log(f"[paper]   {ln}")
+    out["examples"] = ex
+
+    counts = kernels.launch_counts()
+    path_kernels = ("block_matmul", "edge_projection", "cad_scores", "stream_gemm",
+                    "fused_panel_matvec")
+    if min(counts[k] for k in path_kernels) == 0 or any(
+            counts[k] for k in ("panel_topk_update", "wkv", "flash_attention")):
+        fail(f"phase 10 launch counts {counts}: want each of {path_kernels} launched, no other")
+    log(f"[paper] phase 10 in {time.perf_counter() - t_phase:.1f} s; launches {counts}")
+    out["counts"] = counts
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
@@ -2128,6 +2479,8 @@ def main() -> int:
     query = phase_query(torch, resident, per_query)
     torch.cuda.empty_cache()
     serve = phase_serve(torch, per_lm)
+    torch.cuda.empty_cache()
+    paper = phase_paper(torch, smi)
     for row in rows:
         by_path = {"resident": resident["counts"][row["name"]],
                    "oocore": oocore["counts"][row["name"]],
@@ -2136,6 +2489,7 @@ def main() -> int:
                    "query": query["n=10512"]["counts"][row["name"]],
                    f"query n={N_LARGE}": query[f"n={N_LARGE}"]["counts"][row["name"]]}
         by_path |= {f"serve {arch}": serve[arch]["counts"][row["name"]] for arch, _ in SERVE_MODELS}
+        by_path["paper"] = paper["counts"][row["name"]]
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if row["name"] == "flash_attention":
@@ -2143,7 +2497,8 @@ def main() -> int:
                                         for arch, _ in SERVE_MODELS)
         if row["name"] == "stream_gemm":
             row["launches_tc"] = (oocore["counts"]["stream_gemm_tc"]
-                                  + incremental["oocore"]["counts"]["stream_gemm_tc"])
+                                  + incremental["oocore"]["counts"]["stream_gemm_tc"]
+                                  + paper["counts"]["stream_gemm_tc"])
     (OUT / "chip_smoke_oocore.json").write_text(json.dumps(
         {"card": smi, "per_launch": per_launch, **oocore, "chain_float64_yardstick": chain64},
         indent=1))
@@ -2151,6 +2506,7 @@ def main() -> int:
                                                                 indent=1))
     (OUT / "chip_smoke_query.json").write_text(json.dumps({"card": smi, **query}, indent=1))
     (OUT / "chip_smoke_serve.json").write_text(json.dumps({"card": smi, **serve}, indent=1))
+    (OUT / "chip_smoke_paper.json").write_text(json.dumps({"card": smi, **paper}, indent=1))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

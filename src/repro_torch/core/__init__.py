@@ -1,7 +1,12 @@
 """Core CADDeLaG pipeline on one device: chain, solve, embed, score, sequence, query."""
 
 from repro_torch.core.cad import CADResult, detect_anomalies, node_anomaly_scores, top_anomalies
-from repro_torch.core.chain import ChainOperator, chain_build_count, chain_product
+from repro_torch.core.chain import (
+    ChainOperator,
+    chain_build_count,
+    chain_product,
+    reset_chain_build_count,
+)
 from repro_torch.core.delta_chain import (
     BaseChain,
     build_base_chain,
@@ -33,8 +38,15 @@ from repro_torch.core.query import (
     top_anomalies_from_store,
 )
 from repro_torch.core.sequence import SequenceDetector, SequenceResult, detect_sequence_anomalies
+from repro_torch.core.solver import estimate_solution, residual_norm
 from repro_torch.core.solvers import SolveReport, SolverSpec, estimate_rho, solve
-from repro_torch.core.tiles import is_streamable, reset_stream_stats, stream_stats, tile_stream
+from repro_torch.core.tiles import (
+    StreamStats,
+    is_streamable,
+    reset_stream_stats,
+    stream_stats,
+    tile_stream,
+)
 
 __all__ = [
     "BaseChain",
@@ -48,6 +60,7 @@ __all__ = [
     "SequenceResult",
     "SolveReport",
     "SolverSpec",
+    "StreamStats",
     "add_scaled_identity",
     "build_base_chain",
     "build_from_nodes",
@@ -60,6 +73,7 @@ __all__ = [
     "detect_sequence_anomalies",
     "edge_projection",
     "estimate_rho",
+    "estimate_solution",
     "exact_commute_distances",
     "full_build_gemm_cost",
     "is_streamable",
@@ -68,7 +82,9 @@ __all__ = [
     "nearest_neighbors",
     "node_anomaly_scores",
     "rank_auc",
+    "reset_chain_build_count",
     "reset_stream_stats",
+    "residual_norm",
     "solve",
     "stream_stats",
     "tile_stream",

@@ -30,9 +30,20 @@ from repro_torch.core.tiles import is_streamable, tile_stream
 from repro_torch.obs import REGISTRY
 
 
+# The count is a view over the registry's ``chain.builds`` counter, which the
+# run reports read too; a reset moves this base instead of clearing the counter.
+_BUILD_BASE = 0.0  # ``chain.builds`` at the last reset_chain_build_count()
+
+
 def chain_build_count() -> int:
-    """Chain operators built since process start (the ``chain.builds`` counter)."""
-    return int(REGISTRY.value("chain.builds"))
+    """Chain operators built since process start or the last reset."""
+    return int(REGISTRY.value("chain.builds") - _BUILD_BASE)
+
+
+def reset_chain_build_count() -> None:
+    """Restart :func:`chain_build_count` from 0 (the registry counter keeps going)."""
+    global _BUILD_BASE
+    _BUILD_BASE = REGISTRY.value("chain.builds")
 
 
 @dataclass

@@ -1,10 +1,19 @@
 """Synthetic graph-sequence generators (paper section 4.2.1), built on the device.
 
-Port of :mod:`repro.graphs.synthetic`.  The random node features come from
-the same numpy draws as the JAX package's, so the fixtures agree; the n x n
+Port of :mod:`repro.graphs.synthetic`.  The paper's quantitative benchmark
+(:func:`gmm_graph_sequence`) draws points from a 4-component 2-D Gaussian
+mixture, builds the fully connected similarity graph P = exp(-d(i, j)),
+perturbs it into Q and injects uniform edges R: A1 = P, A2 = Q + (R + R^T)/2,
+and the endpoints of injected *inter-cluster* edges are the ground truth.
+The climate generators put smooth random fields on a lat/lon grid with a
+localized event.
+
+The random draws are the JAX package's numpy draws, in the same order, so
+node features, injections and truth are bitwise the same; the n x n
 adjacency is then built on ``device`` from the features.  torch's ``exp``
 and ``sqrt`` may differ from XLA's in the last ulp, so the graphs are
-allclose to the JAX package's, not bitwise.
+allclose to the JAX package's, not bitwise.  :func:`gmm_store_sequence`
+writes a sequence into a tile store tile by tile, in numpy alone.
 """
 
 from __future__ import annotations
@@ -54,6 +63,108 @@ def gaussian_kernel_graph(
 
     f = torch.as_tensor(np.asarray(feats, np.float32), device=resolve_device(device))
     return build_from_nodes(f, kern, dtype=dtype)
+
+
+def _smooth_field(x: np.ndarray, n_lat: int, n_lon: int, passes: int = 8) -> np.ndarray:
+    """``passes`` rounds of a 5-point average on the periodic lat/lon grid."""
+    f = x.reshape(n_lat, n_lon, -1)
+    for _ in range(passes):
+        f = 0.5 * f + 0.125 * (
+            np.roll(f, 1, 0) + np.roll(f, -1, 0) + np.roll(f, 1, 1) + np.roll(f, -1, 1)
+        )
+    return f.reshape(n_lat * n_lon, -1)
+
+
+def _event_nodes(rng: np.random.Generator, n_lat: int, n_lon: int,
+                 event_frac: float) -> np.ndarray:
+    """The ``event_frac`` of grid nodes nearest a random centre (one draw of ``rng``)."""
+    n = n_lat * n_lon
+    centre = rng.integers(0, n)
+    ci, cj = divmod(int(centre), n_lon)
+    ii, jj = np.meshgrid(np.arange(n_lat), np.arange(n_lon), indexing="ij")
+    dist = ((ii - ci) ** 2 + (jj - cj) ** 2).reshape(-1)
+    return np.argsort(dist)[:max(1, int(event_frac * n))]
+
+
+@dataclass
+class GMMSequence:
+    a1: torch.Tensor
+    a2: torch.Tensor
+    anomalous_nodes: np.ndarray  # ground truth, strongest first
+    components: np.ndarray
+
+
+def gmm_graph_sequence(
+    n: int,
+    *,
+    seed: int = 0,
+    noise: float = 0.05,
+    inject_p: float = 0.05,
+    dtype=torch.float32,
+    device="cuda",
+) -> GMMSequence:
+    """The paper's synthetic transition: A1 = P, A2 = Q + (R + R^T)/2.
+
+    Each of the n^2 entries of R is injected with probability ``inject_p``
+    (then symmetrized); the truth is the nodes with an injected
+    *inter-cluster* edge, ranked by their total injected inter-cluster
+    weight.  The two n x n uniform draws
+    behind R are made on the host (as in the JAX package).
+    """
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    pts, comp = gmm_points(n, seed)
+    a1 = similarity_graph(pts, dtype=dtype, device=dev)
+
+    pts2 = pts + noise * rng.normal(size=pts.shape).astype(np.float32)
+    q = similarity_graph(pts2, dtype=dtype, device=dev)
+
+    mask = rng.random((n, n)) < inject_p
+    r = np.where(mask, rng.random((n, n)), 0.0).astype(np.float32)
+    del mask
+    r_sym = (r + r.T) / 2.0
+    del r
+    np.fill_diagonal(r_sym, 0.0)
+    a2 = (q + torch.from_numpy(r_sym).to(dev)).to(dtype)
+    del q
+
+    inter = (comp[:, None] != comp[None, :]) & (r_sym > 0)
+    truth = np.unique(np.nonzero(inter.any(axis=1))[0])
+    strength = (r_sym * inter).sum(1)
+    truth = truth[np.argsort(-strength[truth])]
+    return GMMSequence(a1=a1, a2=a2, anomalous_nodes=truth, components=comp)
+
+
+def climate_like_sequence(
+    n_lat: int,
+    n_lon: int,
+    *,
+    seed: int = 0,
+    sigma: float = 1.0,
+    event_frac: float = 0.02,
+    event_strength: float = 6.0,
+    dtype=torch.float32,
+    device="cuda",
+):
+    """Two smooth precipitation-like fields; the second has a localized event.
+
+    Returns ``(a1, a2, event_nodes)``.  Node features are 12-month profiles
+    smoothed over the grid (a stand-in for NCEP monthly means).
+    """
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    n = n_lat * n_lon
+    base = _smooth_field(rng.normal(size=(n, 12)).astype(np.float32), n_lat, n_lon)
+    drift = _smooth_field(0.1 * rng.normal(size=(n, 12)).astype(np.float32), n_lat, n_lon)
+
+    event_nodes = _event_nodes(rng, n_lat, n_lon, event_frac)
+    bump = np.zeros((n, 12), np.float32)
+    bump[event_nodes] = event_strength
+    field2 = base + drift + _smooth_field(bump, n_lat, n_lon, passes=2)
+
+    a1 = gaussian_kernel_graph(base, sigma=sigma, dtype=dtype, device=dev)
+    a2 = gaussian_kernel_graph(field2, sigma=sigma, dtype=dtype, device=dev)
+    return a1, a2, event_nodes
 
 
 @dataclass
@@ -219,29 +330,16 @@ def climate_snapshot_sequence(
     rng = np.random.default_rng(seed)
     n = n_lat * n_lon
 
-    def smooth_field(x: np.ndarray, passes: int = 8) -> np.ndarray:
-        f = x.reshape(n_lat, n_lon, -1)
-        for _ in range(passes):
-            f = 0.5 * f + 0.125 * (
-                np.roll(f, 1, 0) + np.roll(f, -1, 0) + np.roll(f, 1, 1) + np.roll(f, -1, 1)
-            )
-        return f.reshape(n, -1)
-
-    base = smooth_field(rng.normal(size=(n, 12)).astype(np.float32))
+    base = _smooth_field(rng.normal(size=(n, 12)).astype(np.float32), n_lat, n_lon)
     fields = [base]
     for _ in range(1, t_steps):
-        step = smooth_field(drift * rng.normal(size=(n, 12)).astype(np.float32))
-        fields.append(fields[-1] + step)
+        step = drift * rng.normal(size=(n, 12)).astype(np.float32)
+        fields.append(fields[-1] + _smooth_field(step, n_lat, n_lon))
 
-    n_event = max(1, int(event_frac * n))
-    centre = rng.integers(0, n)
-    ci, cj = divmod(int(centre), n_lon)
-    ii, jj = np.meshgrid(np.arange(n_lat), np.arange(n_lon), indexing="ij")
-    dist = ((ii - ci) ** 2 + (jj - cj) ** 2).reshape(-1)
-    event_nodes = np.argsort(dist)[:n_event]
+    event_nodes = _event_nodes(rng, n_lat, n_lon, event_frac)
     bump = np.zeros((n, 12), np.float32)
     bump[event_nodes] = event_strength
-    bump = smooth_field(bump, passes=2)
+    bump = _smooth_field(bump, n_lat, n_lon, passes=2)
 
     truth = []
     for t in range(t_steps - 1):
@@ -272,4 +370,43 @@ def store_snapshot_sequence(store, seq: SnapshotSequence, *, ids: list[str] | No
     for sid, a in zip(ids, seq.snapshots()):
         if sid not in committed:
             store.put_snapshot(sid, a.cpu().numpy())
+    return ids
+
+
+def gmm_store_sequence(
+    store,
+    t_steps: int,
+    *,
+    seed: int = 0,
+    noise: float = 0.05,
+    bandwidth: float = 1.0,
+) -> list[str]:
+    """Write a drifting-GMM similarity sequence into ``store`` tile by tile.
+
+    Pure numpy: only the (n, 2) point table is resident, and each
+    ``exp(-d(i, j) / bandwidth)`` tile is computed from it and written on its
+    own, so the sequence may be far larger than host RAM.  The kernel of
+    :func:`similarity_graph`; no injections and no truth.  Already-committed
+    snapshots are skipped.
+    """
+    if t_steps < 1:
+        raise ValueError("need at least 1 snapshot")
+    n = store.n
+    pts, _ = gmm_points(n, seed)
+    rng = np.random.default_rng(seed)
+    ids = []
+    for t in range(t_steps):
+        sid = f"t{t:04d}"
+
+        def tile_fn(rows: np.ndarray, cols: np.ndarray) -> np.ndarray:
+            xi, xj = pts[rows], pts[cols]
+            d2 = ((xi[:, None, :] - xj[None, :, :]) ** 2).sum(-1)
+            blk = np.exp(-np.sqrt(np.maximum(d2, 1e-12)) / bandwidth).astype(np.float32)
+            blk[rows[:, None] == cols[None, :]] = 0.0
+            return blk
+
+        if sid not in store.snapshot_ids:
+            store.put_snapshot_tiles(sid, tile_fn)
+        ids.append(sid)
+        pts = pts + noise * rng.normal(size=pts.shape).astype(np.float32)
     return ids

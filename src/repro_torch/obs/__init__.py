@@ -13,19 +13,40 @@ import time
 from contextlib import contextmanager
 
 from repro_torch.obs import metrics, trace
-from repro_torch.obs.metrics import REGISTRY, MetricsRegistry, MetricsSnapshot
-from repro_torch.obs.trace import disable_tracing, enable_tracing, span, tracer
+from repro_torch.obs.metrics import (
+    REGISTRY,
+    MetricsRegistry,
+    MetricsSnapshot,
+    registry,
+    scoped,
+)
+from repro_torch.obs.trace import (
+    Tracer,
+    begin,
+    disable_tracing,
+    enable_tracing,
+    end,
+    span,
+    tracer,
+    tracing_enabled,
+)
 
 __all__ = [
     "metrics",
     "trace",
-    "REGISTRY",
     "MetricsRegistry",
     "MetricsSnapshot",
-    "disable_tracing",
-    "enable_tracing",
-    "span",
+    "REGISTRY",
+    "registry",
+    "scoped",
+    "Tracer",
     "tracer",
+    "enable_tracing",
+    "disable_tracing",
+    "tracing_enabled",
+    "span",
+    "begin",
+    "end",
     "phase",
 ]
 

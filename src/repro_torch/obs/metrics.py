@@ -8,13 +8,15 @@ high-water marks (``stream.peak_live_bytes``).
 :meth:`MetricsRegistry.delta` yields the counter increments since a snapshot
 -- the primitive the per-transition breakdowns are cut from.  Names are
 dot-scoped (``chain.builds``, ``phase.solve.seconds``); :meth:`reset` takes a
-prefix so one subsystem's counters can be zeroed without touching the rest.
+prefix so one subsystem's counters can be zeroed without touching the rest
+(no prefix clears everything).  :func:`scoped` wraps a snapshot in a
+:class:`Scope` whose ``delta()`` reads the increments since it was entered.
 """
 
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Iterable, Mapping
 
 DEFAULT_SERIES_CAP = 4096
@@ -46,8 +48,12 @@ class MetricsRegistry:
         with self._lock:
             self._counters[name] = self._counters.get(name, 0.0) + value
 
-    def add_named(self, counters: Mapping[str, float]) -> None:
+    def add(self, **counters: float) -> None:
         """Increment several counters in one critical section."""
+        self.add_named(counters)
+
+    def add_named(self, counters: Mapping[str, float]) -> None:
+        """``add`` for names that are not Python identifiers (``phase.solve.seconds``)."""
         with self._lock:
             for name, value in counters.items():
                 self._counters[name] = self._counters.get(name, 0.0) + value
@@ -106,12 +112,65 @@ class MetricsRegistry:
                     out[name] = d
             return out
 
-    def reset(self, prefix: str) -> None:
-        """Remove every counter, gauge and series whose name starts with ``prefix``."""
+    def series_delta(self, name: str, since: MetricsSnapshot) -> tuple[float, ...]:
+        """Series entries appended since ``since``."""
+        with self._lock:
+            return tuple(self._series.get(name, [])[since.series_len.get(name, 0):])
+
+    def reset(self, prefix: str | None = None) -> None:
+        """Remove every counter, gauge and series whose name starts with
+        ``prefix`` (all of them when ``prefix`` is None): a snapshot after the
+        reset reads as a fresh registry for that prefix."""
         with self._lock:
             for store in (self._counters, self._gauges, self._series):
-                for name in [k for k in store if k.startswith(prefix)]:
+                for name in [k for k in store if prefix is None or k.startswith(prefix)]:
                     del store[name]
+
+    def names(self) -> tuple[str, ...]:
+        """Every counter, gauge and series name, sorted."""
+        with self._lock:
+            return tuple(sorted(set(self._counters) | set(self._gauges) | set(self._series)))
+
+
+@dataclass
+class Scope:
+    """Scoped measurement: a snapshot on entry, exact deltas on demand.
+
+        with metrics.scoped() as sc:
+            ... work ...
+        solve_s = sc.delta().get("phase.solve.seconds", 0.0)
+    """
+
+    registry: MetricsRegistry
+    start: MetricsSnapshot | None = field(default=None)
+
+    def __enter__(self) -> "Scope":
+        self.start = self.registry.snapshot()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        return None
+
+    def _since(self) -> MetricsSnapshot:
+        if self.start is None:
+            raise RuntimeError("Scope used outside its with-block")
+        return self.start
+
+    def delta(self) -> dict[str, float]:
+        return self.registry.delta(self._since())
+
+    def series_delta(self, name: str) -> tuple[float, ...]:
+        return self.registry.series_delta(name, self._since())
 
 
 REGISTRY = MetricsRegistry()
+
+
+def registry() -> MetricsRegistry:
+    """The process-default registry."""
+    return REGISTRY
+
+
+def scoped(reg: MetricsRegistry | None = None) -> Scope:
+    """A :class:`Scope` over ``reg`` (default: the process registry)."""
+    return Scope(reg or REGISTRY)

@@ -202,6 +202,10 @@ def disable_tracing() -> None:
     _TRACER.disable()
 
 
+def tracing_enabled() -> bool:
+    return _TRACER.enabled
+
+
 def span(name: str, **args: Any):
     """Open a span on the global tracer (null span when disabled)."""
     return _TRACER.span(name, **args)
