@@ -104,14 +104,30 @@ Phases, in order; any failure exits non-zero:
    ``examples/torch_*.py``: top-k ids equal but for ties, card against CPU,
    at their defaults (the telemetry example's CPU run scores the card run's
    report), then climate at 73 x 144, T=4 and election at n=10512, T=3 on
-   the card, with their verdict lines.
+   the card, with their verdict lines;
+11. the resident main path on a device grid (``[grid]`` lines; one card
+   holds all four tiles of a 2x2 grid, so its times are one card's, not
+   multi-GPU ones): (a) ``matmul`` with the ``xla``, ``summa`` and
+   ``cannon`` schedules at 10512^2 on phase 2's operands (max |C -
+   float64|, exactly 4, 4 and 8 ``block_matmul`` launches, CUDA-event ms
+   beside the 1x1 call's), ``summa`` on a 1x2 grid and ``cannon`` refused
+   there; (b) ``edge_projection`` on each of the four tiles at its global
+   (row0, col0), and ``cad_scores`` on each with the tile's Z rows and Z
+   columns, against their plain versions, twice bitwise, and the column
+   tiles' sums against the whole-row call; (c) phase 3's sequence on the
+   2x2 grid with ``cannon`` and with ``summa``: exact launch counts,
+   seconds per transition and peak memory beside phase 3's, scores within
+   1e-3 of its largest and top-20 ids equal to its but for ties, and which
+   run is nearer the float64 chain; (d) n=1536 on the grid, card against
+   the CPU grid; (e) ``caddelag-run-torch --data 2 --model 2`` refused on
+   one card, naming the card count.
 
 A copy of the script beside another tree's ``src/`` (a parent commit's
 ``git archive``) runs the same phases on that tree's package, so both trees
 are measured by the same code in one call.
 
 The line before the last is the JSON ``kernels`` table (``launches`` sums
-the main paths of phases 3, 5, 7, 8, 9 and 10; ``launches_by_path`` splits them); the
+the main paths of phases 3, 5, 7, 8, 9, 10 and 11; ``launches_by_path`` splits them); the
 last line is ``{"ok": true, "device": {...}}``.  It imports neither JAX nor
 the JAX package.  Long logs go to ``OUT``, a gitignored directory beside
 the script; the on-disk stores of phases 5, 7, 8 and 10 live under ``build/``
@@ -2421,6 +2437,275 @@ def phase_paper(torch, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the resident main path on a device grid (2x2 tiles on one card)
+# ---------------------------------------------------------------------------
+
+GRID_GEMM_LAUNCHES = {"xla": 4, "summa": 4, "cannon": 8}  # a 2x2 grid: R*C, R*C, R*C*R
+
+
+def _phase2_inputs(torch):
+    """Phase 2's inputs again, from its generator (seed 0) in its draw order:
+    block_matmul's A and B at 10512^2, uniform [-1, 1), edge_projection's
+    A, uniform [0, 1) with a zero diagonal (cad_scores' A1), and cad_scores'
+    A2, Z1 and Z2."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def uniform(*shape, lo=0.0):
+        return torch.rand(shape, generator=g, device=dev) * (1.0 - lo) + lo
+
+    for _ in range(2):  # the ragged fp32 and bf16 operands
+        uniform(1000, 777, lo=-1.0), uniform(777, 1030, lo=-1.0)
+    a, b = uniform(N_MAIN, N_MAIN, lo=-1.0), uniform(N_MAIN, N_MAIN, lo=-1.0)
+    a_ep = uniform(N_MAIN, N_MAIN)
+    a_ep.diagonal().zero_()
+    a2 = uniform(N_MAIN, N_MAIN)
+    z1 = torch.randn((N_MAIN, K_MAIN), generator=g, device=dev)
+    z2 = torch.randn((N_MAIN, K_MAIN), generator=g, device=dev)
+    return a, b, a_ep, (a2, z1, z2)
+
+
+def _grid_schedules(torch, rows: list, a, b) -> dict:
+    """(a) The three schedules at 10512^2 on a 2x2 grid of cuda:0 against the
+    1x1 kernel call: max |C - float64|, exact launches, CUDA-event ms; then
+    summa on a 1x2 grid, and cannon on 1x2 refused."""
+    from repro_torch import kernels
+    from repro_torch.core import make_context, matmul
+    from repro_torch.kernels import block_matmul as bm
+
+    dev = torch.device("cuda")
+    exact = torch.matmul(a.double(), b.double())
+    one = bm.block_matmul(a, b)
+    out = {"1x1": {"err_vs_fp64": float((one.double() - exact).abs().max()),
+                   "ms": time_ms(torch, lambda: bm.block_matmul(a, b), reps=5)}}
+    del one
+    for shape, schedules in (((2, 2), ("xla", "summa", "cannon")), ((1, 2), ("summa",))):
+        ctx = make_context([dev] * (shape[0] * shape[1]), shape[0])
+        ga, gb = ctx.put_matrix(a), ctx.put_matrix(b)
+        for schedule in schedules:
+            kernels.reset_launch_counts()
+            c = matmul(ga, gb, schedule=schedule)
+            launches = kernels.launch_counts()["block_matmul"]
+            want = shape[0] * shape[1] * (shape[0] if schedule == "cannon" else 1)
+            if launches != want:
+                fail(f"grid {shape} {schedule}: block_matmul launched {launches} times, want {want}")
+            err = float((c.to_dense().double() - exact).abs().max())
+            del c
+            if err > BM_ERR64_BAR:
+                fail(f"grid {shape} {schedule}: max |C - float64| {err:.3e} > {BM_ERR64_BAR:g}")
+            ms = time_ms(torch, lambda: matmul(ga, gb, schedule=schedule), reps=3)
+            key = f"{shape[0]}x{shape[1]} {schedule}"
+            out[key] = {"err_vs_fp64": err, "ms": ms, "launches": launches}
+            log(f"[grid] block_matmul {N_MAIN}^2 on {key} (one card, {shape[0] * shape[1]} "
+                f"tiles): {launches} launches, max |C - float64| {err:.3e} (1x1 "
+                f"{out['1x1']['err_vs_fp64']:.3e}), {ms:.3f} ms against the 1x1 call's "
+                f"{out['1x1']['ms']:.3f} ms")
+        if shape == (1, 2):
+            try:
+                matmul(ga, gb, schedule="cannon")
+            except ValueError as e:
+                if "square" not in str(e):
+                    fail(f"cannon on 1x2 raised the wrong error: {e}")
+                log(f"[grid] cannon on 1x2 refused: {e}")
+            else:
+                fail("cannon on a 1x2 grid did not raise")
+        del ga, gb
+    del exact
+    torch.cuda.empty_cache()
+    next(r for r in rows if r["name"] == "block_matmul")["grid_schedules"] = out
+    return out
+
+
+def _grid_edge_tiles(torch, rows: list, a) -> dict:
+    """(b) edge_projection on each tile of a 2x2 grid at its global (row0,
+    col0): against its plain version at phase 2's tolerance, twice bitwise,
+    and the column tiles' sums against the whole-row call within 1e-5."""
+    from repro_torch.kernels import edge_projection as ep
+    from repro_torch.kernels import ref
+
+    n, h, k, tol = N_MAIN, N_MAIN // 2, K_MAIN, 2e-5
+    whole = ep.edge_projection(a, seed=0, k=k)
+    tiles, sums = {}, {}
+    for r0 in (0, h):
+        parts = []
+        for c0 in (0, h):
+            blk = a[r0:r0 + h, c0:c0 + h].contiguous()
+            got = ep.edge_projection(blk, seed=0, k=k, row0=r0, col0=c0)
+            err, _ = check_close(f"edge_projection tile ({r0}, {c0})", got,
+                                 ref.edge_projection(blk, seed=0, k=k, row0=r0, col0=c0), tol)
+            check_bitwise(torch, f"edge_projection tile ({r0}, {c0})",
+                          lambda: ep.edge_projection(blk, seed=0, k=k, row0=r0, col0=c0))
+            tiles[f"{r0},{c0}"] = {"max_abs_err": err}
+            parts.append(got)
+            del blk
+        err_sum, _ = check_close(f"edge_projection column tiles of rows {r0}..{r0 + h}",
+                                 parts[0] + parts[1], whole[r0:r0 + h], 1e-5)
+        sums[f"rows {r0}"] = err_sum
+    blks = [a[r0:r0 + h, c0:c0 + h].contiguous() for r0 in (0, h) for c0 in (0, h)]
+    origins = [(r0, c0) for r0 in (0, h) for c0 in (0, h)]
+    ms4 = time_ms(torch, lambda: [ep.edge_projection(x, seed=0, k=k, row0=r0, col0=c0)
+                                  for x, (r0, c0) in zip(blks, origins)], reps=5)
+    del blks
+    check = {"tol": f"{tol:g} x max|plain|", "tiles": tiles, "column_sum_max_abs_err": sums,
+             "column_sum_tol": "1e-05 x max|whole|", "four_tiles_ms": ms4}
+    tile_errs = ", ".join(f"{t} {v['max_abs_err']:.3e}" for t, v in tiles.items())
+    sum_errs = ", ".join(f"{r} {e:.3e}" for r, e in sums.items())
+    log(f"[grid] edge_projection on the four {h}x{h} tiles (row0, col0 in {{0, {h}}}): max_abs_err "
+        f"{tile_errs} (tol {tol:g} x max|plain|), each bitwise repeatable; column-tile sums "
+        f"against the whole-row call {sum_errs} (tol 1e-5 x max|whole|); the four tiles "
+        f"{ms4:.4f} ms")
+    next(r for r in rows if r["name"] == "edge_projection")["tile_check"] = check
+    return check
+
+
+def _grid_cad_tiles(torch, rows: list, a1, a2, z1, z2) -> dict:
+    """(b) cad_scores_tile on each tile of a 2x2 grid, with the tile's Z rows
+    and a different Z column slice, as the grid's scorer calls it: against
+    its plain version at phase 2's tolerance, twice bitwise, and the column
+    tiles' sums against the whole-row call within 1e-5."""
+    from repro_torch.kernels import cad_score as cad
+    from repro_torch.kernels import ref
+
+    n, h, tol = N_MAIN, N_MAIN // 2, 1e-4
+    v1, v2 = torch.tensor(10.0, device=a1.device), torch.tensor(12.5, device=a1.device)
+    tiles, sums = {}, {}
+    args4 = []
+    for r0 in (0, h):
+        ri = slice(r0, r0 + h)
+        whole = cad.cad_scores_tile(a1[ri].contiguous(), a2[ri].contiguous(), z1[ri], z1, z2[ri],
+                                    z2, v1, v2)
+        parts = []
+        for c0 in (0, h):
+            cj = slice(c0, c0 + h)
+            args = (a1[ri, cj].contiguous(), a2[ri, cj].contiguous(), z1[ri], z1[cj], z2[ri],
+                    z2[cj], v1, v2)
+            got = cad.cad_scores_tile(*args)
+            err, _ = check_close(f"cad_scores tile ({r0}, {c0})", got, ref.cad_scores_tile(*args),
+                                 tol)
+            check_bitwise(torch, f"cad_scores tile ({r0}, {c0})",
+                          lambda: cad.cad_scores_tile(*args))
+            tiles[f"{r0},{c0}"] = {"max_abs_err": err}
+            parts.append(got)
+            args4.append(args)
+        err_sum, _ = check_close(f"cad_scores column tiles of rows {r0}..{r0 + h}",
+                                 parts[0] + parts[1], whole, 1e-5)
+        sums[f"rows {r0}"] = err_sum
+        del whole
+    ms4 = time_ms(torch, lambda: [cad.cad_scores_tile(*x) for x in args4], reps=5)
+    del args4
+    check = {"tol": f"{tol:g} x max|plain|", "tiles": tiles, "column_sum_max_abs_err": sums,
+             "column_sum_tol": "1e-05 x max|whole|", "four_tiles_ms": ms4}
+    tile_errs = ", ".join(f"{t} {v['max_abs_err']:.3e}" for t, v in tiles.items())
+    sum_errs = ", ".join(f"{r} {e:.3e}" for r, e in sums.items())
+    log(f"[grid] cad_scores on the four {h}x{h} tiles (Z rows at row0, Z columns at col0, both "
+        f"in {{0, {h}}}): max_abs_err {tile_errs} (tol {tol:g} x max|plain|), each bitwise "
+        f"repeatable; column-tile sums against the whole-row call {sum_errs} (tol 1e-5 x "
+        f"max|whole|); the four tiles {ms4:.4f} ms")
+    next(r for r in rows if r["name"] == "cad_scores")["tile_check"] = check
+    return check
+
+
+def _grid_main_path(torch, resident: dict, s64, schedule: str) -> dict:
+    """(c) Phase 3's resident main path on a 2x2 grid of cuda:0: exact launch
+    counts, seconds per transition, peak memory, scores against phase 3's."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.core import CommuteConfig, SequenceDetector, make_context
+    from repro_torch.graphs import climate_snapshot_sequence
+
+    ctx = make_context([torch.device("cuda")] * 4, 2)
+    cfg = CommuteConfig(eps_rp=1e-3, d=6, q=10, schedule=schedule)
+    seq = climate_snapshot_sequence(73, 144, t_steps=3, ctx=ctx)
+    det = SequenceDetector(cfg, top_k=TOP_K, ctx=ctx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = det.run(seq.snapshots())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = {name: 0 for name in counts} | {
+        "block_matmul": 3 * CHAIN_GEMMS * GRID_GEMM_LAUNCHES[schedule],
+        "edge_projection": 3 * 4, "cad_scores": 2 * 4}
+    if counts != want:
+        fail(f"grid {schedule} main-path launch counts {counts} != {want}")
+    errs, near = [], {}
+    for t, r in enumerate(res.transitions):
+        sg, s3 = r.scores.cpu().numpy(), resident["scores"][t]
+        scale = float(np.abs(s3).max())
+        err = float(np.abs(sg - s3).max())
+        if not np.isfinite(sg).all() or err > 1e-3 * scale:
+            fail(f"grid {schedule} transition {t}: max |diff| against phase 3 {err:.3e} > 1e-3 x "
+                 f"{scale:.3e}")
+        ids, ids3 = r.top_idx.tolist(), resident["top_idx"][t]
+        if t == 0:  # which run is nearer the float64 chain's scores
+            s64n = s64.numpy()
+            near = {"grid": float(np.abs(sg - s64n).max()), "phase3": float(np.abs(s3 - s64n).max())}
+        if ids != ids3 and _ranking_flips(ids, ids3, s3, 1e-3 * scale):
+            fail(f"grid {schedule} transition {t}: top-{TOP_K} ids {ids} differ from phase 3's "
+                 f"{ids3} beyond ties within 1e-3 of the largest score (max |score - float64| "
+                 f"at transition 0: grid {near['grid']:.3e}, phase 3 {near['phase3']:.3e})")
+        errs.append(err / scale)
+        log(f"[grid] {schedule} 2x2 transition {t}->{t + 1}: {res.transition_seconds[t]:.3f} s "
+            f"(phase 3: {resident['seconds'][t]:.3f} s); max |diff| against phase 3 {err:.3e} "
+            f"({err / scale:.3e} of its largest score); top-{TOP_K} ids "
+            f"{'equal' if ids == ids3 else 'equal but for ties'}")
+    log(f"[grid] {schedule} 2x2 (one card, 4 tiles) n={N_MAIN} T=3: run wall {wall:.3f} s "
+        f"(phase 3 {resident['wall']:.3f} s); launches {counts}; peak device memory {peak:.2f} GB "
+        f"(phase 3 {resident['peak']:.2f} GB); transition 0 max |score - float64 chain| grid "
+        f"{near['grid']:.4e}, phase 3 {near['phase3']:.4e}")
+    return {"counts": counts, "wall": wall, "seconds": res.transition_seconds, "peak_gb": peak,
+            "max_rel_diff_vs_phase3": errs, "vs_float64_t0": near}
+
+
+def phase_grid(torch, rows: list, resident: dict, s64) -> dict:
+    """Phase 11: the grid's schedules, edge_projection and cad_scores per
+    tile, the resident main path on a 2x2 grid of one card with cannon and
+    with summa, n=1536 on the grid card against CPU, and a 2x2 grid of cards
+    refused on one card."""
+    from repro_torch.core import CommuteConfig, SequenceDetector, make_context
+    from repro_torch.graphs import climate_snapshot_sequence
+    from repro_torch.launch import caddelag_run
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    a, b, a_ep, cad_in = _phase2_inputs(torch)
+    out["schedules"] = _grid_schedules(torch, rows, a, b)
+    del a, b
+    out["edge_projection_tiles"] = _grid_edge_tiles(torch, rows, a_ep)
+    out["cad_scores_tiles"] = _grid_cad_tiles(torch, rows, a_ep, *cad_in)
+    del a_ep, cad_in
+    torch.cuda.empty_cache()
+    runs = {s: _grid_main_path(torch, resident, s64, s) for s in ("cannon", "summa")}
+    out["main_path"] = runs
+    torch.cuda.empty_cache()
+
+    cfg = CommuteConfig(eps_rp=1e-3, d=6, q=10)  # (d) n=1536, card grid against CPU grid
+    res = {}
+    for dev in ("cuda", "cpu"):
+        ctx = make_context([dev] * 4, 2)
+        seq = climate_snapshot_sequence(32, 48, t_steps=3, ctx=ctx)
+        res[dev] = SequenceDetector(cfg, top_k=TOP_K, ctx=ctx).run(seq.snapshots())
+    out["n=1536 card vs cpu"] = check_card_vs_cpu("n=1536 2x2 grid", res["cuda"], res["cpu"])
+
+    try:  # (e) a grid of cards needs as many cards
+        caddelag_run.main(["--data", "2", "--model", "2", "--n", "64"])
+    except ValueError as e:
+        if f"has {torch.cuda.device_count()}" not in str(e):
+            fail(f"--data 2 --model 2 on one card raised without the device count: {e}")
+        log(f"[grid] caddelag-run-torch --data 2 --model 2 refused: {e}")
+    else:
+        fail("caddelag-run-torch --data 2 --model 2 ran on one card")
+    counts = {k: sum(r["counts"][k] for r in runs.values()) for k in runs["cannon"]["counts"]}
+    out["counts"] = counts
+    log(f"[grid] phase 11 in {time.perf_counter() - t_phase:.1f} s; main-path launches {counts}")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
@@ -2471,6 +2756,7 @@ def main() -> int:
     phase_end_to_end(torch)
     oocore, yardstick["out-of-core stream_gemm"] = phase_oocore(torch, rows, resident, per_launch)
     chain64 = report_chain_yardstick(torch, yardstick)
+    s64 = yardstick["float64"][1]  # phase 11's float64 reference for transition 0
     del yardstick
     phase_oocore_end_to_end(torch)
     torch.cuda.empty_cache()
@@ -2481,6 +2767,8 @@ def main() -> int:
     serve = phase_serve(torch, per_lm)
     torch.cuda.empty_cache()
     paper = phase_paper(torch, smi)
+    torch.cuda.empty_cache()
+    grid = phase_grid(torch, rows, resident, s64)
     for row in rows:
         by_path = {"resident": resident["counts"][row["name"]],
                    "oocore": oocore["counts"][row["name"]],
@@ -2490,6 +2778,7 @@ def main() -> int:
                    f"query n={N_LARGE}": query[f"n={N_LARGE}"]["counts"][row["name"]]}
         by_path |= {f"serve {arch}": serve[arch]["counts"][row["name"]] for arch, _ in SERVE_MODELS}
         by_path["paper"] = paper["counts"][row["name"]]
+        by_path["grid"] = grid["counts"][row["name"]]
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if row["name"] == "flash_attention":
@@ -2507,6 +2796,7 @@ def main() -> int:
     (OUT / "chip_smoke_query.json").write_text(json.dumps({"card": smi, **query}, indent=1))
     (OUT / "chip_smoke_serve.json").write_text(json.dumps({"card": smi, **serve}, indent=1))
     (OUT / "chip_smoke_paper.json").write_text(json.dumps({"card": smi, **paper}, indent=1))
+    (OUT / "chip_smoke_grid.json").write_text(json.dumps({"card": smi, **grid}, indent=1))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

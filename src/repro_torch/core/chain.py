@@ -1,6 +1,6 @@
 """Peng-Spielman inverse-chain product (paper Algorithm 2, ChainProduct).
 
-Single-device port of :mod:`repro.core.chain`:
+Port of :mod:`repro.core.chain`:
 
     P = (I + S)(I + S^2)(I + S^4) ... (I + S^{2^{d-1}})  ~=  (I - S)^{-1}
 
@@ -9,7 +9,9 @@ Laplacian pseudo-inverse Z^ = D^{-1/2} P D^{-1/2} (the symmetric sandwich;
 see the JAX module for the erratum against the paper's Alg. 2 line 8).
 
 Cost: 2(d-1) + 1 dense n x n GEMMs, every one through the hand-written fp32
-``block_matmul`` CUDA kernel on the card.  ``fuse_l=True`` forms
+``block_matmul`` CUDA kernel on the card; on a device grid each is a tile
+program of ``schedule`` (:func:`repro_torch.core.distmatrix.matmul`).
+``fuse_l=True`` forms
 P2 = Z^ D - Z^ A instead of materializing L.  ``oocore=True`` runs the chain
 against store-backed working matrices instead
 (:func:`repro_torch.core.oochain.chain_product_oocore`).  ``level_sink``
@@ -25,7 +27,14 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core import laplacian as lap
-from repro_torch.core.distmatrix import add_scaled_identity, matmul
+from repro_torch.core.distmatrix import (
+    ITEM_9B,
+    DistContext,
+    add_scaled_identity,
+    grid_of,
+    matmul,
+    on_grid,
+)
 from repro_torch.core.tiles import is_streamable, tile_stream
 from repro_torch.obs import REGISTRY
 
@@ -122,6 +131,7 @@ def chain_product(
     use_gemm_kernel: bool = False,
     device=None,
     level_sink: dict | None = None,
+    ctx: DistContext | None = None,
 ) -> ChainOperator:
     """Build the chain operator of ``a``: a device tensor or a snapshot handle.
 
@@ -140,6 +150,12 @@ def chain_product(
     implicitly, the last P is never needed), as tensors, or as scratch
     snapshots out of core.  The caller owns their lifetime
     (``BaseChain.release``).
+
+    ``ctx`` (or ``a`` itself being a DistMatrix) runs the resident chain on
+    a device grid with ``schedule``; P1 and P2 are then DistMatrices and
+    deg / vol live on the home device.  ``oocore``, ``fuse_l``, ``level_sink``
+    and a snapshot handle stay single-device (ROADMAP item 9b) and raise on
+    a larger grid.
     """
     if d_len < 1:
         raise ValueError("chain length d must be >= 1")
@@ -152,6 +168,12 @@ def chain_product(
         # one fresh n^2 matrix per GEMM plus the S~ assembly
         "chain.scratch_bytes": (n_gemms + 1) * float(n) ** 2 * 4.0,
     })
+    ctx = grid_of(ctx, a)
+    if ctx is not None and not ctx.is_trivial and (
+            oocore or fuse_l or level_sink is not None or is_streamable(a)):
+        raise NotImplementedError(
+            f"chain_product with oocore, fuse_l, level_sink or a snapshot handle: {ITEM_9B}")
+    a = on_grid(ctx, a)
     if not is_streamable(a):
         device = a.device
     if oocore:

@@ -18,8 +18,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.chain import ChainOperator, chain_product
+from repro_torch.core.distmatrix import ITEM_9B, DistContext, context_of, grid_of, on_grid
 from repro_torch.core.solvers import SolveReport, SolverSpec, solve
-from repro_torch.core.tiles import is_streamable, tile_stream
+from repro_torch.core.tiles import MATRIX, REPLICATED, is_streamable, tile_map, tile_stream
 from repro_torch.device import resolve_device
 from repro_torch.kernels import edge_projection as _ep
 from repro_torch.obs import REGISTRY, phase
@@ -33,7 +34,7 @@ class CommuteConfig:
     d: int = 6  # inverse-chain length
     q: int = 10  # Richardson iterations
     seed: int = 0
-    schedule: str = "cannon"  # accepted for symmetry; one device has no schedule
+    schedule: str = "cannon"  # the chain GEMMs' tile program on a device grid (1x1: one call)
     dtype: torch.dtype = torch.float32
     deflate: bool = True
     fuse_l: bool = False
@@ -83,21 +84,35 @@ class CommuteConfig:
         )
 
 
-def _edge_projection_body(r0: int, blk: torch.Tensor, seed: int, k: int) -> torch.Tensor:
-    return _ep.edge_projection(blk.to(torch.float32).contiguous(), seed=seed, k=k, row0=r0)
+def _edge_projection_body(r0: int, blk: torch.Tensor, seed: int, k: int,
+                          c0: int = 0) -> torch.Tensor:
+    return _ep.edge_projection(blk.to(torch.float32).contiguous(), seed=seed, k=k, row0=r0,
+                               col0=c0)
 
 
-def edge_projection(a, seed: int, k: int, *, device=None,
-                    prefetch_depth: int | None = None) -> torch.Tensor:
+def _edge_projection_tile_body(tile, blk: torch.Tensor, seed: int, k: int) -> torch.Tensor:
+    return _edge_projection_body(tile.row0, blk, seed, k, tile.col0)
+
+
+def edge_projection(a, seed: int, k: int, *, device=None, prefetch_depth: int | None = None,
+                    ctx: DistContext | None = None) -> torch.Tensor:
     """Y = B^T W^{1/2} Q / sqrt(k) for k Rademacher columns, (n, k).
 
     ``a`` may be a snapshot handle: its row panels then stream onto
     ``device``, one kernel launch per panel at the panel's global rows.
+    Otherwise each tile of its grid (``ctx``, ``a``'s own if a DistMatrix,
+    else the whole matrix) is one launch at the tile's global rows and
+    columns, and the column partials are summed in order on the home
+    device, where Y lives.
     """
     if is_streamable(a):
+        if ctx is not None and not ctx.is_trivial:
+            raise NotImplementedError(f"edge_projection of a snapshot handle: {ITEM_9B}")
         return tile_stream(_edge_projection_body, a, device=device, consts=(seed, k),
                            prefetch_depth=prefetch_depth)
-    return _edge_projection_body(0, a, seed, k)
+    ctx = context_of(ctx, a)
+    return tile_map(ctx, _edge_projection_tile_body, on_grid(ctx, a), seed, k,
+                    in_specs=(MATRIX, REPLICATED, REPLICATED), reduce="cols")
 
 
 @dataclass
@@ -115,6 +130,7 @@ def commute_time_embedding(
     op: ChainOperator | None = None,
     warm_from: torch.Tensor | None = None,
     device: str | torch.device = "cuda",
+    ctx: DistContext | None = None,
 ) -> Embedding:
     """Z (n, k_RP) commute-time embedding of ``a`` (Algorithm 3), on ``device``.
 
@@ -122,10 +138,21 @@ def commute_time_embedding(
     onto the device.  ``warm_from`` is a previous embedding's ``z``: the
     solver starts from it instead of the cold start.  A shape mismatch
     warns, is counted in ``solve.warm_skipped`` and solves cold.
+
+    On a device grid (``ctx``, or ``a`` a DistMatrix) the chain and the
+    edge projection run tile by tile with ``cfg.schedule``; the solve and Z
+    stay on the grid's home device, which takes the place of ``device``.
     """
-    dev = resolve_device(device)
-    if not is_streamable(a):
-        a = a.to(dev)
+    ctx = grid_of(ctx, a)
+    if ctx is not None and not ctx.is_trivial:
+        if is_streamable(a):
+            raise NotImplementedError(f"commute_time_embedding of a snapshot handle: {ITEM_9B}")
+        dev = resolve_device(ctx.home)
+        a = on_grid(ctx, a)
+    else:
+        dev = resolve_device(device)
+        if not is_streamable(a):
+            a = a.to(dev)
     n = int(a.shape[0])
     k = cfg.k_rp(n)
     if op is None:

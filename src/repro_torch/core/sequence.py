@@ -19,6 +19,11 @@ releases the base.
 
 The sequence-wide top-k is merged on the host from each transition's
 top-k, ties to the lower candidate index as ``lax.top_k`` breaks them.
+
+On a device grid (``ctx``) each snapshot is cut into the grid's tiles and
+the resident path runs tile by tile; the scores come back stitched on the
+home device.  Snapshot handles, ``emb_store`` and ``cfg.incremental_chain``
+stay single-device (ROADMAP item 9b) and raise on a larger grid.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from repro_torch.core import chain
 from repro_torch.core.chain import ChainOperator
 from repro_torch.core.cad import CADResult, node_anomaly_scores, top_anomalies
 from repro_torch.core.delta_chain import BaseChain, build_base_chain, try_delta_update
+from repro_torch.core.distmatrix import ITEM_9B, DistContext, DistMatrix, on_grid
 from repro_torch.core.embedding import CommuteConfig, Embedding, commute_time_embedding
 from repro_torch.core.tiles import is_streamable
 from repro_torch.device import resolve_device, synchronize
@@ -57,12 +63,15 @@ class SequenceResult:
     warmup_metrics: dict | None = None
 
 
-def _free(t: torch.Tensor) -> None:
-    """Release a tensor's memory now, whoever else still holds it.
+def _free(t) -> None:
+    """Release a tensor's (or every tile's) memory now, whoever else still holds it.
 
     Memory PyTorch did not allocate (a tensor over a numpy array) belongs to
     its owner and is left alone.
     """
+    if isinstance(t, DistMatrix):
+        t.free()
+        return
     storage = t.untyped_storage()
     if storage.resizable():
         storage.resize_(0)
@@ -72,7 +81,8 @@ class SequenceDetector:
     """Streaming CADDeLaG over T snapshots with one chain build per snapshot.
 
     ``det = SequenceDetector(cfg, top_k=20); res = det.run(snapshots)``, or
-    ``push`` each snapshot and ``finalize``.
+    ``push`` each snapshot and ``finalize``.  With ``ctx`` (a device grid)
+    the grid's home device takes the place of ``device``.
     """
 
     def __init__(
@@ -83,11 +93,16 @@ class SequenceDetector:
         donate: bool = False,
         device: str | torch.device = "cuda",
         emb_store=None,
+        ctx: DistContext | None = None,
     ):
         self.cfg = cfg or CommuteConfig()
         self.top_k = top_k
         self.donate = donate
-        self.device = resolve_device(device)
+        self.ctx = None if ctx is None or ctx.is_trivial else ctx
+        if self.ctx is not None and (emb_store is not None or self.cfg.incremental_chain):
+            raise NotImplementedError(f"SequenceDetector with emb_store or incremental_chain: "
+                                      f"{ITEM_9B}")
+        self.device = resolve_device(device if self.ctx is None else self.ctx.home)
         # Duck-typed (put_embedding): the core imports no store.
         self.emb_store = emb_store
         self._prev: tuple[torch.Tensor, Embedding] | None = None
@@ -132,7 +147,7 @@ class SequenceDetector:
         if emb.op is not None and not emb.op.shared_base:
             bufs += [emb.op.p1, emb.op.p2]
         for buf in bufs:
-            if isinstance(buf, torch.Tensor):
+            if isinstance(buf, (torch.Tensor, DistMatrix)):
                 _free(buf)
 
     def _incremental_op(self, a) -> ChainOperator:
@@ -176,7 +191,13 @@ class SequenceDetector:
         CADResult of transition (t-1, t), None at t=0."""
         t0 = time.perf_counter()
         m0 = REGISTRY.snapshot()
-        if not is_streamable(a):
+        if self.ctx is not None:
+            if is_streamable(a):
+                raise NotImplementedError(f"SequenceDetector.push of a snapshot handle: {ITEM_9B}")
+            a = on_grid(self.ctx, a)
+        elif isinstance(a, DistMatrix):
+            raise ValueError("a DistMatrix snapshot needs SequenceDetector(ctx=) of its grid")
+        elif not is_streamable(a):
             a = a.to(self.device)
         with trace.span("sequence.push", t=self._t) as push_sp:
             warm_from = (
@@ -184,14 +205,14 @@ class SequenceDetector:
             )
             op_in = self._incremental_op(a) if self.cfg.incremental_chain else None
             emb = commute_time_embedding(a, self.cfg, op=op_in, warm_from=warm_from,
-                                         device=self.device)
+                                         device=self.device, ctx=self.ctx)
             if self.emb_store is not None:
                 self._publish(emb)
             out = None
             if self._prev is not None:
                 a_prev, e_prev = self._prev
                 scores = node_anomaly_scores(a_prev, a, e_prev, emb,
-                                             prefetch_depth=self.cfg.prefetch_depth)
+                                             prefetch_depth=self.cfg.prefetch_depth, ctx=self.ctx)
                 idx, vals = top_anomalies(scores, self.top_k)
                 out = CADResult(scores=scores, top_idx=idx, top_val=vals,
                                 solve_reports=(e_prev.report, emb.report))
@@ -251,7 +272,8 @@ def detect_sequence_anomalies(
     donate: bool = False,
     device: str | torch.device = "cuda",
     emb_store=None,
+    ctx: DistContext | None = None,
 ) -> SequenceResult:
     """One-shot convenience wrapper around :class:`SequenceDetector`."""
     return SequenceDetector(cfg, top_k=top_k, donate=donate, device=device,
-                            emb_store=emb_store).run(snapshots)
+                            emb_store=emb_store, ctx=ctx).run(snapshots)

@@ -1,14 +1,21 @@
-"""The streaming tile executor on one device (out-of-core operands).
+"""The tile-program layer: one device grid's tiles, and the streaming executor.
 
-Port of the single-device part of :mod:`repro.core.tiles`:
-:func:`is_streamable`, :class:`StreamStats` with :func:`stream_stats` /
-:func:`reset_stream_stats`, and :func:`tile_stream` as a plain loop over row
-panels (one device: no ``shard_map``, no program cache).
+Port of :mod:`repro.core.tiles`.  :func:`tile_map` runs a tile body over
+every tile of a :class:`~repro_torch.core.distmatrix.DistContext` grid
+from one process (a loop over the tiles, each on its grid device), reduces
+in a fixed order and stitches the result; on a 1x1 grid it runs the body
+once on the whole matrix, so one device and a grid share one
+implementation.  Its plans (the tiles' index tensors) are cached per
+context and geometry, and counted by :class:`ProgramCacheStats`.
+:func:`tile_stream` is the out-of-core executor on one device: a plain
+loop over row panels of store-backed operands (:func:`is_streamable`,
+:class:`StreamStats`).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from dataclasses import dataclass
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -16,6 +23,246 @@ import torch
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import REGISTRY as _OBS_REGISTRY
 from repro_torch.obs.metrics import MetricsRegistry
+
+
+# ---------------------------------------------------------------------------
+# the plan cache
+# ---------------------------------------------------------------------------
+#
+# There is no compiler to cache in the port: what a tile program reuses is
+# its plan -- the tiles' global index tensors on their devices, the Cannon
+# tables of a schedule.  Every body on a grid shares the same tiles, so a
+# plan is keyed on the context and the block geometry alone.
+
+
+class ProgramCacheStats:
+    """Plan-cache accounting: a live view over ``program_cache.*`` counters
+    of a :class:`MetricsRegistry` (the process registry by default, so run
+    reports read the same numbers).
+
+    ``hits`` counts plans reused, ``misses`` plans built, and ``traces``
+    plan builds (the JAX package counts tile-body traces there; a plan is
+    built where a program is traced).  A plan is one (context, geometry),
+    so the counters count geometries, not bodies.  :func:`reset_program_cache_stats`
+    zeroes the counters in place.
+    """
+
+    __slots__ = ("_reg",)
+    _PREFIX = "program_cache."
+
+    def __init__(self, registry: MetricsRegistry | None = None):
+        self._reg = registry if registry is not None else MetricsRegistry()
+
+    @property
+    def hits(self) -> int:
+        return int(self._reg.value("program_cache.hits"))
+
+    @property
+    def misses(self) -> int:
+        return int(self._reg.value("program_cache.misses"))
+
+    @property
+    def traces(self) -> int:
+        return int(self._reg.value("program_cache.traces"))
+
+    def note_hit(self) -> None:
+        self._reg.inc("program_cache.hits")
+
+    def note_miss(self) -> None:
+        self._reg.inc("program_cache.misses")
+
+    def note_trace(self) -> None:
+        self._reg.inc("program_cache.traces")
+
+    def __repr__(self) -> str:
+        return (f"ProgramCacheStats(hits={self.hits}, misses={self.misses}, "
+                f"traces={self.traces})")
+
+
+_PROGRAM_STATS = ProgramCacheStats(registry=_OBS_REGISTRY)
+_PLAN_CACHE: dict = {}
+
+
+def program_cache_stats() -> ProgramCacheStats:
+    """Counters since process start / last :func:`reset_program_cache_stats`."""
+    return _PROGRAM_STATS
+
+
+def reset_program_cache_stats() -> ProgramCacheStats:
+    """Zero the counters in place (held references observe the reset)."""
+    _OBS_REGISTRY.reset(ProgramCacheStats._PREFIX)
+    return _PROGRAM_STATS
+
+
+def clear_program_cache() -> None:
+    _PLAN_CACHE.clear()
+
+
+def cached_plan(key: tuple, build: Callable[[], object]):
+    """The plan for ``key`` (a context and a geometry), built on first use."""
+    plan = _PLAN_CACHE.get(key)
+    if plan is None:
+        _PROGRAM_STATS.note_miss()
+        _PROGRAM_STATS.note_trace()
+        plan = _PLAN_CACHE[key] = build()
+    else:
+        _PROGRAM_STATS.note_hit()
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# the tile-program primitive
+# ---------------------------------------------------------------------------
+
+# in_specs of tile_map: strings, not PartitionSpecs.  A "matrix" operand is
+# cut into the grid's tiles (a DistMatrix of the context, or a tensor that is
+# cut on the way in); a "replicated" one arrives whole on every tile's device
+# (a table, a vector, a scalar).
+MATRIX = "matrix"
+REPLICATED = "replicated"
+
+
+@dataclass(frozen=True)
+class Tile:
+    """One tile's window of the global block grid, visible to tile bodies."""
+
+    rows: torch.Tensor  # (pr,) global row ids, on the tile's device
+    cols: torch.Tensor  # (pc,) global col ids
+    row_index: int  # shard index along the row axes
+    col_index: int  # shard index along the col axes
+    block_shape: tuple[int, int]  # (pr, pc)
+    mesh_axes: tuple[str, ...]  # the context's row and col axis names
+
+    @property
+    def row0(self) -> int:
+        return self.row_index * self.block_shape[0]
+
+    @property
+    def col0(self) -> int:
+        return self.col_index * self.block_shape[1]
+
+    def diag_mask(self) -> torch.Tensor:
+        """(pr, pc) bool mask of global-diagonal entries in this tile."""
+        return self.rows[:, None] == self.cols[None, :]
+
+    def diagonal(self, blk: torch.Tensor) -> torch.Tensor:
+        """The view of ``blk``'s global-diagonal entries (empty off the diagonal)."""
+        return blk.diagonal(self.row0 - self.col0)
+
+
+def _build_tiles(ctx, pr: int, pc: int) -> list:
+    axes = tuple(ctx.row_axes) + tuple(ctx.col_axes)
+    return [[Tile(rows=torch.arange(r * pr, (r + 1) * pr, device=ctx.device(r, c)),
+                  cols=torch.arange(c * pc, (c + 1) * pc, device=ctx.device(r, c)),
+                  row_index=r, col_index=c, block_shape=(pr, pc), mesh_axes=axes)
+             for c in range(ctx.n_col_shards)] for r in range(ctx.n_row_shards)]
+
+
+def _to(x, dev: torch.device):
+    """``x`` on ``dev``: no copy when it is there already.  A copy to a card
+    is asynchronous (a peer copy is ordered against both devices' current
+    streams); a copy to the host waits for its data, so host code may read
+    it at once."""
+    if not isinstance(x, torch.Tensor) or x.device == dev:
+        return x
+    return x.to(dev, non_blocking=dev.type == "cuda")
+
+
+def reduce_blocks(parts: list, home: torch.device) -> torch.Tensor:
+    """Sum ``parts`` on ``home`` in list order (the fixed-order psum)."""
+    acc = _to(parts[0], home)
+    for p in parts[1:]:
+        acc = acc + _to(p, home)
+    return acc
+
+
+def tile_map(
+    ctx,
+    fn: Callable[..., torch.Tensor],
+    *operands,
+    grid: tuple[int, int] | None = None,
+    in_specs: Sequence[str] | None = None,
+    reduce: str | None = None,
+    out_dtype=None,
+):
+    """Run ``fn(tile, *blocks)`` over every tile of the ``ctx`` grid.
+
+    Args:
+      ctx: a :class:`~repro_torch.core.distmatrix.DistContext`.
+      fn: tile body; gets a :class:`Tile` and each operand's block on the
+        tile's device (``REPLICATED`` operands arrive whole) and returns the
+        tile's output block.
+      operands: DistMatrices of ``ctx``, tensors, or (replicated) scalars.
+      grid: global (n_rows, n_cols); defaults to the first ``MATRIX``
+        operand's shape.
+      in_specs: ``MATRIX`` or ``REPLICATED`` per operand (default all
+        ``MATRIX``).
+      reduce: ``None`` stitches the tile outputs into a DistMatrix (the
+        tensor itself on a 1x1 grid); ``"cols"`` sums each block row's
+        outputs over the columns in order c = 0..C-1 on the home device and
+        stacks the rows; ``"rows"`` the same over the rows.  A single part
+        is returned as it is, with no copy.
+      out_dtype: optional cast of each tile output.
+    """
+    if in_specs is None:
+        in_specs = (MATRIX,) * len(operands)
+    in_specs = tuple(in_specs)
+    if len(in_specs) != len(operands):
+        raise ValueError(f"{len(operands)} operands but {len(in_specs)} in_specs")
+    if any(sp not in (MATRIX, REPLICATED) for sp in in_specs):
+        raise ValueError(f"in_specs must be {MATRIX!r} or {REPLICATED!r}, got {in_specs}")
+    if grid is None:
+        for op, sp in zip(operands, in_specs):
+            if sp == MATRIX:
+                grid = (int(op.shape[0]), int(op.shape[1]))
+                break
+        if grid is None:
+            raise ValueError("grid= is required when no operand is matrix-sharded")
+    n0, n1 = grid
+    R, C = ctx.n_row_shards, ctx.n_col_shards
+    if n0 % R or n1 % C:
+        raise ValueError(f"grid {tuple(grid)} must divide the {R}x{C} shard grid")
+    if reduce not in (None, "cols", "rows"):
+        raise ValueError(f"reduce must be None, 'cols' or 'rows', got {reduce!r}")
+    pr, pc = n0 // R, n1 // C
+    tiles = cached_plan((ctx, pr, pc), lambda: _build_tiles(ctx, pr, pc))
+
+    blocks = []
+    for op, sp in zip(operands, in_specs):
+        if sp == MATRIX:
+            if tuple(op.shape) != (n0, n1):
+                raise ValueError(f"matrix operand {tuple(op.shape)} does not match grid {grid}")
+            blocks.append(ctx.blocks(op))
+        else:
+            blocks.append({})  # per device, filled on first use
+    outs = []
+    for r in range(R):
+        row = []
+        for c in range(C):
+            dev = ctx.device(r, c)
+            args = []
+            for op, sp, blk in zip(operands, in_specs, blocks):
+                if sp == MATRIX:
+                    args.append(blk[r][c])
+                else:
+                    if dev not in blk:
+                        blk[dev] = _to(op, dev)
+                    args.append(blk[dev])
+            out = fn(tiles[r][c], *args)
+            row.append(out if out_dtype is None else out.to(out_dtype))
+        outs.append(row)
+    if reduce is None:
+        return ctx.assemble(outs)
+    if reduce == "cols":
+        parts = [reduce_blocks(row, ctx.home) for row in outs]
+    else:
+        parts = [reduce_blocks([outs[r][c] for r in range(R)], ctx.home) for c in range(C)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# the streaming tile executor (out-of-core operands, one device)
+# ---------------------------------------------------------------------------
 
 
 def is_streamable(x) -> bool:

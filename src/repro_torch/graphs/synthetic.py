@@ -10,7 +10,10 @@ localized event.
 
 The random draws are the JAX package's numpy draws, in the same order, so
 node features, injections and truth are bitwise the same; the n x n
-adjacency is then built on ``device`` from the features.  torch's ``exp``
+adjacency is then built on ``device`` from the features, or with ``ctx`` (a
+device grid) tile by tile, each tile on its grid device, so the graph never
+exists in one place (the grid's home device then takes the place of
+``device``).  torch's ``exp``
 and ``sqrt`` may differ from XLA's in the last ulp, so the graphs are
 allclose to the JAX package's, not bitwise.  :func:`gmm_store_sequence`
 writes a sequence into a tile store tile by tile, in numpy alone.
@@ -24,8 +27,22 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
-from repro_torch.core.distmatrix import build_from_nodes
+from repro_torch.core.distmatrix import DistContext, build_from_nodes
 from repro_torch.device import resolve_device
+
+
+def _device(device, ctx: DistContext | None) -> torch.device:
+    return resolve_device(device if ctx is None else ctx.home)
+
+
+def _add_dense(a, r: np.ndarray, dtype, dev: torch.device, ctx: DistContext | None,
+               r_dtype=torch.float32):
+    """a + r (a host matrix taken as ``r_dtype``), cast to ``dtype``, on ``a``'s
+    device or grid."""
+    r = torch.from_numpy(r).to(r_dtype)
+    if ctx is None or ctx.is_trivial:
+        return (a + r.to(dev)).to(dtype)
+    return a.add_(ctx.put_matrix(r)).to(dtype)  # a is a fresh build: add in place
 
 
 def gmm_points(n: int, seed: int = 0, spread: float = 4.0) -> tuple[np.ndarray, np.ndarray]:
@@ -42,27 +59,28 @@ def _sq_dists(xi: torch.Tensor, xj: torch.Tensor) -> torch.Tensor:
 
 
 def similarity_graph(
-    feats, *, bandwidth: float = 1.0, dtype=torch.float32, device="cuda"
-) -> torch.Tensor:
+    feats, *, bandwidth: float = 1.0, dtype=torch.float32, device="cuda",
+    ctx: DistContext | None = None,
+):
     """A[i, j] = exp(-||x_i - x_j|| / bandwidth), zero diagonal."""
 
     def kern(xi, xj):
         return torch.exp(-torch.sqrt(torch.clamp(_sq_dists(xi, xj), min=1e-12)) / bandwidth)
 
-    f = torch.as_tensor(np.asarray(feats, np.float32), device=resolve_device(device))
-    return build_from_nodes(f, kern, dtype=dtype)
+    f = torch.as_tensor(np.asarray(feats, np.float32), device=_device(device, ctx))
+    return build_from_nodes(f, kern, dtype=dtype, ctx=ctx)
 
 
 def gaussian_kernel_graph(
-    feats, *, sigma: float, dtype=torch.float32, device="cuda"
-) -> torch.Tensor:
+    feats, *, sigma: float, dtype=torch.float32, device="cuda", ctx: DistContext | None = None,
+):
     """A[i, j] = exp(-||p_i - p_j||^2 / (2 sigma^2)), zero diagonal -- the climate kernel."""
 
     def kern(xi, xj):
         return torch.exp(-_sq_dists(xi, xj) / (2.0 * sigma**2))
 
-    f = torch.as_tensor(np.asarray(feats, np.float32), device=resolve_device(device))
-    return build_from_nodes(f, kern, dtype=dtype)
+    f = torch.as_tensor(np.asarray(feats, np.float32), device=_device(device, ctx))
+    return build_from_nodes(f, kern, dtype=dtype, ctx=ctx)
 
 
 def _smooth_field(x: np.ndarray, n_lat: int, n_lon: int, passes: int = 8) -> np.ndarray:
@@ -102,6 +120,7 @@ def gmm_graph_sequence(
     inject_p: float = 0.05,
     dtype=torch.float32,
     device="cuda",
+    ctx: DistContext | None = None,
 ) -> GMMSequence:
     """The paper's synthetic transition: A1 = P, A2 = Q + (R + R^T)/2.
 
@@ -111,13 +130,13 @@ def gmm_graph_sequence(
     weight.  The two n x n uniform draws
     behind R are made on the host (as in the JAX package).
     """
-    dev = resolve_device(device)
+    dev = _device(device, ctx)
     rng = np.random.default_rng(seed)
     pts, comp = gmm_points(n, seed)
-    a1 = similarity_graph(pts, dtype=dtype, device=dev)
+    a1 = similarity_graph(pts, dtype=dtype, device=dev, ctx=ctx)
 
     pts2 = pts + noise * rng.normal(size=pts.shape).astype(np.float32)
-    q = similarity_graph(pts2, dtype=dtype, device=dev)
+    q = similarity_graph(pts2, dtype=dtype, device=dev, ctx=ctx)
 
     mask = rng.random((n, n)) < inject_p
     r = np.where(mask, rng.random((n, n)), 0.0).astype(np.float32)
@@ -125,7 +144,7 @@ def gmm_graph_sequence(
     r_sym = (r + r.T) / 2.0
     del r
     np.fill_diagonal(r_sym, 0.0)
-    a2 = (q + torch.from_numpy(r_sym).to(dev)).to(dtype)
+    a2 = _add_dense(q, r_sym, dtype, dev, ctx)
     del q
 
     inter = (comp[:, None] != comp[None, :]) & (r_sym > 0)
@@ -145,13 +164,14 @@ def climate_like_sequence(
     event_strength: float = 6.0,
     dtype=torch.float32,
     device="cuda",
+    ctx: DistContext | None = None,
 ):
     """Two smooth precipitation-like fields; the second has a localized event.
 
     Returns ``(a1, a2, event_nodes)``.  Node features are 12-month profiles
     smoothed over the grid (a stand-in for NCEP monthly means).
     """
-    dev = resolve_device(device)
+    dev = _device(device, ctx)
     rng = np.random.default_rng(seed)
     n = n_lat * n_lon
     base = _smooth_field(rng.normal(size=(n, 12)).astype(np.float32), n_lat, n_lon)
@@ -162,8 +182,8 @@ def climate_like_sequence(
     bump[event_nodes] = event_strength
     field2 = base + drift + _smooth_field(bump, n_lat, n_lon, passes=2)
 
-    a1 = gaussian_kernel_graph(base, sigma=sigma, dtype=dtype, device=dev)
-    a2 = gaussian_kernel_graph(field2, sigma=sigma, dtype=dtype, device=dev)
+    a1 = gaussian_kernel_graph(base, sigma=sigma, dtype=dtype, device=dev, ctx=ctx)
+    a2 = gaussian_kernel_graph(field2, sigma=sigma, dtype=dtype, device=dev, ctx=ctx)
     return a1, a2, event_nodes
 
 
@@ -225,6 +245,7 @@ def gmm_snapshot_sequence(
     dim_factor: float = 0.05,
     dtype=torch.float32,
     device="cuda",
+    ctx: DistContext | None = None,
 ) -> SnapshotSequence:
     """T-snapshot GMM sequence: drifting points plus per-step edge injections.
 
@@ -241,7 +262,7 @@ def gmm_snapshot_sequence(
     """
     if t_steps < 2:
         raise ValueError("a sequence needs at least 2 snapshots")
-    dev = resolve_device(device)
+    dev = _device(device, ctx)
     inject_steps = set(range(1, t_steps)) if inject_steps is None else set(inject_steps)
     rng = np.random.default_rng(seed)
     pts0, comp = gmm_points(n, seed)
@@ -287,15 +308,16 @@ def gmm_snapshot_sequence(
         nodes = np.nonzero(s > 0)[0]
         truth.append(nodes[np.argsort(-s[nodes])])
 
-    def build(t: int) -> torch.Tensor:
+    def build(t: int):
         if scale is None:
-            a = similarity_graph(pts_all[t], dtype=dtype, device=dev)
+            a = similarity_graph(pts_all[t], dtype=dtype, device=dev, ctx=ctx)
         else:
             feats = np.concatenate([pts_all[t], scale[:, None]], axis=1)
             a = build_from_nodes(torch.from_numpy(feats).to(dev), _dimmed_similarity_kern(1.0),
-                                 dtype=dtype)
+                                 dtype=dtype, ctx=ctx)
         if t in inject_steps:
-            a = a + torch.from_numpy(_gmm_injection(n, seed, t, inject_p)).to(dev, dtype)
+            a = _add_dense(a, _gmm_injection(n, seed, t, inject_p), dtype, dev, ctx,
+                           r_dtype=dtype)
         return a
 
     return SnapshotSequence(t_steps=t_steps, truth=truth, components=comp, labels=labels,
@@ -315,6 +337,7 @@ def climate_snapshot_sequence(
     event_strength: float = 6.0,
     dtype=torch.float32,
     device="cuda",
+    ctx: DistContext | None = None,
 ) -> SnapshotSequence:
     """T-month climate-like sequence on an n_lat x n_lon grid, one localized event.
 
@@ -325,7 +348,7 @@ def climate_snapshot_sequence(
     """
     if t_steps < 2:
         raise ValueError("a sequence needs at least 2 snapshots")
-    dev = resolve_device(device)
+    dev = _device(device, ctx)
     event_steps = {t_steps // 2} if event_steps is None else set(event_steps)
     rng = np.random.default_rng(seed)
     n = n_lat * n_lon
@@ -346,9 +369,9 @@ def climate_snapshot_sequence(
         toggled = (t in event_steps) != ((t + 1) in event_steps)
         truth.append(event_nodes.copy() if toggled else np.empty(0, np.int64))
 
-    def build(t: int) -> torch.Tensor:
+    def build(t: int):
         f = fields[t] + (bump if t in event_steps else 0.0)
-        return gaussian_kernel_graph(f, sigma=sigma, dtype=dtype, device=dev)
+        return gaussian_kernel_graph(f, sigma=sigma, dtype=dtype, device=dev, ctx=ctx)
 
     return SnapshotSequence(
         t_steps=t_steps, truth=truth, event_nodes=event_nodes, _build=build

@@ -39,7 +39,7 @@ SIGNATURES = {
     "rt_block_matmul_f32": (_P, _P, _P, _I, _I, _I, _P, _L, _I, _P),
     "rt_block_matmul_bf16": (_P, _P, _P, _I, _I, _I, _P, _L, _I, _P),
     "rt_split_tf32": (_P, _P, _P, _I, _I, _P),
-    "rt_edge_projection": (_P, _P, _P, _I, _I, _I, _U, _I, _F, _P),
+    "rt_edge_projection": (_P, _P, _P, _I, _I, _I, _I, _U, _I, _F, _P),
     "rt_rademacher_field": (_P, _I, _I, _I, _I, _U, _I, _P),
     "rt_cad_scores": (_P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _I, _I, _I, _P),
     "rt_cad_scores_k_max": (),
@@ -53,7 +53,7 @@ SIGNATURES = {
 }
 # entry points that return a size (long long): the scratch a launch takes
 SIZES = {
-    "rt_edge_projection_scratch_elems": (_I, _I, _I),
+    "rt_edge_projection_scratch_elems": (_I, _I, _I, _I),
     "rt_cad_scores_scratch_elems": (_I, _I, _I),
 }
 
@@ -159,3 +159,16 @@ def stream_handle(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_device(t):
+    """Make ``t``'s card the CUDA runtime's current device for a launch.
+
+    The entry points launch on the current device and read its attributes
+    (SM count, shared-memory limits), so a wrapper enters this around every
+    launch: an operand on ``cuda:1`` while ``cuda:0`` is current then runs
+    on its own card.
+    """
+    import torch
+
+    return torch.cuda.device(t.device)

@@ -58,8 +58,9 @@ def block_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.T
     scratch = torch.empty((elems,), dtype=torch.float32, device=a.device)
     lib = _build.library()
     fn = lib.rt_block_matmul_f32 if fp32 else lib.rt_block_matmul_bf16
-    err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, scratch.data_ptr(), elems,
-             int(b is a), _build.stream_handle(a))
+    with _build.on_device(a):
+        err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, scratch.data_ptr(), elems,
+                 int(b is a), _build.stream_handle(a))
     _build.check(err, "block_matmul")
     launches += 1
     return c if out_dtype == torch.float32 else c.to(out_dtype)
@@ -83,7 +84,9 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     hi, lo = torch.empty_like(x), torch.empty_like(x)
     if x.numel() == 0:
         return hi, lo
-    err = _build.library().rt_split_tf32(x.data_ptr(), hi.data_ptr(), lo.data_ptr(), x.shape[0],
-                                         x.shape[1], _build.stream_handle(x))
+    lib = _build.library()
+    with _build.on_device(x):
+        err = lib.rt_split_tf32(x.data_ptr(), hi.data_ptr(), lo.data_ptr(), x.shape[0],
+                                x.shape[1], _build.stream_handle(x))
     _build.check(err, "split_tf32")
     return hi, lo

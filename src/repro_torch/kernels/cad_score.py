@@ -51,10 +51,11 @@ def cad_scores_tile(a1, a2, z1i, z1j, z2i, z2j, vol1, vol2) -> torch.Tensor:
     f = torch.empty((m,), dtype=torch.float32, device=a1.device)
     scratch = torch.empty((lib.rt_cad_scores_scratch_elems(m, n, k),), dtype=torch.float32,
                           device=a1.device)
-    err = lib.rt_cad_scores(
-        *(t.data_ptr() for t in tensors), float(vol1), float(vol2), f.data_ptr(),
-        scratch.data_ptr(), m, n, k, _build.stream_handle(a1),
-    )
+    with _build.on_device(a1):
+        err = lib.rt_cad_scores(
+            *(t.data_ptr() for t in tensors), float(vol1), float(vol2), f.data_ptr(),
+            scratch.data_ptr(), m, n, k, _build.stream_handle(a1),
+        )
     _build.check(err, "cad_scores")
     launches += 1
     return f

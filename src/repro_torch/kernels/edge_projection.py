@@ -27,16 +27,21 @@ def _check(a: torch.Tensor, k: int) -> None:
         raise ValueError(f"edge_projection: k must be >= 1, got {k}")
 
 
-def edge_projection(a: torch.Tensor, *, seed: int, k: int, row0: int = 0) -> torch.Tensor:
-    """Y[i, c] = sum_j sqrt(max(A_ij, 0)) Q_c[row0 + i, j] / sqrt(k), fp32 (m, k).
+def edge_projection(a: torch.Tensor, *, seed: int, k: int, row0: int = 0,
+                    col0: int = 0) -> torch.Tensor:
+    """Y[i, c] = sum_j sqrt(max(A_ij, 0)) Q_c[row0 + i, col0 + j] / sqrt(k), fp32 (m, k).
 
-    ``row0`` is the global id of ``a``'s first row: 0 for a resident
-    adjacency, the panel origin for a streamed row panel.
+    ``row0`` / ``col0`` are the global ids of ``a``'s first row and column:
+    0 for a resident adjacency, the panel origin for a streamed row panel,
+    the tile origin for one tile of a device grid (whose column blocks sum
+    to the whole row's value).
     """
     global launches
     _check(a, k)
+    if row0 < 0 or col0 < 0:
+        raise ValueError(f"edge_projection: row0={row0} and col0={col0} must be >= 0")
     if a.device.type == "cpu":
-        return ref.edge_projection(a, seed=seed, k=k, row0=row0)
+        return ref.edge_projection(a, seed=seed, k=k, row0=row0, col0=col0)
     if a.device.type != "cuda":
         raise ValueError(f"edge_projection: unsupported device {a.device}")
     if not a.is_contiguous():
@@ -46,12 +51,13 @@ def edge_projection(a: torch.Tensor, *, seed: int, k: int, row0: int = 0) -> tor
         return torch.zeros((m, k), dtype=torch.float32, device=a.device)
     y = torch.empty((m, k), dtype=torch.float32, device=a.device)
     lib = _build.library()
-    part = torch.empty((lib.rt_edge_projection_scratch_elems(m, n, k),), dtype=torch.float32,
-                       device=a.device)
-    err = lib.rt_edge_projection(
-        a.data_ptr(), y.data_ptr(), part.data_ptr(), row0, m, n, int(seed) & 0xFFFFFFFF, k,
-        1.0 / math.sqrt(k), _build.stream_handle(a),
-    )
+    part = torch.empty((lib.rt_edge_projection_scratch_elems(col0, m, n, k),),
+                       dtype=torch.float32, device=a.device)
+    with _build.on_device(a):
+        err = lib.rt_edge_projection(
+            a.data_ptr(), y.data_ptr(), part.data_ptr(), row0, m, col0, n,
+            int(seed) & 0xFFFFFFFF, k, 1.0 / math.sqrt(k), _build.stream_handle(a),
+        )
     _build.check(err, "edge_projection")
     launches += 1
     return y
@@ -71,9 +77,10 @@ def rademacher_field(
     if q.numel() == 0:
         return q
     lib = _build.library()
-    err = lib.rt_rademacher_field(
-        q.data_ptr(), rows.start, cols.start, nr, nc, int(seed) & 0xFFFFFFFF, k,
-        _build.stream_handle(q),
-    )
+    with _build.on_device(q):
+        err = lib.rt_rademacher_field(
+            q.data_ptr(), rows.start, cols.start, nr, nc, int(seed) & 0xFFFFFFFF, k,
+            _build.stream_handle(q),
+        )
     _build.check(err, "rademacher_field")
     return q

@@ -165,8 +165,9 @@ class PanelTopk:
             self._slots[0] = (torch.empty_like(v), torch.empty_like(ids))
             plan.vals[0], plan.ids[0] = self._slots[0][0].data_ptr(), self._slots[0][1].data_ptr()
             self._borrowed = False
-        _build.check(self._step(self._plan_ptr, z_panel.data_ptr(), int(bits), int(row0), ph),
-                     "panel_topk_update")
+        with _build.on_device(z_panel):
+            err = self._step(self._plan_ptr, z_panel.data_ptr(), int(bits), int(row0), ph)
+        _build.check(err, "panel_topk_update")
         launches += 1
 
     def result(self) -> tuple[torch.Tensor, torch.Tensor]:

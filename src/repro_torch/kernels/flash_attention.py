@@ -74,13 +74,15 @@ def flash_attention(q, k, v, *, causal: bool = True, groups: int = 1) -> torch.T
         if any(p % 16 for p in ptrs):
             raise ValueError("flash_attention: the tensor-core route needs 16-byte aligned "
                              "q, k, v")
-        err = lib.rt_flash_attention_wgmma(*ptrs, bhq, s, t, d, groups, int(causal), scale,
-                                           _build.stream_handle(q))
+        with _build.on_device(q):
+            err = lib.rt_flash_attention_wgmma(*ptrs, bhq, s, t, d, groups, int(causal), scale,
+                                               _build.stream_handle(q))
         _build.check(err, "flash_attention (wgmma)")
         wgmma_launches += 1
     else:
-        err = lib.rt_flash_attention(*ptrs, bhq, s, t, d, groups, int(causal), scale,
-                                     int(q.dtype == torch.bfloat16), _build.stream_handle(q))
+        with _build.on_device(q):
+            err = lib.rt_flash_attention(*ptrs, bhq, s, t, d, groups, int(causal), scale,
+                                         int(q.dtype == torch.bfloat16), _build.stream_handle(q))
         _build.check(err, "flash_attention")
     launches += 1
     return out

@@ -50,14 +50,16 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, _tf32_rna(x - hi)
 
 
-def edge_projection(a: torch.Tensor, *, seed: int, k: int, row0: int = 0) -> torch.Tensor:
-    """Y[i, c] = sum_j sqrt(max(A_ij, 0)) Q_c[row0 + i, j] / sqrt(k).
+def edge_projection(a: torch.Tensor, *, seed: int, k: int, row0: int = 0,
+                    col0: int = 0) -> torch.Tensor:
+    """Y[i, c] = sum_j sqrt(max(A_ij, 0)) Q_c[row0 + i, col0 + j] / sqrt(k).
 
-    ``row0`` is the global id of ``a``'s first row (a streamed row panel).
+    ``row0`` / ``col0`` are the global ids of ``a``'s first row and column
+    (a streamed row panel, a tile of a device grid).
     """
     m, n = a.shape
     dev = a.device
-    cols = torch.arange(n, device=dev, dtype=torch.int64)[None, :, None]
+    cols = torch.arange(col0, col0 + n, device=dev, dtype=torch.int64)[None, :, None]
     ks = torch.arange(k, device=dev, dtype=torch.int64)[None, None, :]
     y = torch.empty((m, k), dtype=torch.float32, device=dev)
     for r0, r1 in _row_chunks(m, n * k):

@@ -143,10 +143,11 @@ def stream_gemm(
             None if init is None else init.data_ptr(), int(sign < 0), c.data_ptr(), m, n, k)
     tail = (scratch.data_ptr(), scratch.numel(), _build.stream_handle(a))
     tc = route_for(n) == "tc"
-    if tc:
-        err = lib.rt_stream_gemm_tc(*args, *tail)
-    else:
-        err = lib.rt_stream_gemm_skinny(*args, *skinny_plan(m, k), *tail)
+    with _build.on_device(a):
+        if tc:
+            err = lib.rt_stream_gemm_tc(*args, *tail)
+        else:
+            err = lib.rt_stream_gemm_skinny(*args, *skinny_plan(m, k), *tail)
     _build.check(err, "stream_gemm")
     gemm_launches += 1
     tc_launches += tc
@@ -185,12 +186,13 @@ def fused_panel_matvec(
     ss = torch.empty((1, 1), dtype=torch.float32, device=dev)
     scratch = torch.empty((matvec_scratch_elems(ph, kdim, q),), dtype=torch.float32, device=dev)
     lib = _build.library()
-    err = lib.rt_fused_panel_matvec(
-        p_panel.data_ptr(), int(p_panel.dtype == torch.int16), y.data_ptr(),
-        chi_panel.data_ptr(), y_panel.data_ptr(), gy.data_ptr(), cs.data_ptr(), ss.data_ptr(),
-        ph, kdim, q, *skinny_plan(ph, kdim), scratch.data_ptr(), scratch.numel(),
-        _build.stream_handle(p_panel),
-    )
+    with _build.on_device(p_panel):
+        err = lib.rt_fused_panel_matvec(
+            p_panel.data_ptr(), int(p_panel.dtype == torch.int16), y.data_ptr(),
+            chi_panel.data_ptr(), y_panel.data_ptr(), gy.data_ptr(), cs.data_ptr(),
+            ss.data_ptr(), ph, kdim, q, *skinny_plan(ph, kdim), scratch.data_ptr(),
+            scratch.numel(), _build.stream_handle(p_panel),
+        )
     _build.check(err, "fused_panel_matvec")
     matvec_launches += 1
     return gy, cs, ss

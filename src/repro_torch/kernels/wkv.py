@@ -71,10 +71,11 @@ def wkv(r, k, v, lw, u, *, s0=None, return_state: bool = False):
         scratch = torch.empty((scratch_elems(bh, s, dk, dv),), dtype=torch.float32,
                               device=r.device)
         lib = _build.library()
-        err = lib.rt_wkv(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(), u.data_ptr(),
-                         None if s0 is None else s0.data_ptr(), y.data_ptr(), s_fin.data_ptr(),
-                         scratch.data_ptr(), scratch.numel(), bh, s, dk, dv,
-                         int(r.dtype == torch.bfloat16), _build.stream_handle(r))
+        with _build.on_device(r):
+            err = lib.rt_wkv(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+                             u.data_ptr(), None if s0 is None else s0.data_ptr(), y.data_ptr(),
+                             s_fin.data_ptr(), scratch.data_ptr(), scratch.numel(), bh, s, dk,
+                             dv, int(r.dtype == torch.bfloat16), _build.stream_handle(r))
         _build.check(err, "wkv")
         launches += 1
     return (y, s_fin) if return_state else y

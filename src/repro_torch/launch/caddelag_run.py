@@ -1,4 +1,4 @@
-"""CADDeLaG driver on one device: the sequence engine end to end.
+"""CADDeLaG driver: the sequence engine end to end, on one device or a device grid.
 
 Port of :mod:`repro.launch.caddelag_run`.  Runs a synthetic GMM or
 climate-like snapshot sequence through :class:`SequenceDetector` and prints
@@ -11,6 +11,10 @@ embedding to an embedding store that ``caddelag-query-torch`` serves reads from.
 updates against a retained base chain instead of full rebuilds;
 ``--run-report`` and ``--trace`` write the run report (schema 2) and a
 Chrome trace, both checked by ``python -m repro_torch.obs.report FILE...``.
+``--data R --model C`` runs the resident path on an R x C device grid (one
+card per tile on ``cuda``, every tile on the CPU with ``--device cpu``) with
+the chain GEMMs on ``--schedule``; the store, out-of-core, incremental and
+embedding-store paths stay on one device (ROADMAP item 9b).
 
   caddelag-run-torch --n 10512 --t-steps 3 --dataset climate        # on the card
   caddelag-run-torch --device cpu --n 64 --t-steps 3 --d 3 --q 4    # plain PyTorch
@@ -20,6 +24,8 @@ Chrome trace, both checked by ``python -m repro_torch.obs.report FILE...``.
   caddelag-query-torch --store DIR --top-k 20                        # then query it
   caddelag-run-torch --n 10512 --t-steps 4 --drift-nodes 3 --incremental-chain \
       --run-report report.json --trace trace.json                    # delta chain
+  caddelag-run-torch --device cpu --n 64 --t-steps 3 --data 2 --model 2 \
+      --schedule summa --d 3 --q 4                                   # a 2x2 grid
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import argparse
 import numpy as np
 
 from repro_torch.core import CommuteConfig, SequenceDetector, reset_stream_stats, stream_stats
+from repro_torch.core.distmatrix import ITEM_9B
 from repro_torch.graphs import (
     climate_snapshot_sequence,
     gmm_snapshot_sequence,
@@ -53,11 +60,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="gmm dataset only: only this many nodes move per step and "
                          "no edges are injected")
     ap.add_argument("--schedule", default="cannon", choices=["xla", "summa", "cannon"],
-                    help="accepted for symmetry with caddelag-run; one device has no schedule")
+                    help="tile program of the chain GEMMs on a --data x --model grid (cannon "
+                         "needs a square grid; xla runs summa's; 1x1: one kernel call)")
     ap.add_argument("--eps", type=float, default=1e-3)
     ap.add_argument("--d", type=int, default=6)
     ap.add_argument("--q", type=int, default=10)
     ap.add_argument("--top-k", type=int, default=20)
+    ap.add_argument("--data", type=int, default=1, help="device-grid rows")
+    ap.add_argument("--model", type=int, default=1, help="device-grid columns")
     ap.add_argument("--solver", default="richardson", choices=["richardson", "chebyshev", "cg"])
     ap.add_argument("--solver-tol", type=float, default=None,
                     help="stop when the relative preconditioned residual drops below this")
@@ -124,10 +134,20 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    from repro_torch.launch.mesh import make_device_grid
     from repro_torch.obs import REGISTRY, enable_tracing, tracer
     from repro_torch.obs.report import build_run_report, save_run_report
     from repro_torch.store import TileStore, resolve_codec
 
+    ctx = make_device_grid(args.data, args.model, args.device)
+    grid = None if ctx.is_trivial else ctx
+    if grid is not None:
+        for flag, on in (("--store", args.store), ("--oocore-chain", args.oocore_chain),
+                         ("--incremental-chain", args.incremental_chain),
+                         ("--emb-store", args.emb_store)):
+            if on:
+                raise SystemExit(f"caddelag-run-torch: {flag} with --data {args.data} --model "
+                                 f"{args.model}: {ITEM_9B}")
     if args.trace is not None:
         enable_tracing(fence=True)
 
@@ -149,11 +169,11 @@ def main(argv=None) -> None:
         if args.drift_nodes is not None:
             seq = gmm_snapshot_sequence(
                 n_nodes, args.t_steps, seed=0, noise=0.02, inject_steps=set(),
-                drift_nodes=args.drift_nodes, device=args.device,
+                drift_nodes=args.drift_nodes, device=args.device, ctx=grid,
             )
         else:
             seq = gmm_snapshot_sequence(
-                n_nodes, args.t_steps, seed=0, inject_p=0.01, device=args.device
+                n_nodes, args.t_steps, seed=0, inject_p=0.01, device=args.device, ctx=grid
             )
     else:
         side = int(np.sqrt(args.n))
@@ -161,7 +181,7 @@ def main(argv=None) -> None:
         if n_nodes != args.n:
             print(f"[caddelag] climate grid {side}x{args.n // side}: using n={n_nodes}")
         seq = climate_snapshot_sequence(
-            side, args.n // side, args.t_steps, sigma=1.0, device=args.device
+            side, args.n // side, args.t_steps, sigma=1.0, device=args.device, ctx=grid
         )
 
     emb_store = None
@@ -173,7 +193,7 @@ def main(argv=None) -> None:
             seed=cfg.seed, meta={"dataset": args.dataset, "n": n_nodes, "seed": 0},
         )
     det = SequenceDetector(cfg, top_k=args.top_k, donate=args.donate, device=args.device,
-                           emb_store=emb_store)
+                           emb_store=emb_store, ctx=grid)
     if args.store is not None:
         grid = args.store_grid or _default_grid(n_nodes)
         # meta fingerprints the generator: a reused directory with other
@@ -225,6 +245,7 @@ def main(argv=None) -> None:
 
     print(
         f"[caddelag] n={n_nodes} T={args.t_steps} device={args.device} "
+        f"grid={args.data}x{args.model} schedule={args.schedule} "
         f"d={args.d} q={args.q} eps={args.eps}: "
         f"{res.chain_builds} chain builds for {len(res.transitions)} transitions"
     )

@@ -764,3 +764,136 @@ def test_rademacher_omega_on_card_bitwise_cpu(dev):
     for n, m, seed in ((10512, 6, 0x5EED), (1536, 6, 0xD2), (7, 3, 2**32 + 5)):
         np.testing.assert_array_equal(_rademacher_omega(n, m, seed, dev),
                                       _rademacher_omega(n, m, seed))
+
+
+# ---------------------------------------------------------------------------
+# device grids: the edge projection at a column offset, the schedules on one
+# card, and the launches on a second card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("row0,col0,m,n", [(0, 0, 300, 300), (0, 150, 150, 150),
+                                           (150, 0, 150, 150), (150, 150, 150, 150),
+                                           (64, 37, 100, 203), (0, 130, 257, 129)])
+@pytest.mark.parametrize("k", [17, 40])
+def test_edge_projection_kernel_at_col0(dev, row0, col0, m, n, k):
+    """A block of a non-symmetric A at global (row0, col0): against the plain
+    version with col0, bitwise repeatable; the diagonal tiles take the
+    unordered-pair route, the others ordered pairs, col0 = 37 the 4-byte
+    loads.  Its column blocks add up to the whole row's value."""
+    rng = np.random.default_rng(row0 + col0 + k)
+    a = _arr(rng, (row0 + m, col0 + n), dev)
+    blk = a[row0:, col0:].contiguous()
+    got = ep.edge_projection(blk, seed=3, k=k, row0=row0, col0=col0)
+    torch.testing.assert_close(got, ref.edge_projection(blk, seed=3, k=k, row0=row0, col0=col0),
+                               rtol=1e-5, atol=1e-4)
+    assert torch.equal(got, ep.edge_projection(blk, seed=3, k=k, row0=row0, col0=col0))
+    cut = n // 2
+    parts = (ep.edge_projection(blk[:, :cut].contiguous(), seed=3, k=k, row0=row0, col0=col0)
+             + ep.edge_projection(blk[:, cut:].contiguous(), seed=3, k=k, row0=row0,
+                                  col0=col0 + cut))
+    torch.testing.assert_close(parts, got, rtol=1e-5, atol=1e-4)
+    assert kernels.launch_counts()["edge_projection"] == 4
+
+
+@pytest.mark.parametrize("schedule,launches", [("xla", 4), ("summa", 4), ("cannon", 8)])
+def test_grid_schedules_on_one_card(dev, schedule, launches):
+    """A 2x2 grid with every tile on one card: exact block_matmul launch
+    counts, and max |C - float64| no worse than twice torch.matmul's in fp32
+    (test_block_matmul_float64_accuracy's rule: cannon sums two K halves in
+    fp32, so it is not bitwise any one-call product)."""
+    from repro_torch.core.distmatrix import make_context, matmul
+
+    ctx = make_context([dev] * 4, 2)
+    rng = np.random.default_rng(5)
+    a, b = _arr(rng, (1000, 1000), dev), _arr(rng, (1000, 1000), dev)
+    got = matmul(ctx.put_matrix(a), ctx.put_matrix(b), schedule=schedule)
+    assert kernels.launch_counts()["block_matmul"] == launches
+    exact = a.double() @ b.double()
+    err = float((got.to_dense().double() - exact).abs().max())
+    err_torch = float((torch.matmul(a, b).double() - exact).abs().max())
+    assert err <= 2.0 * err_torch, (err, err_torch)
+
+
+def test_grid_sequence_on_card_matches_cpu_grid(dev):
+    """The resident main path on a 2x2 grid of one card against the same grid
+    of the CPU (plain versions): scores within 1e-3 of the largest, the
+    kernels launched once a tile."""
+    from repro_torch.core import CommuteConfig, detect_sequence_anomalies, make_context
+    from repro_torch.graphs import gmm_snapshot_sequence
+
+    cfg = CommuteConfig(eps_rp=1e-2, d=4, q=6, schedule="cannon")
+    runs = {}
+    for d in ("cuda", "cpu"):
+        ctx = make_context([d] * 4, 2)
+        seq = gmm_snapshot_sequence(256, 3, seed=2, inject_p=0.01, ctx=ctx)
+        runs[d] = detect_sequence_anomalies(seq.snapshots(), cfg, top_k=10, ctx=ctx)
+    for g, c in zip(runs["cuda"].transitions, runs["cpu"].transitions):
+        _rel_close(g.scores.cpu(), c.scores, 1e-3)
+    counts = kernels.launch_counts()
+    assert counts["block_matmul"] == 3 * (2 * 3 + 1) * 8
+    assert (counts["edge_projection"], counts["cad_scores"]) == (12, 8)
+
+
+def test_make_device_grid_refuses_to_repeat_a_card(dev):
+    from repro_torch.launch.mesh import make_device_grid
+
+    have = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"this host has {have}"):
+        make_device_grid(have + 1, 1, "cuda")
+
+
+def test_grid_with_a_host_home_reads_its_card_tiles(dev):
+    """A grid that mixes device types (the home on the host, the other tiles
+    on the card): copies to the host wait for their data, so the stitched
+    matrix and the column-reduced degrees are the card's."""
+    from repro_torch.core import laplacian as lap
+    from repro_torch.core.distmatrix import make_context
+
+    ctx = make_context(["cpu", dev, dev, dev], 2)
+    x = np.abs(np.random.default_rng(11).normal(size=(2048, 2048))).astype(np.float32)
+    m = ctx.put_matrix(x)
+    for _ in range(3):
+        np.testing.assert_array_equal(ctx.to_numpy(m), x)
+        np.testing.assert_allclose(lap.degrees(m).numpy(), x.sum(1, dtype=np.float64),
+                                   rtol=1e-5)
+
+
+def test_kernels_launch_on_their_operands_card(dev):
+    """Every kernel with its operands on cuda:1 while cuda:0 is current runs
+    on cuda:1 and agrees with its plain version there.  Needs two cards: on
+    a one-card machine this test skips."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: operands on cuda:1 while cuda:0 is current")
+    d1 = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(9)
+    a, b = _arr(rng, (300, 200), d1), _arr(rng, (200, 170), d1)
+    torch.testing.assert_close(bm.block_matmul(a, b), ref.block_matmul(a, b), rtol=1e-5,
+                               atol=1e-4)
+    assert all(torch.equal(x, y) for x, y in zip(bm.split_tf32(a), ref.split_tf32(a)))
+    sq = _arr(rng, (257, 257), d1, positive=True)
+    torch.testing.assert_close(ep.edge_projection(sq, seed=1, k=17),
+                               ref.edge_projection(sq, seed=1, k=17), rtol=1e-5, atol=1e-4)
+    z1, z2 = _arr(rng, (257, 17), d1), _arr(rng, (257, 17), d1)
+    torch.testing.assert_close(cad.cad_scores(sq, sq.T.contiguous(), z1, z2, 3.0, 4.0),
+                               ref.cad_scores(sq, sq.T.contiguous(), z1, z2, 3.0, 4.0),
+                               rtol=1e-4, atol=1e-2)
+    for n in (17, 170):  # the skinny and the tensor-core route
+        bb = _arr(rng, (200, n), d1)
+        torch.testing.assert_close(sg.stream_gemm(a, bb), ref.stream_gemm(a, bb), rtol=1e-5,
+                                   atol=1e-4)
+    y, chi, yp = _arr(rng, (200, 8), d1), _arr(rng, (300, 8), d1), _arr(rng, (300, 8), d1)
+    torch.testing.assert_close(sg.fused_panel_matvec(a, y, chi, yp)[0],
+                               ref.fused_panel_matvec(a, y, chi, yp)[0], rtol=1e-4, atol=1e-4)
+    vals, ids, zq, zp, idq, idp, ex = _topk_case(d1, rng, 2, 128, 17, 20, True, False)
+    got_v, _ = eq.panel_topk_update(vals, ids, zq, zp, idq, idp, 2.5, 1000, ex, topk=20)
+    want_v, _ = ref.panel_topk_update(vals, ids, zq, zp, idq, idp, 2.5, 1000, ex, topk=20)
+    _rel_close(got_v, want_v, 1e-5)
+    r, k, v, lw, u, _ = _wkv_args(d1, 3, 100, 64, 64, torch.float32)
+    _rel_close(wkv.wkv(r, k, v, lw, u), ref.wkv(r, k, v, lw, u), 1e-4)
+    q = _arr(rng, (4, 70, 64), d1).to(torch.bfloat16)
+    kk, vv = (_arr(rng, (2, 70, 64), d1).to(torch.bfloat16) for _ in range(2))
+    _rel_close(flash.flash_attention(q, kk, vv, causal=True, groups=2),
+               ref.flash_attention(q, kk, vv, causal=True, groups=2), 2.0**-7)
+    assert torch.cuda.current_device() == 0

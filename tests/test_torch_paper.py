@@ -17,7 +17,6 @@ import ast
 import importlib.util
 import json
 import os
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -84,22 +83,12 @@ def _rhs(n: int, k: int = 4, seed: int = 0) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _item9_names() -> set:
-    """Names in ROADMAP.md's Queue 1 item 9 (multi-GPU), in backquotes."""
-    text = (ROOT / "ROADMAP.md").read_text()
-    m = re.search(r"\*\*Item 9 .*?(?=\n\*\*Item)", text, re.S)
-    assert m, "ROADMAP.md has no Item 9 section"
-    return set(re.findall(r"`([A-Za-z_]\w*)`", m.group(0)))
-
-
 @pytest.mark.parametrize("port,ref", [(graphs, j_graphs), (core, j_core), (obs, j_obs)],
                          ids=["graphs", "core", "obs"])
 def test_port_exports_the_reference_names(port, ref):
     missing = set(ref.__all__) - set(port.__all__)
-    assert missing <= _item9_names(), sorted(missing - _item9_names())
+    assert missing == set(), sorted(missing)
     assert all(hasattr(port, name) for name in port.__all__)
-    if port is not core:
-        assert missing == set()
 
 
 def _imported_modules(path: Path) -> set:
