@@ -39,7 +39,8 @@ Phases, in order; any failure exits non-zero:
    the rank-20/21 margin);
 4. the same pipeline end to end at n=1536 on the card and on the CPU (plain
    versions): equal top-20 ids and allclose scores;
-5. the out-of-core main path: the same n=10512 sequence written to a tiled
+5. the out-of-core main path: the first two snapshots of the same n=10512
+   sequence (one transition) written to a tiled
    on-disk store, scored from it with the chain's working matrices in a
    host-RAM scratch store and the ``stream_gemm`` / ``fused_panel_matvec``
    kernels; exact launch counts of that run alone (every K step on
@@ -120,17 +121,44 @@ Phases, in order; any failure exits non-zero:
    1e-3 of its largest and top-20 ids equal to its but for ties, and which
    run is nearer the float64 chain; (d) n=1536 on the grid, card against
    the CPU grid; (e) ``caddelag-run-torch --data 2 --model 2`` refused on
-   one card, naming the card count.
+   one card, naming the card count;
+12. the out-of-core, store-streamed and incremental paths on a device grid
+   (``[grid oocore]`` lines; 2x2 tiles on the one card): first the grid
+   pipeline's H2D choice (``[h2d]``: a pinned column slice against a
+   contiguous pinned tile, and the tile-major host copy), then each of
+   its kernels on one panel tile at the shapes (a) gives it, against its
+   plain version, twice bitwise, timed; (a) the first two
+   snapshots of phase 5's sequence in a raw store of grid 8 (1314-row
+   panels), scored out of core on a 2x2 grid with a host-RAM scratch and
+   the ``stream_gemm`` kernels: exact launch counts (a K step is 4
+   tensor-core launches of (657 x 1314) @ (1314 x 5256); with two column
+   shards the chi build and the solve steps run ``stream_gemm``'s skinny
+   route per panel tile and ``fused_panel_matvec`` never runs), scores
+   within 1e-3 of phase 5's transition 0's largest and top-20 ids equal but
+   for ties, wall, phase seconds, peak memory and stream bytes beside phase
+   5's; (b) the same snapshots streamed from the store and resident on the
+   2x2 grid: degrees, Y and scores bitwise, or their gap; (c) n=1536 card
+   grid against CPU grid: the bf16 out-of-core path on a 2x1 grid
+   (``fused_panel_matvec`` per row tile; two snapshots), the incremental
+   chain on a 2x2 grid resident and out of core over three snapshots
+   (phase 7's gates: scores against the full rebuild within
+   ``INC_ERR_LIMIT``, top-20 overlap with the one-device delta run at
+   least ``INC_OVERLAP_MIN``, card against CPU within
+   ``INC_CARD_CPU_RTOL``), an embedding store published from a 2x2 run
+   queried raw at top-20 against a brute force;
+   (d) ``caddelag-run-torch --device cpu --data 2 --model 2`` with each of
+   ``--store``, ``--oocore-chain``, ``--incremental-chain`` and
+   ``--emb-store``: top-k equal to the 1x1 run's.
 
 A copy of the script beside another tree's ``src/`` (a parent commit's
 ``git archive``) runs the same phases on that tree's package, so both trees
 are measured by the same code in one call.
 
 The line before the last is the JSON ``kernels`` table (``launches`` sums
-the main paths of phases 3, 5, 7, 8, 9, 10 and 11; ``launches_by_path`` splits them); the
+the main paths of phases 3, 5, 7, 8, 9, 10, 11 and 12; ``launches_by_path`` splits them); the
 last line is ``{"ok": true, "device": {...}}``.  It imports neither JAX nor
 the JAX package.  Long logs go to ``OUT``, a gitignored directory beside
-the script; the on-disk stores of phases 5, 7, 8 and 10 live under ``build/``
+the script; the on-disk stores of phases 5, 7, 8, 10 and 12 live under ``build/``
 and are removed at the end of their phase.
 """
 
@@ -168,7 +196,9 @@ TOP_K = 20
 BM_ERR64_BAR = 1.04e-3  # max |C - float64| at 10512^3 of the SIMT tile loop this design replaced
 STORE_GRID = 16  # input store of the out-of-core path: 657-row panels
 PH_OOC = 1314  # its scratch panels (scratch grid 8)
-T_OOC = 3  # snapshots of the out-of-core main path
+T_MAIN = 3  # snapshots of the climate sequence (its draws depend on it: phases 5 and 12 store
+# the first snapshots of this sequence)
+T_OOC = 2  # snapshots of the out-of-core main path (two, not three: phase 12's time)
 T_INC = 4  # snapshots of the resident incremental run (phase 7)
 T_INC_OOC = 3  # and of the out-of-core one
 N_INC_SMALL = 1536  # phase 7's card-against-CPU runs
@@ -966,7 +996,7 @@ def phase_oocore(torch, rows: list, resident: dict, per: dict) -> tuple:
 
     from repro_torch import kernels
     from repro_torch.core import CommuteConfig, SequenceDetector, reset_stream_stats, stream_stats
-    from repro_torch.graphs import climate_snapshot_sequence, store_snapshot_sequence
+    from repro_torch.graphs import climate_snapshot_sequence
     from repro_torch.obs import REGISTRY, disable_tracing, enable_tracing
     from repro_torch.store import TileStore
 
@@ -974,9 +1004,12 @@ def phase_oocore(torch, rows: list, resident: dict, per: dict) -> tuple:
     tmp = Path(tempfile.mkdtemp(prefix="smoke_store_", dir=ROOT / "build"))
     try:
         t0 = time.perf_counter()
-        seq = climate_snapshot_sequence(73, 144, t_steps=T_OOC, device="cuda")
+        seq = climate_snapshot_sequence(73, 144, t_steps=T_MAIN, device="cuda")
         store = TileStore.create(tmp, n=N_MAIN, grid=STORE_GRID, codec="raw")
-        ids = store_snapshot_sequence(store, seq)
+        ids = []
+        for t, a in zip(range(T_OOC), seq.snapshots()):
+            ids.append(store.put_snapshot(f"t{t:04d}", a.cpu().numpy()).snap_id)
+            del a
         event = set(seq.event_nodes.tolist())
         del seq
         gc.collect()
@@ -2706,6 +2739,479 @@ def phase_grid(torch, rows: list, resident: dict, s64) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the out-of-core, store-streamed and incremental paths on a device
+# grid (2x2 tiles on one card)
+# ---------------------------------------------------------------------------
+
+STORE_GRID_12 = 8  # phase 12's input store: 1314-row panels (657 rows do not split in 2)
+T_GRID_OOC = 2  # snapshots of phase 12 (a): one transition, phase 5's transition 0
+T_GRID_SMALL = 2  # and of its n=1536 out-of-core and publishing runs (c), cut for time
+T_GRID_INC = 3  # and of its n=1536 incremental runs (c), cut from phase 7's 4 for time
+
+
+def _ctx(torch, dev: str, rows: int = 2, cols: int = 2):
+    from repro_torch.core import make_context
+
+    return make_context([torch.device(dev) if dev == "cuda" else dev] * (rows * cols), rows)
+
+
+def _grid_h2d(torch) -> dict:
+    """The grid pipeline's host-to-device choice, measured on one 1314 x 10512
+    fp32 panel: a column half of a pinned panel (not contiguous) against a
+    contiguous pinned tile of the same bytes, each copied with
+    ``non_blocking=True``.  The host time of the call, whether the copy was
+    still running when the call returned (it was asynchronous), and the time
+    to the copy's end; then the host copy into one pinned buffer, row-major
+    as the one-device pipeline fills it against tile-major as the grid's."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    ph, n = PH_OOC, N_MAIN
+    host = np.random.default_rng(0).random((ph, n), dtype=np.float32)
+    pinned = torch.from_numpy(host).pin_memory()
+    tile = pinned[:, : n // 2].contiguous().pin_memory()
+    out = {}
+    for label, src in (("pinned column slice (not contiguous)", pinned[:, : n // 2]),
+                       ("pinned contiguous tile", tile)):
+        walls, ends, asyncs = [], [], []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            d = src.to(dev, non_blocking=True)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            asyncs.append(not torch.cuda.current_stream().query())
+            stop.record()
+            stop.synchronize()
+            ends.append(start.elapsed_time(stop))
+            del d
+        out[label] = {"mb": ph * (n // 2) * 4 / 1e6, "host_call_ms": float(np.median(walls[1:])),
+                      "copy_end_ms": float(np.median(ends[1:])),
+                      "returned_before_the_copy_ended": sum(asyncs[1:])}
+    copies = {}
+    buf = torch.empty((ph, n), dtype=torch.float32, pin_memory=True)
+    tiled = torch.empty((2, 2, ph // 2, n // 2), dtype=torch.float32, pin_memory=True)
+    for label, fn in (("row-major", lambda: np.copyto(buf.numpy(), host)),
+                      ("tile-major 2x2", lambda: np.copyto(
+                          tiled.numpy(), host.reshape(2, ph // 2, 2, n // 2).transpose(0, 2, 1, 3)))):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        copies[label] = (time.perf_counter() - t0) / 5 * 1e3
+    out["host copy into pinned (ms)"] = copies
+    nc, ct = out["pinned column slice (not contiguous)"], out["pinned contiguous tile"]
+    log(f"[h2d] grid tiles of one {ph}x{n} fp32 panel, {nc['mb']:.1f} MB a column half: a pinned "
+        f"column slice (not contiguous) takes {nc['host_call_ms']:.3f} ms of host time a call and "
+        f"returned before its copy ended {nc['returned_before_the_copy_ended']}/3 times (copy end "
+        f"{nc['copy_end_ms']:.3f} ms); a contiguous pinned tile {ct['host_call_ms']:.3f} ms of host "
+        f"time, returned first {ct['returned_before_the_copy_ended']}/3 times (copy end "
+        f"{ct['copy_end_ms']:.3f} ms); host copy of the panel into pinned memory row-major "
+        f"{copies['row-major']:.2f} ms, tile-major 2x2 {copies['tile-major 2x2']:.2f} ms")
+    return out
+
+
+def _grid_oocore_tiles(torch, rows: list) -> dict:
+    """Each kernel of (a) on one panel tile at the shapes that run gives it
+    (ph = 1314, a 2x2 grid: tiles of 657 x 5256): the K step's
+    (657 x 1314) @ (1314 x 5256) into its accumulator tile, the chi / solve
+    product (657 x 5256) @ (5256 x 17), edge_projection and cad_scores on
+    the tile at global (row0, col0) = (1971, 5256) with its Z rows and
+    columns.  Against the plain versions at phase 2's tolerances, twice
+    bitwise, CUDA-event ms beside the plain version's."""
+    from repro_torch.kernels import cad_score as cad
+    from repro_torch.kernels import edge_projection as ep
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import stream_gemm as sg
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    ph, n, k = PH_OOC, N_MAIN, K_MAIN
+    pr, pc = ph // 2, n // 2
+    row0, col0 = ph + pr, pc
+
+    def uniform(*shape, lo=0.0):
+        return torch.rand(shape, generator=g, device=dev) * (1.0 - lo) + lo
+
+    left, right, acc = uniform(pr, ph, lo=-1.0), uniform(ph, pc, lo=-1.0), uniform(pr, pc, lo=-1.0)
+    p_tile, y_cols = uniform(pr, pc, lo=-1.0), torch.randn((pc, k), generator=g, device=dev)
+    a1, a2 = uniform(pr, pc), uniform(pr, pc)
+    z1i, z1j, z2i, z2j = (torch.randn(shape, generator=g, device=dev)
+                          for shape in ((pr, k), (pc, k), (pr, k), (pc, k)))
+    scratch = torch.empty((sg.scratch_elems(pr, pc, ph),), dtype=torch.float32, device=dev)
+    cases = {
+        "stream_gemm": (f"K step tile ({pr}x{ph})@({ph}x{pc}) + init", 2e-5,
+                        lambda: sg.stream_gemm(left, right, acc, scratch=scratch),
+                        lambda: ref.stream_gemm(left, right, acc)),
+        "stream_gemm skinny": (f"solve tile ({pr}x{pc})@({pc}x{k})", 2e-5,
+                               lambda: sg.stream_gemm(p_tile, y_cols),
+                               lambda: ref.stream_gemm(p_tile, y_cols)),
+        "edge_projection": (f"panel tile {pr}x{pc} at ({row0}, {col0})", 2e-5,
+                            lambda: ep.edge_projection(a1, seed=0, k=k, row0=row0, col0=col0),
+                            lambda: ref.edge_projection(a1, seed=0, k=k, row0=row0, col0=col0)),
+        "cad_scores": (f"panel tile {pr}x{pc} with its Z rows and columns", 1e-4,
+                       lambda: cad.cad_scores_tile(a1, a2, z1i, z1j, z2i, z2j, 10.0, 12.5),
+                       lambda: ref.cad_scores_tile(a1, a2, z1i, z1j, z2i, z2j, 10.0, 12.5)),
+    }
+    out = {}
+    for name, (shape, tol, fn, plain) in cases.items():
+        err, scale = check_close(f"{name} {shape}", fn(), plain(), tol)
+        check_bitwise(torch, f"{name} {shape}", fn)
+        ms, plain_ms = time_ms(torch, fn, reps=10), time_ms(torch, plain, reps=3)
+        out[name] = {"shape": shape, "max_abs_err": err, "max_abs_plain": scale,
+                     "tol": f"{tol:g} x max|plain|", "ms": ms, "plain_ms": plain_ms}
+        row = next(r for r in rows if r["name"] == name.split()[0])
+        row.setdefault("grid_oocore_tiles", {})[shape] = out[name]
+        log(f"[grid oocore] {name} {shape}: max_abs_err {err:.3e} (tol {tol:g} x max|plain| "
+            f"{scale:.3e}), bitwise repeatable; {ms:.4f} ms, plain {plain_ms:.3f} ms")
+    return out
+
+
+def _grid_oocore(torch, oocore: dict, s5_t0) -> dict:
+    """(a) The out-of-core main path on a 2x2 grid of cuda:0 at n=10512: the
+    first two snapshots of phase 5's sequence in a raw store of grid 8 on disk,
+    a host-RAM scratch, the stream_gemm kernels; exact launch counts, scores
+    against phase 5's transition 0."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.core import CommuteConfig, SequenceDetector, reset_stream_stats, stream_stats
+    from repro_torch.graphs import climate_snapshot_sequence
+    from repro_torch.obs import REGISTRY, disable_tracing, enable_tracing
+    from repro_torch.store import TileStore
+
+    ctx = _ctx(torch, "cuda")
+    R, C = ctx.n_row_shards, ctx.n_col_shards
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_grid_store_", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        # phase 3's sequence (the generator's draws depend on t_steps); two snapshots are stored
+        seq = climate_snapshot_sequence(73, 144, t_steps=T_MAIN, device="cuda")
+        store = TileStore.create(tmp, n=N_MAIN, grid=STORE_GRID_12, codec="raw")
+        for t, a in zip(range(T_GRID_OOC), seq.snapshots()):
+            store.put_snapshot(f"t{t:04d}", a.cpu().numpy())
+            del a
+        del seq
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[grid oocore] wrote {T_GRID_OOC} snapshots of n={N_MAIN} into a raw "
+            f"{STORE_GRID_12}x{STORE_GRID_12} tile store on disk in {time.perf_counter() - t0:.1f} s")
+        handles = [store.snapshot(f"t{t:04d}") for t in range(T_GRID_OOC)]
+        cfg = CommuteConfig(eps_rp=1e-3, d=6, q=10, oocore=True, use_gemm_kernel=True)
+        det = SequenceDetector(cfg, top_k=TOP_K, ctx=ctx)
+        enable_tracing(fence=True)  # phase seconds are device walls
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_stream_stats()
+        m0 = REGISTRY.snapshot()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = det.run(handles)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        disable_tracing()
+        met = REGISTRY.delta(m0)
+        st = stream_stats().snapshot()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        bitwise = _grid_streamed_vs_resident(torch, ctx, handles)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    g = N_MAIN // PH_OOC
+    tiles = R * C
+    # a K step is R*C tensor-core launches of (ph/R x ph) @ (ph x n/C); with C > 1 the chi
+    # build and every solve step run stream_gemm's skinny route per panel tile
+    want = {name: 0 for name in counts} | {
+        "edge_projection": T_GRID_OOC * g * tiles, "cad_scores": (T_GRID_OOC - 1) * g * tiles,
+        "stream_gemm": T_GRID_OOC * (CHAIN_GEMMS * g * g + g + REFINE_STEPS * g) * tiles,
+        "stream_gemm_tc": T_GRID_OOC * CHAIN_GEMMS * g * g * tiles}
+    if counts != want:
+        fail(f"grid out-of-core launch counts {counts} != {want}")
+    r = res.transitions[0]
+    s, s5 = r.scores.cpu().numpy(), np.asarray(s5_t0)
+    if s.shape != (N_MAIN,) or not np.isfinite(s).all():
+        fail(f"grid out-of-core: scores not finite of shape ({N_MAIN},)")
+    scale = float(np.abs(s5).max())
+    err = float(np.abs(s - s5).max())
+    if err > 1e-3 * scale:
+        fail(f"grid out-of-core: max |diff| to phase 5's transition 0 {err:.3e} > 1e-3 x max "
+             f"score {scale:.3e}")
+    ids, ids5 = r.top_idx.tolist(), np.argsort(-s5, kind="stable")[:TOP_K].tolist()
+    if ids != ids5 and _ranking_flips(ids, ids5, s5, 1e-3 * scale):
+        fail(f"grid out-of-core: top-{TOP_K} ids {ids} differ from phase 5's {ids5} beyond ties "
+             f"within 1e-3 of the largest score")
+    split = {"run_wall_s": wall,
+             **{f"phase_{p}_s": met.get(f"phase.{p}.seconds", 0.0)
+                for p in ("chain", "ingest", "solve", "score")},
+             "d2h_and_sync_wait_s": met.get("oochain.d2h_seconds", 0.0),
+             "store_write_s": met.get("oochain.store_write_seconds", 0.0),
+             "pinned_staging_copy_s": met.get("pipeline.pin_copy_seconds", 0.0),
+             "producer_fetch_s": met.get("pipeline.producer_fetch_seconds", 0.0),
+             "consumer_wait_s": met.get("pipeline.consumer_wait_seconds", 0.0)}
+    p5 = oocore["split"]
+    log(f"[grid oocore] 2x2 (one card, 4 tiles) n={N_MAIN} T={T_GRID_OOC} d={cfg.d} q={cfg.q}, "
+        f"store grid {STORE_GRID_12}, scratch panels {PH_OOC} rows (host RAM, raw): run wall "
+        f"{wall:.3f} s (phase 5, T={T_OOC}: {oocore['wall']:.3f} s); transition 0 "
+        f"{res.transition_seconds[0]:.3f} s; launches {counts}; peak device memory {peak:.3f} GB "
+        f"(phase 5 {oocore['peak_gb']:.3f} GB); stream.peak_live_bytes "
+        f"{st['peak_live_bytes'] / 1e6:.1f} MB (phase 5 "
+        f"{oocore['stream']['peak_live_bytes'] / 1e6:.1f} MB; the grid's gathered K-step operands "
+        f"count too)")
+    log(f"[grid oocore] transition 0: max |diff| to phase 5's {err:.3e} ({err / scale:.3e} of its "
+        f"largest score, tol 1e-3); top-{TOP_K} ids "
+        f"{'equal' if ids == ids5 else 'equal but for ties'}")
+    log(f"[grid oocore] stream bytes: read {st['bytes_read'] / 1e9:.2f} GB, decoded "
+        f"{st['bytes_decoded'] / 1e9:.2f} GB, H2D {st['bytes_h2d'] / 1e9:.2f} GB in "
+        f"{st['panels']} panels (phase 5, T={T_OOC}: read {oocore['stream']['bytes_read'] / 1e9:.2f}"
+        f", H2D {oocore['stream']['bytes_h2d'] / 1e9:.2f} GB in {oocore['stream']['panels']} "
+        f"panels)")
+    log("[grid oocore] time split (s, host clock): " + ", ".join(
+        f"{k[:-2]} {v:.3f} (phase 5 {p5.get(k, float('nan')):.3f})" for k, v in split.items()))
+    return {"counts": counts, "wall": wall, "transition_s": res.transition_seconds,
+            "peak_gb": peak, "stream": st, "split": split,
+            "max_rel_diff_vs_phase5_t0": err / scale, "top_ids_equal": ids == ids5,
+            "streamed_vs_resident": bitwise}
+
+
+def _grid_streamed_vs_resident(torch, ctx, handles) -> dict:
+    """(b) On the 2x2 grid of the card: the handles streamed (the resident
+    chain, every pass over A streamed) against the same snapshots resident,
+    for the degrees, Y and the transition's scores: bitwise, or the gap.
+    Gates: degrees 1e-6 and Y 2e-5 of their largest entry (phase 11's tile
+    tolerance), scores 1e-3 of the largest."""
+    import numpy as np
+
+    from repro_torch.core import CommuteConfig, detect_anomalies, edge_projection
+    from repro_torch.core import laplacian as lap
+
+    cfg = CommuteConfig(eps_rp=1e-3, d=6, q=10)
+    res_in = [ctx.put_matrix(h.to_numpy()) for h in handles]
+    out = {}
+    pairs = {"degrees": (lap.degrees(handles[0], ctx=ctx), lap.degrees(res_in[0]), 1e-6),
+             "Y": (edge_projection(handles[0], cfg.seed, K_MAIN, ctx=ctx),
+                   edge_projection(res_in[0], cfg.seed, K_MAIN), 2e-5)}
+    t0 = time.perf_counter()
+    streamed = detect_anomalies(*handles, cfg, top_k=TOP_K, ctx=ctx).scores
+    t_streamed = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resident = detect_anomalies(*res_in, cfg, top_k=TOP_K, ctx=ctx).scores
+    t_resident = time.perf_counter() - t0
+    pairs["scores"] = (streamed, resident, 1e-3)
+    del res_in
+    for name, (a, b, tol) in pairs.items():
+        gap = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        if not bool(torch.isfinite(a).all()) or gap > tol * scale:
+            fail(f"grid streamed vs resident {name}: max |diff| {gap:.3e} > {tol:g} x {scale:.3e}")
+        out[name] = {"bitwise": gap == 0.0, "max_abs_diff": gap, "of_largest": gap / scale}
+    torch.cuda.empty_cache()
+    def said(v: dict) -> str:
+        if v["bitwise"]:
+            return "bitwise"
+        return f"max |diff| {v['max_abs_diff']:.3e} ({v['of_largest']:.2e} of the largest)"
+
+    log("[grid oocore] (b) 2x2 grid, handles streamed against the same snapshots resident: "
+        + "; ".join(f"{k} {said(v)}" for k, v in out.items())
+        + f"; transition {t_streamed:.3f} s streamed, {t_resident:.3f} s resident")
+    out["transition_s"] = {"streamed": t_streamed, "resident": t_resident}
+    return out
+
+
+def _grid_small_card_vs_cpu(torch) -> dict:
+    """(c) n=1536 on the card's grids against the CPU's: the bf16 out-of-core
+    path on a 2x1 grid (fused_panel_matvec per row tile); the incremental
+    chain on a 2x2 grid, resident and out of core, with phase 7's gates; an
+    embedding store published from a 2x2 run, queried raw at top-20 against
+    a float64 brute force."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.core import CommuteConfig, SequenceDetector, query
+    from repro_torch.graphs import climate_snapshot_sequence
+    from repro_torch.store import EmbeddingStore, TileStore
+
+    out = {}
+    n = 1536
+    cfg = CommuteConfig(eps_rp=1e-3, d=6, q=10, oocore=True, tile_codec="bf16",
+                        use_gemm_kernel=True)
+    store = TileStore.create(None, n=n, grid=STORE_GRID, codec="bf16")
+    seq = climate_snapshot_sequence(32, 48, t_steps=T_MAIN, device="cpu")
+    snaps = [a for _, a in zip(range(T_GRID_SMALL), seq.snapshots())]
+    ids = [store.put_snapshot(f"t{t}", a.numpy()).snap_id for t, a in enumerate(snaps)]
+    t0 = time.perf_counter()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        kernels.reset_launch_counts()
+        runs[dev] = SequenceDetector(cfg, top_k=TOP_K, ctx=_ctx(torch, dev, 2, 1)).run(
+            store.snapshot(i) for i in ids)
+        if dev == "cuda":
+            counts = kernels.launch_counts()
+    # scratch grid 8 at n=1536: 192-row panels, 96-row tiles; one fused launch per row tile
+    g = n // 192
+    if counts["fused_panel_matvec"] != T_GRID_SMALL * REFINE_STEPS * g * 2:
+        fail(f"bf16 out-of-core 2x1 grid: fused_panel_matvec launched "
+             f"{counts['fused_panel_matvec']} times, want {T_GRID_SMALL * REFINE_STEPS * g * 2}")
+    out["bf16 oocore 2x1"] = {"counts": counts, "rel": check_card_vs_cpu(
+        "out-of-core bf16 n=1536 2x1 grid", runs["cuda"], runs["cpu"])}
+    log(f"[grid oocore] (c) bf16 out-of-core n={n} T={T_GRID_SMALL} on a 2x1 grid, card and CPU "
+        f"in {time.perf_counter() - t0:.1f} s: launches {counts}")
+
+    inc_cfg = CommuteConfig(eps_rp=1e-3, d=6, q=10, incremental_chain=True, delta_rank=4,
+                            delta_budget=0.1)
+    quiet = [a.cpu() for a in _drifting_gmm(n, T_GRID_INC, "cpu").snapshots()]
+    want_d = [(1, 0, 0)] + [(0, 1, 0)] * (T_GRID_INC - 1)
+    for storage in ("resident", "out-of-core"):
+        t0 = time.perf_counter()
+        oo = storage == "out-of-core"
+        icfg = replace(inc_cfg, oocore=oo, use_gemm_kernel=oo)
+        runs, full = {}, {}
+        for dev in ("cuda", "cpu"):
+            if oo:
+                st = TileStore.create(None, n=n, grid=STORE_GRID, codec="raw")
+                src = [st.put_snapshot(f"t{t:03d}", a.numpy()) for t, a in enumerate(quiet)]
+            else:
+                src = [a.to(dev) for a in quiet]
+            ctx = _ctx(torch, dev)
+            runs[dev] = SequenceDetector(icfg, top_k=TOP_K, ctx=ctx).run(src)
+            if dev == "cuda":
+                full = SequenceDetector(replace(icfg, incremental_chain=False), top_k=TOP_K,
+                                        ctx=ctx).run(src)
+                one = SequenceDetector(icfg, top_k=TOP_K, device="cuda").run(src)
+        tag = f"incremental n={n} {storage} 2x2 grid"
+        dec = {dev: _inc_decisions(r) for dev, r in runs.items()}
+        if dec["cuda"] != dec["cpu"] or dec["cuda"] != want_d:
+            fail(f"{tag}: (rebuilds, delta updates, fallbacks) per push card {dec['cuda']}, CPU "
+                 f"{dec['cpu']}, want {want_d}")
+        # The delta run against the full rebuild on the card: INC_ERR_LIMIT of V_G E|z|^2.
+        # Its top-20 overlap with the rebuild is the delta algorithm's at this size, the
+        # same on one device (quiet transitions rank near-ties: ROADMAP Queue 3), so
+        # INC_OVERLAP_MIN holds the grid's delta run against the one-device delta run.
+        errs, overlaps, vs_full, one_vs_full = [], [], [], []
+        for ri, rf, r1 in zip(runs["cuda"].transitions, full.transitions, one.transitions):
+            si, sf = ri.scores.cpu().numpy(), rf.scores.cpu().numpy()
+            errs.append(float(np.abs(si - sf).max()))
+            ids, ids_f, ids_1 = (set(r.top_idx.tolist()) for r in (ri, rf, r1))
+            overlaps.append(len(ids & ids_1))
+            vs_full.append(len(ids & ids_f))
+            one_vs_full.append(len(ids_1 & ids_f))
+        from repro_torch.core import commute_time_embedding
+
+        emb = commute_time_embedding(quiet[0].cuda(), replace(inc_cfg, incremental_chain=False),
+                                     device="cuda")
+        z0 = emb.z.double()
+        scale = float(emb.vol) * float((z0 * z0).sum(1).mean())
+        errs = [e / scale for e in errs]
+        if max(errs) > INC_ERR_LIMIT or min(overlaps) < INC_OVERLAP_MIN:
+            fail(f"{tag}: against the full rebuild max error {errs} of V_G E|z|^2 (limit "
+                 f"{INC_ERR_LIMIT:g}); top-{TOP_K} overlap with the one-device delta run "
+                 f"{overlaps} (min {INC_OVERLAP_MIN})")
+        rel = check_card_vs_cpu(tag, runs["cuda"], runs["cpu"], rtol=INC_CARD_CPU_RTOL, ties=True)
+        out[tag] = {"decisions": dec["cuda"], "err_vs_full_of_scale": errs,
+                    "overlap_vs_one_device_delta": overlaps, "overlap_vs_full": vs_full,
+                    "one_device_overlap_vs_full": one_vs_full, "card_vs_cpu_rel": rel}
+        log(f"[grid oocore] (c) {tag} T={T_GRID_INC} ({time.perf_counter() - t0:.1f} s): decisions "
+            f"{dec['cuda']} on card and CPU; against the full "
+            f"rebuild {', '.join(f'{e:.3e}' for e in errs)} of V_G E|z|^2 (limit "
+            f"{INC_ERR_LIMIT:g}); top-{TOP_K} overlap with the one-device delta run {overlaps} "
+            f"(min {INC_OVERLAP_MIN}), with the full rebuild {vs_full} (one device "
+            f"{one_vs_full}); card against CPU {', '.join(f'{e:.3e}' for e in rel)} of the "
+            f"largest score (limit {INC_CARD_CPU_RTOL:g})")
+
+    pub_cfg = CommuteConfig(eps_rp=1e-3, d=6, q=10)
+    k = pub_cfg.k_rp(n)
+    es = EmbeddingStore.create(None, n=n, k=k, seed=pub_cfg.seed)
+    SequenceDetector(pub_cfg, top_k=TOP_K, ctx=_ctx(torch, "cuda"), emb_store=es).run(
+        [a.cuda() for a in snaps])
+    if es.embedding_ids != [f"t{t:04d}" for t in range(T_GRID_SMALL)]:
+        fail(f"2x2 grid publish: artifacts {es.embedding_ids}")
+    h = es.latest()
+    res = query.top_anomalies_from_store(es, TOP_K, device="cuda")
+    z = h.to_numpy().astype(np.float64)
+    brute = h.vol * ((z - z.mean(0)) ** 2).sum(1)
+    order = np.argsort(-brute, kind="stable")[:TOP_K]
+    if res.idx.tolist() != order.tolist():
+        fail(f"2x2 grid publish: raw top-{TOP_K} query ids {res.idx.tolist()} != brute force "
+             f"{order.tolist()}")
+    verr = float(np.abs(res.val - brute[order]).max() / np.abs(brute[order]).max())
+    if verr > 1e-4:
+        fail(f"2x2 grid publish: query values off the brute force by {verr:.3e} of the largest")
+    out["publish 2x2"] = {"ids": es.embedding_ids, "query_ids_equal_bruteforce": True,
+                          "max_rel_value_err": verr}
+    log(f"[grid oocore] (c) embedding store published from a 2x2 grid at n={n}: "
+        f"{es.embedding_ids}; raw top-{TOP_K} query ids equal to the float64 brute force, values "
+        f"within {verr:.2e} of the largest")
+    return out
+
+
+def _grid_cli() -> dict:
+    """(d) caddelag-run-torch --device cpu --data 2 --model 2 with each of
+    --store, --oocore-chain, --incremental-chain and --emb-store: the
+    sequence-wide top-k equal to the 1x1 run's."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import caddelag_run
+
+    out = {}
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_grid_cli_", dir=ROOT / "build"))
+    try:
+        for flag in (["--store", "S"], ["--oocore-chain"],
+                     ["--incremental-chain", "--drift-nodes", "3"], ["--emb-store", "E"]):
+            tops = []
+            for grid in ("1", "2"):
+                args = [str(tmp / f"{f}{grid}") if f in ("S", "E") else f for f in flag]
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    caddelag_run.main(["--device", "cpu", "--n", "64", "--t-steps", "3", "--d",
+                                       "3", "--q", "4", "--data", grid, "--model", grid, *args])
+                tops.append([ln for ln in buf.getvalue().splitlines()
+                             if "sequence-wide top-" in ln][0].split(":", 1)[1].strip())
+            if tops[0] != tops[1]:
+                fail(f"caddelag-run-torch {flag[0]} --data 2 --model 2: top-k {tops[1]} != the "
+                     f"1x1 run's {tops[0]}")
+            out[flag[0]] = tops[1]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[grid oocore] (d) caddelag-run-torch --device cpu --data 2 --model 2 with "
+        f"{', '.join(out)}: sequence-wide top-k equal to the 1x1 run's")
+    return out
+
+
+def phase_grid_oocore(torch, rows: list, oocore: dict, s5_t0) -> dict:
+    """Phase 12: the out-of-core, store-streamed and incremental paths on a
+    2x2 grid of the one card (a 2x1 grid for the fused solve)."""
+    t_phase = time.perf_counter()
+    out, parts = {}, {}
+    for key, fn in (("h2d", lambda: _grid_h2d(torch)),
+                    ("kernel tiles", lambda: _grid_oocore_tiles(torch, rows)),
+                    ("main_path", lambda: _grid_oocore(torch, oocore, s5_t0)),
+                    ("n=1536", lambda: _grid_small_card_vs_cpu(torch)),
+                    ("cli", _grid_cli)):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        parts[key] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["counts"] = out["main_path"]["counts"]
+    out["seconds"] = time.perf_counter() - t_phase
+    out["part_seconds"] = parts
+    log(f"[grid oocore] phase 12 in {out['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+        + f"); main-path launches {out['counts']}")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
@@ -2722,6 +3228,7 @@ def main() -> int:
     from repro_torch import resolve_device
     from repro_torch.kernels import _build
 
+    t_start = time.perf_counter()
     resolve_device("cuda")  # TF32 off for every fp32 product below
     OUT.mkdir(exist_ok=True)
     smi = subprocess.run(
@@ -2757,6 +3264,7 @@ def main() -> int:
     oocore, yardstick["out-of-core stream_gemm"] = phase_oocore(torch, rows, resident, per_launch)
     chain64 = report_chain_yardstick(torch, yardstick)
     s64 = yardstick["float64"][1]  # phase 11's float64 reference for transition 0
+    s5_t0 = yardstick["out-of-core stream_gemm"][1].numpy()  # phase 12's reference
     del yardstick
     phase_oocore_end_to_end(torch)
     torch.cuda.empty_cache()
@@ -2769,6 +3277,8 @@ def main() -> int:
     paper = phase_paper(torch, smi)
     torch.cuda.empty_cache()
     grid = phase_grid(torch, rows, resident, s64)
+    torch.cuda.empty_cache()
+    grid_oocore = phase_grid_oocore(torch, rows, oocore, s5_t0)
     for row in rows:
         by_path = {"resident": resident["counts"][row["name"]],
                    "oocore": oocore["counts"][row["name"]],
@@ -2779,6 +3289,7 @@ def main() -> int:
         by_path |= {f"serve {arch}": serve[arch]["counts"][row["name"]] for arch, _ in SERVE_MODELS}
         by_path["paper"] = paper["counts"][row["name"]]
         by_path["grid"] = grid["counts"][row["name"]]
+        by_path["grid oocore"] = grid_oocore["counts"][row["name"]]
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if row["name"] == "flash_attention":
@@ -2787,7 +3298,8 @@ def main() -> int:
         if row["name"] == "stream_gemm":
             row["launches_tc"] = (oocore["counts"]["stream_gemm_tc"]
                                   + incremental["oocore"]["counts"]["stream_gemm_tc"]
-                                  + paper["counts"]["stream_gemm_tc"])
+                                  + paper["counts"]["stream_gemm_tc"]
+                                  + grid_oocore["counts"]["stream_gemm_tc"])
     (OUT / "chip_smoke_oocore.json").write_text(json.dumps(
         {"card": smi, "per_launch": per_launch, **oocore, "chain_float64_yardstick": chain64},
         indent=1))
@@ -2796,13 +3308,16 @@ def main() -> int:
     (OUT / "chip_smoke_query.json").write_text(json.dumps({"card": smi, **query}, indent=1))
     (OUT / "chip_smoke_serve.json").write_text(json.dumps({"card": smi, **serve}, indent=1))
     (OUT / "chip_smoke_paper.json").write_text(json.dumps({"card": smi, **paper}, indent=1))
-    (OUT / "chip_smoke_grid.json").write_text(json.dumps({"card": smi, **grid}, indent=1))
+    (OUT / "chip_smoke_grid.json").write_text(json.dumps(
+        {"card": smi, **grid, "phase 12 (out of core on the grid)": grid_oocore}, indent=1,
+        default=str))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     table = {"kernels": [{**{k: r[k] for k in keys},
                           **{k: v for k, v in r.items() if k not in keys}} for r in rows]}
     (OUT / "chip_smoke_kernels.json").write_text(json.dumps(table, indent=1))
+    log(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(table))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

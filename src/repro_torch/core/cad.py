@@ -9,8 +9,8 @@ The commute-distance matrices are never materialized: the ``cad_scores``
 CUDA kernel rebuilds them tile by tile from the embeddings and row-reduces.
 Either adjacency may be a snapshot handle: the scorer then streams matching
 row panels of both endpoints, one kernel launch per panel.  On a device
-grid each tile is one launch with its Z rows and columns, reduced over the
-columns on the home device.
+grid each tile (of the matrix, or of a streamed panel) is one launch with
+its Z rows and columns, reduced over the columns on the home device.
 """
 
 from __future__ import annotations
@@ -19,20 +19,12 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.core.distmatrix import ITEM_9B, DistContext, context_of, grid_of, on_grid
+from repro_torch.core.distmatrix import DistContext, context_of, grid_of, grid_or_none, on_grid
 from repro_torch.core.embedding import CommuteConfig, Embedding, commute_time_embedding
 from repro_torch.core.tiles import MATRIX, REPLICATED, is_streamable, tile_map, tile_stream
 from repro_torch.device import resolve_device
 from repro_torch.kernels import cad_score as _cad
 from repro_torch.obs import phase
-
-
-def _cad_panel_body(r0: int, b1, b2, z1, z2, v1, v2) -> torch.Tensor:
-    ph = b1.shape[0]
-    return _cad.cad_scores_tile(
-        b1.to(torch.float32).contiguous(), b2.to(torch.float32).contiguous(),
-        z1[r0 : r0 + ph], z1, z2[r0 : r0 + ph], z2, v1, v2,
-    )
 
 
 def _cad_tile_body(tile, b1, b2, z1, z2, v1: float, v2: float) -> torch.Tensor:
@@ -51,23 +43,26 @@ def node_anomaly_scores(
 
     On a device grid (``ctx``, or the adjacencies DistMatrices) the scores
     come back on the home device; the volumes are read to the host once a
-    call, not once a tile.
+    call, not once a tile.  A snapshot handle streams matching row panels
+    of both endpoints (a resident endpoint is sliced alongside), onto the Z
+    device or the grid's tiles: one launch per panel tile.
     """
     z1 = e1.z.to(torch.float32).contiguous()
     z2 = e2.z.to(torch.float32).contiguous()
     streamed = is_streamable(a1) or is_streamable(a2)
     ctx = grid_of(ctx, a1, a2)
-    if streamed and ctx is not None and not ctx.is_trivial:
-        raise NotImplementedError(f"node_anomaly_scores of snapshot handles: {ITEM_9B}")
+    args = (z1, z2, float(e1.vol), float(e2.vol))
+    specs = (MATRIX, MATRIX) + (REPLICATED,) * 4
     with phase("score", streamed=streamed) as sp:
         if streamed:
-            scores = tile_stream(_cad_panel_body, a1, a2, device=z1.device,
-                                 consts=(z1, z2, e1.vol, e2.vol), prefetch_depth=prefetch_depth)
+            ctx = grid_or_none(ctx)
+            scores = tile_stream(_cad_tile_body, on_grid(ctx, a1), on_grid(ctx, a2), *args,
+                                 ctx=ctx, device=z1.device, in_specs=specs, reduce="cols",
+                                 prefetch_depth=prefetch_depth)
         else:
             ctx = context_of(ctx, a1)
-            scores = tile_map(ctx, _cad_tile_body, on_grid(ctx, a1), on_grid(ctx, a2), z1, z2,
-                              float(e1.vol), float(e2.vol),
-                              in_specs=(MATRIX, MATRIX) + (REPLICATED,) * 4, reduce="cols")
+            scores = tile_map(ctx, _cad_tile_body, on_grid(ctx, a1), on_grid(ctx, a2), *args,
+                              in_specs=specs, reduce="cols")
         sp.fence(scores)
     return scores
 
@@ -99,7 +94,7 @@ def detect_anomalies(
 
     ``a1`` / ``a2`` are tensors or snapshot handles; on a device grid
     (``ctx``, or DistMatrices) tensors are cut into its tiles and the grid's
-    home device takes the place of ``device``.
+    home device takes the place of ``device``; handles stream onto its tiles.
     """
     cfg = cfg or CommuteConfig()
     ctx = grid_of(ctx, a1, a2)
@@ -107,7 +102,7 @@ def detect_anomalies(
         dev = ctx.home
         a1, a2 = on_grid(ctx, a1), on_grid(ctx, a2)
     else:
-        dev = resolve_device(device)
+        dev = resolve_device(device if ctx is None else ctx.home)
         a1, a2 = (a if is_streamable(a) else a.to(dev) for a in (a1, a2))
     e1 = commute_time_embedding(a1, cfg, device=dev, ctx=ctx)
     e2 = commute_time_embedding(a2, cfg, device=dev, ctx=ctx)

@@ -24,18 +24,29 @@ from __future__ import annotations
 import warnings
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from repro_torch.core import laplacian as lap
 from repro_torch.core.distmatrix import (
-    ITEM_9B,
     DistContext,
+    DistMatrix,
     add_scaled_identity,
+    context_of,
     grid_of,
+    grid_or_none,
     matmul,
     on_grid,
 )
-from repro_torch.core.tiles import is_streamable, tile_stream
+from repro_torch.core.tiles import (
+    MATRIX,
+    REPLICATED,
+    _to,
+    is_streamable,
+    stream_stats,
+    tile_map,
+    tile_stream,
+)
 from repro_torch.obs import REGISTRY
 
 
@@ -89,6 +100,10 @@ class ChainOperator:
     u2: torch.Tensor | None = None  # (n, r)
     v2: torch.Tensor | None = None  # (n, r)
     shared_base: bool = False
+    # The device grid P1 / P2 were built on (None: one device).  A snapshot
+    # handle carries no grid, so the streamed consumers (solve, estimate_rho,
+    # the delta chain's passes) read it here to put panels on the tiles.
+    ctx: DistContext | None = None
 
     def release_scratch(self) -> None:
         """Retire store-backed P1 / P2 from their scratch store (no-op when
@@ -111,8 +126,43 @@ class ChainOperator:
                     )
 
 
-def _load(r0: int, blk: torch.Tensor) -> torch.Tensor:
+def _load(tile, blk: torch.Tensor) -> torch.Tensor:
     return blk
+
+
+def _fuse_l_body(tile, prod: torch.Tensor, p1: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
+    """P2 = P1 D - P1 A from the product P1 A, in place: one tile."""
+    return prod.neg_().add_(p1 * deg[None, tile.col0:tile.col0 + tile.block_shape[1]])
+
+
+def _matmul_panels_from_store(ctx: DistContext, m, h, prefetch_depth: int | None):
+    """M @ A with A streamed from the store onto ``ctx``'s tiles.
+
+    M @ A = sum_K M[:, K] @ A[K, :] over A's row panels K: each output tile
+    (r, c) accumulates ``M[r rows, K] @ A[K, c cols]`` in fp32, in panel
+    order, so A is never resident (the fuse_l build).  The order of the
+    sums makes it allclose, not bitwise, to the resident product.
+    """
+    from repro_torch.store import PanelPipeline  # the store is optional
+
+    n = int(h.shape[0])
+    R, C = ctx.n_row_shards, ctx.n_col_shards
+    ph = int(np.lcm(int(h.panel_rows), R))
+    pc = n // C
+    acc = [[torch.zeros((n // R, pc), dtype=torch.float32, device=ctx.device(r, c))
+            for c in range(C)] for r in range(R)]
+    with PanelPipeline([h], range(0, n, ph), ph, depth=prefetch_depth, grid=ctx,
+                       stats=stream_stats()) as pipe:
+        for k0, (panel,) in pipe:
+            for r in range(R):
+                for c in range(C):
+                    dev = ctx.device(r, c)
+                    m_rk = torch.cat([  # M's columns K, from the tiles of block row r
+                        _to(m.tiles[r][j][:, max(k0 - j * pc, 0):min(k0 + ph - j * pc, pc)], dev)
+                        for j in range(k0 // pc, (k0 + ph - 1) // pc + 1)], dim=1)
+                    a_kc = torch.cat([_to(panel.tiles[i][c], dev) for i in range(R)], dim=0)
+                    acc[r][c].add_(m_rk.to(torch.float32) @ a_kc.to(torch.float32))
+    return DistMatrix(ctx, acc)
 
 
 def chain_product(
@@ -151,11 +201,13 @@ def chain_product(
     snapshots out of core.  The caller owns their lifetime
     (``BaseChain.release``).
 
-    ``ctx`` (or ``a`` itself being a DistMatrix) runs the resident chain on
-    a device grid with ``schedule``; P1 and P2 are then DistMatrices and
-    deg / vol live on the home device.  ``oocore``, ``fuse_l``, ``level_sink``
-    and a snapshot handle stay single-device (ROADMAP item 9b) and raise on
-    a larger grid.
+    ``ctx`` (or ``a`` itself being a DistMatrix) runs the chain on a device
+    grid: resident with ``schedule`` (P1 and P2 are then DistMatrices,
+    deg / vol live on the home device), or out of core with the panel GEMMs
+    tile by tile.  On a grid a snapshot handle is never loaded whole: the
+    degree pass, the S and L builds stream its panels onto the tiles, and
+    ``fuse_l`` accumulates P1 A panel by panel (allclose, not bitwise, to
+    the resident product).  The operator records the grid (``op.ctx``).
     """
     if d_len < 1:
         raise ValueError("chain length d must be >= 1")
@@ -169,12 +221,11 @@ def chain_product(
         "chain.scratch_bytes": (n_gemms + 1) * float(n) ** 2 * 4.0,
     })
     ctx = grid_of(ctx, a)
-    if ctx is not None and not ctx.is_trivial and (
-            oocore or fuse_l or level_sink is not None or is_streamable(a)):
-        raise NotImplementedError(
-            f"chain_product with oocore, fuse_l, level_sink or a snapshot handle: {ITEM_9B}")
+    if ctx is not None:
+        device = ctx.home
+    ctx = grid_or_none(ctx)
     a = on_grid(ctx, a)
-    if not is_streamable(a):
+    if ctx is None and not is_streamable(a):
         device = a.device
     if oocore:
         from repro_torch.core.oochain import chain_product_oocore
@@ -183,17 +234,19 @@ def chain_product(
             a, d_len, deflate=deflate, fuse_l=fuse_l, work=oocore_work,
             panel_rows=oocore_panel_rows, tile_codec=tile_codec,
             prefetch_depth=prefetch_depth, use_gemm_kernel=use_gemm_kernel, device=device,
-            level_sink=level_sink,
+            level_sink=level_sink, ctx=ctx,
         )
-    if is_streamable(a):
+    if ctx is None and is_streamable(a):  # one device: the chain runs on the loaded tensor
         a = tile_stream(_load, a, device=device, prefetch_depth=prefetch_depth)
+    streamed = is_streamable(a)
 
     def mm(x, y):
         return matmul(x, y, schedule=schedule, out_dtype=dtype)
 
-    deg = lap.degrees(a)
+    deg = lap.degrees(a, ctx=ctx, prefetch_depth=prefetch_depth)
     vol = lap.volume(deg)
-    s = lap.normalized_adjacency(a, deg, deflate=deflate, dtype=dtype)
+    s = lap.normalized_adjacency(a, deg, deflate=deflate, dtype=dtype, ctx=ctx,
+                                 prefetch_depth=prefetch_depth)
 
     t = s
     p = add_scaled_identity(s, 1.0)  # I + S
@@ -218,11 +271,13 @@ def chain_product(
     del p
     if fuse_l:
         # P2 = Z^ (D - A) = (Z^ col-scaled by d) - Z^ @ A
-        p2 = mm(p1, a.to(dtype))
-        p2.neg_().add_(p1 * deg[None, :])
+        prod = (_matmul_panels_from_store(ctx, p1, a, prefetch_depth) if streamed
+                else mm(p1, a.to(dtype)))
+        p2 = tile_map(context_of(ctx, p1), _fuse_l_body, prod, p1, deg,
+                      in_specs=(MATRIX, MATRIX, REPLICATED), out_dtype=dtype)
     else:
-        p2 = mm(p1, lap.laplacian(a, deg, dtype=dtype))
+        p2 = mm(p1, lap.laplacian(a, deg, dtype=dtype, ctx=ctx, prefetch_depth=prefetch_depth))
 
     from repro_torch.core.solvers.power import estimate_rho
 
-    return ChainOperator(p1=p1, p2=p2, deg=deg, vol=vol, rho=estimate_rho(p2))
+    return ChainOperator(p1=p1, p2=p2, deg=deg, vol=vol, rho=estimate_rho(p2), ctx=ctx)

@@ -1,6 +1,6 @@
 """Incremental delta-chain updates: skip the O(n^3) rebuild on small drift.
 
-Port of :mod:`repro.core.delta_chain` (one device).  A slowly drifting
+Port of :mod:`repro.core.delta_chain`.  A slowly drifting
 transition changes the chain operator by a small-norm perturbation, so
 instead of rebuilding the chain:
 
@@ -30,7 +30,8 @@ instead of rebuilding the chain:
 The small factor algebra (QR and SVD of (n, <= 2r + 2) factors) runs in
 float64 numpy on the host, as in the reference, so the drift decision and
 the truncations see the same numbers in both packages; the n^2 passes run
-on the operator's device.  No kernel is launched here.
+on the operator's device, or tile by tile on its grid (the (n, w)
+operands on the home device).  No kernel is launched here.
 """
 
 from __future__ import annotations
@@ -131,17 +132,19 @@ class BaseChain:
         self.t_levels, self.p_levels = [], []
 
 
-def build_base_chain(a, cfg, *, device=None) -> BaseChain:
+def build_base_chain(a, cfg, *, device=None, ctx=None) -> BaseChain:
     """A full chain build of ``a`` that also keeps the levels delta updates
     need.  Counts one ``chain.full_rebuilds``.  ``device`` is read only for a
-    snapshot handle, as in :func:`~repro_torch.core.chain.chain_product`."""
+    snapshot handle, as in :func:`~repro_torch.core.chain.chain_product`;
+    ``ctx`` builds on a device grid (the levels are then DistMatrices, or
+    scratch snapshots out of core, and the operator records the grid)."""
     sink: dict = {}
     op = chain_product(
         a, cfg.d, schedule=cfg.schedule, dtype=cfg.dtype, deflate=cfg.deflate,
         fuse_l=cfg.fuse_l, oocore=cfg.oocore, oocore_work=cfg.oocore_dir,
         oocore_panel_rows=cfg.oocore_panel_rows, tile_codec=cfg.tile_codec,
         prefetch_depth=cfg.prefetch_depth, use_gemm_kernel=cfg.use_gemm_kernel,
-        device=device, level_sink=sink,
+        device=device, level_sink=sink, ctx=ctx,
     )
     op.shared_base = True
     REGISTRY.add_named({"chain.full_rebuilds": 1.0})
@@ -176,20 +179,23 @@ def _rademacher_omega(n: int, m: int, seed: int, device=None) -> np.ndarray:
 
 
 class _Passes:
-    """Skinny passes against n x n operands (tensors or handles), on ``device``,
-    with ledger accounting."""
+    """Skinny passes against n x n operands (tensors, DistMatrices or
+    handles), with ledger accounting.  The (n, w) operands and results live
+    on ``device`` (a grid's home device); the products go through
+    :func:`matmul_rowblock`, tile by tile on the grid ``ctx``."""
 
-    def __init__(self, device: torch.device, depth, ledger: _GemmLedger):
+    def __init__(self, device: torch.device, depth, ledger: _GemmLedger, ctx=None):
         self.device = device
         self.depth = depth
         self.ledger = ledger
+        self.ctx = ctx
 
     def mm(self, mat, x_np: np.ndarray) -> np.ndarray:
         """mat @ x for an (n, w) host operand, as float32 on the host."""
         n, w = int(mat.shape[0]), int(x_np.shape[1])
         self.ledger.skinny(n, w)
         x = torch.from_numpy(np.ascontiguousarray(x_np, np.float32)).to(self.device)
-        out = matmul_rowblock(mat, x, prefetch_depth=self.depth)
+        out = matmul_rowblock(mat, x, ctx=self.ctx, prefetch_depth=self.depth)
         return out.cpu().numpy()
 
 
@@ -200,15 +206,17 @@ def try_delta_update(base: BaseChain, a, cfg) -> ChainOperator | None:
     ``cfg.delta_budget`` and the caller must rebuild.  Deltas are always
     measured against the last full rebuild (never delta on delta), so one
     budget bounds both per-transition and accumulated drift.  ``a`` is a
-    tensor on the base's device or a snapshot handle.
+    tensor on the base's device, a DistMatrix of the base's grid, or a
+    snapshot handle (streamed onto the base's grid, ``base.op.ctx``).
     """
     n = int(a.shape[0])
     r = int(cfg.delta_rank)
     m = r + DELTA_OVERSAMPLE
     depth = cfg.prefetch_depth
     dev = base.op.deg.device
+    ctx = base.op.ctx
     ledger = _GemmLedger()
-    ps = _Passes(dev, depth, ledger)
+    ps = _Passes(dev, depth, ledger, ctx)
 
     t_lv, p_lv = base.t_levels, base.p_levels
     if len(t_lv) != base.d_len:
@@ -218,7 +226,7 @@ def try_delta_update(base: BaseChain, a, cfg) -> ChainOperator | None:
         )
 
     # -- the snapshot's degree data (the corrected operator needs it anyway) --
-    deg_new = lap.degrees(a, device=dev, prefetch_depth=depth)
+    deg_new = lap.degrees(a, ctx=ctx, device=dev, prefetch_depth=depth)
     vol_new = lap.volume(deg_new)
     deg_n = deg_new.cpu().numpy().astype(np.float64)
     vol_n = float(vol_new)
@@ -341,4 +349,5 @@ def try_delta_update(base: BaseChain, a, cfg) -> ChainOperator | None:
         u2=put(u2),
         v2=put(v2),
         shared_base=True,
+        ctx=ctx,
     )

@@ -55,9 +55,6 @@ SCHEDULES = ("xla", "summa", "cannon")
 # dim) difference tensor of an n=10512 climate graph would be 5 GB at once.
 _BUILD_CHUNK_ELEMS = 1 << 25
 
-# The paths that stay on one device in this port (ROADMAP.md, Queue 1).
-ITEM_9B = "on a device grid larger than 1x1 this path is not ported yet (ROADMAP item 9b)"
-
 
 def _device(d) -> torch.device:
     """``d`` as a ``torch.device`` with its index ("cuda" is the current card)."""
@@ -144,6 +141,25 @@ class DistContext:
             return tiles[0][0]
         return DistMatrix(self, tiles)
 
+    def row_panel(self, x, row0: int, height: int):
+        """Rows ``[row0, row0 + height)`` of the matrix ``x`` (a tensor or a
+        DistMatrix of this grid) as this grid's R x C panel tiles of
+        ``(height / R, n1 / C)``, each on its grid device: a DistMatrix, or
+        on a 1x1 grid the row slice.  A DistMatrix's tile rows are
+        ``height / R``-aligned, so each panel tile is a row slice of one
+        resident tile."""
+        if not isinstance(x, DistMatrix):
+            x = x[row0:row0 + height]
+            return _to(x, self.home) if self.is_trivial else self.put_matrix(x)
+        R, C = self.n_row_shards, self.n_col_shards
+        pr, br = height // R, x.block_shape[0]
+        tiles = []
+        for r in range(R):
+            g0 = row0 + r * pr
+            tiles.append([_to(x.tiles[g0 // br][c][g0 % br:g0 % br + pr], self.device(r, c))
+                          for c in range(C)])
+        return self.assemble(tiles)
+
     def to_dense(self, x) -> torch.Tensor:
         """One tensor on the home device."""
         return x.to_dense() if isinstance(x, DistMatrix) else _to(x, self.home)
@@ -229,7 +245,10 @@ class DistMatrix:
         return torch.cat([torch.cat([_to(t, home) for t in row], dim=1) for row in self.tiles])
 
     def numpy(self) -> np.ndarray:
-        return self.to_dense().cpu().numpy()
+        """The matrix on the host, stitched there tile by tile (no n^2 buffer
+        on the home device)."""
+        return np.concatenate([np.concatenate([t.cpu().numpy() for t in row], axis=1)
+                               for row in self.tiles], axis=0)
 
     def free(self) -> None:
         """Release every tile's memory now (``donate``); the matrix is dead after."""
@@ -250,6 +269,11 @@ def grid_of(ctx: DistContext | None, *xs) -> DistContext | None:
         if isinstance(x, DistMatrix):
             return x.ctx
     return None
+
+
+def grid_or_none(ctx: DistContext | None) -> DistContext | None:
+    """``ctx`` if it is a grid larger than 1x1, else None (the one-device paths)."""
+    return None if ctx is None or ctx.is_trivial else ctx
 
 
 def context_of(ctx: DistContext | None, x) -> DistContext:
@@ -358,32 +382,30 @@ def matmul(a, b, *, schedule: str = "xla", out_dtype=None,
     return _matmul_summa(a, b, out_dtype)  # "summa", and "xla" with no compiler to defer to
 
 
-def _rowblock_body(r0: int, blk: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(blk.to(torch.float32), x)
+def _rowblock_body(tile, blk: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(blk.to(torch.float32), x[tile.col0:tile.col0 + tile.block_shape[1]])
 
 
-def _rowblock_tile_body(tile, blk: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return _rowblock_body(tile.row0, blk, x[tile.col0:tile.col0 + tile.block_shape[1]])
-
-
-def matmul_rowblock(m, x: torch.Tensor, *, prefetch_depth: int | None = None) -> torch.Tensor:
+def matmul_rowblock(m, x: torch.Tensor, *, ctx: DistContext | None = None,
+                    prefetch_depth: int | None = None) -> torch.Tensor:
     """(n x n) @ (n x k) with k << n, fp32 accumulation: the solver mat-vec.
 
     ``m`` is a tensor, a DistMatrix, or a snapshot handle (an out-of-core
-    P1 / P2), whose row panels then stream onto ``x``'s device, so the
-    operator is never resident.  On a DistMatrix ``x`` and the result live
-    on the home device; each block row's column partials are summed there
-    in order c = 0..C-1.
+    P1 / P2), whose row panels then stream onto ``x``'s device, or onto the
+    tiles of ``ctx`` (a handle carries no grid), so the operator is never
+    resident.  On a grid ``x`` and the result live on the home device; each
+    block row's column partials are summed there in order c = 0..C-1.
     """
     xf = x.to(torch.float32)
-    if isinstance(m, DistMatrix):
-        out = tile_map(m.ctx, _rowblock_tile_body, m, xf, in_specs=(MATRIX, REPLICATED),
-                       reduce="cols")
-    elif is_streamable(m):
-        out = tile_stream(_rowblock_body, m, device=x.device, consts=(xf,),
+    if is_streamable(m):
+        out = tile_stream(_rowblock_body, m, xf, ctx=grid_or_none(ctx), device=x.device,
+                          in_specs=(MATRIX, REPLICATED), reduce="cols",
                           prefetch_depth=prefetch_depth)
+    elif isinstance(m, DistMatrix):
+        out = tile_map(m.ctx, _rowblock_body, m, xf, in_specs=(MATRIX, REPLICATED),
+                       reduce="cols")
     else:
-        out = _rowblock_body(0, m, xf)
+        out = torch.matmul(m.to(torch.float32), xf)
     return out.to(x.dtype)
 
 
@@ -460,19 +482,14 @@ def blockwise_unary(
     """Apply ``fn(block, global_rows, global_cols) -> block`` tile-locally.
 
     ``x`` is a tensor, a DistMatrix, or a snapshot handle; a handle's row
-    panels stream onto ``device`` and the transformed panels are assembled
-    there, so the raw input is never resident.
+    panels stream onto ``device`` (or the tiles of ``ctx``) and the
+    transformed panels are assembled there, so the raw input is never
+    resident.
     """
     if is_streamable(x):  # a handle's dtype is numpy's: the panels' own unless asked
-        n1 = int(x.shape[1])
-
-        def body(r0, panel):
-            dev = panel.device
-            rows = torch.arange(r0, r0 + panel.shape[0], device=dev)
-            out = fn(panel, rows, torch.arange(n1, device=dev))
-            return out if out_dtype is None else out.to(out_dtype)
-
-        return tile_stream(body, x, device=device, prefetch_depth=prefetch_depth)
+        return tile_stream(_unary_body, x, fn, ctx=grid_or_none(ctx), device=device,
+                           in_specs=(MATRIX, REPLICATED), out_dtype=out_dtype,
+                           prefetch_depth=prefetch_depth)
     ctx = context_of(ctx, x)
     x = on_grid(ctx, x)
     return tile_map(ctx, _unary_body, x, fn, in_specs=(MATRIX, REPLICATED),

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.chain import ChainOperator, chain_product
-from repro_torch.core.distmatrix import ITEM_9B, DistContext, context_of, grid_of, on_grid
+from repro_torch.core.distmatrix import DistContext, context_of, grid_of, grid_or_none, on_grid
 from repro_torch.core.solvers import SolveReport, SolverSpec, solve
 from repro_torch.core.tiles import MATRIX, REPLICATED, is_streamable, tile_map, tile_stream
 from repro_torch.device import resolve_device
@@ -84,35 +84,30 @@ class CommuteConfig:
         )
 
 
-def _edge_projection_body(r0: int, blk: torch.Tensor, seed: int, k: int,
-                          c0: int = 0) -> torch.Tensor:
-    return _ep.edge_projection(blk.to(torch.float32).contiguous(), seed=seed, k=k, row0=r0,
-                               col0=c0)
-
-
-def _edge_projection_tile_body(tile, blk: torch.Tensor, seed: int, k: int) -> torch.Tensor:
-    return _edge_projection_body(tile.row0, blk, seed, k, tile.col0)
+def _edge_projection_body(tile, blk: torch.Tensor, seed: int, k: int) -> torch.Tensor:
+    return _ep.edge_projection(blk.to(torch.float32).contiguous(), seed=seed, k=k,
+                               row0=tile.row0, col0=tile.col0)
 
 
 def edge_projection(a, seed: int, k: int, *, device=None, prefetch_depth: int | None = None,
                     ctx: DistContext | None = None) -> torch.Tensor:
     """Y = B^T W^{1/2} Q / sqrt(k) for k Rademacher columns, (n, k).
 
-    ``a`` may be a snapshot handle: its row panels then stream onto
-    ``device``, one kernel launch per panel at the panel's global rows.
-    Otherwise each tile of its grid (``ctx``, ``a``'s own if a DistMatrix,
-    else the whole matrix) is one launch at the tile's global rows and
-    columns, and the column partials are summed in order on the home
-    device, where Y lives.
+    Each tile of ``a``'s grid (``ctx``, ``a``'s own if a DistMatrix, else the
+    whole matrix) is one launch at the tile's global rows and columns, and
+    the column partials are summed in order on the home device, where Y
+    lives.  ``a`` may be a snapshot handle: its row panels then stream onto
+    ``device``, or onto the tiles of ``ctx``, one launch per panel tile at
+    its (row0, col0).
     """
+    specs = (MATRIX, REPLICATED, REPLICATED)
     if is_streamable(a):
-        if ctx is not None and not ctx.is_trivial:
-            raise NotImplementedError(f"edge_projection of a snapshot handle: {ITEM_9B}")
-        return tile_stream(_edge_projection_body, a, device=device, consts=(seed, k),
+        return tile_stream(_edge_projection_body, a, seed, k, ctx=grid_or_none(ctx),
+                           device=device, in_specs=specs, reduce="cols",
                            prefetch_depth=prefetch_depth)
     ctx = context_of(ctx, a)
-    return tile_map(ctx, _edge_projection_tile_body, on_grid(ctx, a), seed, k,
-                    in_specs=(MATRIX, REPLICATED, REPLICATED), reduce="cols")
+    return tile_map(ctx, _edge_projection_body, on_grid(ctx, a), seed, k, in_specs=specs,
+                    reduce="cols")
 
 
 @dataclass
@@ -140,17 +135,17 @@ def commute_time_embedding(
     warns, is counted in ``solve.warm_skipped`` and solves cold.
 
     On a device grid (``ctx``, or ``a`` a DistMatrix) the chain and the
-    edge projection run tile by tile with ``cfg.schedule``; the solve and Z
-    stay on the grid's home device, which takes the place of ``device``.
+    edge projection run tile by tile with ``cfg.schedule`` (a handle's
+    panels streamed onto the tiles, the out-of-core chain's panel GEMMs tile
+    by tile); the solve and Z stay on the grid's home device, which takes
+    the place of ``device``.
     """
     ctx = grid_of(ctx, a)
-    if ctx is not None and not ctx.is_trivial:
-        if is_streamable(a):
-            raise NotImplementedError(f"commute_time_embedding of a snapshot handle: {ITEM_9B}")
-        dev = resolve_device(ctx.home)
+    dev = resolve_device(device if ctx is None else ctx.home)
+    ctx = grid_or_none(ctx)
+    if ctx is not None:
         a = on_grid(ctx, a)
     else:
-        dev = resolve_device(device)
         if not is_streamable(a):
             a = a.to(dev)
     n = int(a.shape[0])
@@ -162,11 +157,12 @@ def commute_time_embedding(
                 deflate=cfg.deflate, fuse_l=cfg.fuse_l, oocore=cfg.oocore,
                 oocore_work=cfg.oocore_dir, oocore_panel_rows=cfg.oocore_panel_rows,
                 tile_codec=cfg.tile_codec, prefetch_depth=cfg.prefetch_depth,
-                use_gemm_kernel=cfg.use_gemm_kernel, device=dev,
+                use_gemm_kernel=cfg.use_gemm_kernel, device=dev, ctx=ctx,
             )
             sp.fence(op.vol)
     with phase("ingest", n=n, k=k) as sp:
-        y = edge_projection(a, cfg.seed, k, device=dev, prefetch_depth=cfg.prefetch_depth)
+        y = edge_projection(a, cfg.seed, k, device=dev, prefetch_depth=cfg.prefetch_depth,
+                            ctx=ctx)
         sp.fence(y)
     y0 = None
     if warm_from is not None:

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.distmatrix import context_of
+from repro_torch.core.distmatrix import context_of, grid_or_none
 from repro_torch.core.tiles import MATRIX, REPLICATED, is_streamable, tile_map, tile_stream
 
 
@@ -43,16 +43,18 @@ def _laplacian_body(tile, blk, deg):
     return lap
 
 
-def degrees(a, *, device=None, prefetch_depth: int | None = None) -> torch.Tensor:
+def degrees(a, *, ctx=None, device=None, prefetch_depth: int | None = None) -> torch.Tensor:
     """d = A @ 1.
 
     ``a`` is a resident tensor, a DistMatrix or a snapshot handle; a handle
-    streams its row panels onto ``device`` (row sums are row-parallel, so
-    the result is the resident one).
+    streams its row panels onto ``device``, or onto the tiles of ``ctx``
+    (row sums are row-parallel and split the columns as the resident grid
+    does, so the result is the resident one).
     """
     if is_streamable(a):
-        return tile_stream(_degrees_body, a, device=device, prefetch_depth=prefetch_depth)
-    return tile_map(context_of(None, a), _degrees_body, a, reduce="cols")
+        return tile_stream(_degrees_body, a, ctx=grid_or_none(ctx), device=device, reduce="cols",
+                           prefetch_depth=prefetch_depth)
+    return tile_map(context_of(ctx, a), _degrees_body, a, reduce="cols")
 
 
 def volume(deg: torch.Tensor) -> torch.Tensor:
@@ -70,18 +72,30 @@ def sym_scale_(x, scale: torch.Tensor):
     return tile_map(context_of(None, x), _sym_scale_body, x, scale, in_specs=(MATRIX, REPLICATED))
 
 
-def normalized_adjacency(a, deg: torch.Tensor, *, deflate: bool = True, dtype=torch.float32):
+def _map(body, a, *consts, ctx, prefetch_depth, out_dtype):
+    """``body`` over the tiles of ``a``: resident, or streamed from a handle
+    onto the tiles of ``ctx`` (assembled there, the input never resident)."""
+    specs = (MATRIX,) + (REPLICATED,) * len(consts)
+    if is_streamable(a):
+        return tile_stream(body, a, *consts, ctx=ctx, in_specs=specs, out_dtype=out_dtype,
+                           prefetch_depth=prefetch_depth)
+    return tile_map(context_of(ctx, a), body, a, *consts, in_specs=specs, out_dtype=out_dtype)
+
+
+def normalized_adjacency(a, deg: torch.Tensor, *, deflate: bool = True, dtype=torch.float32,
+                         ctx=None, prefetch_depth: int | None = None):
     """S = D^{-1/2} A D^{-1/2}, optionally deflated to S~ = S - u u^T, u = sqrt(d / V_G).
 
     Deflation removes the known top eigenpair (eigenvalue 1), whose 2^d
     growth would otherwise swamp the useful part of the chain in rounding.
+    ``a`` may be a snapshot handle, streamed onto the tiles of ``ctx``.
     """
     u = torch.sqrt(torch.clamp(deg, min=0.0) / volume(deg)) if deflate else None
-    return tile_map(context_of(None, a), _norm_adj_body, a, inv_sqrt_degrees(deg), u,
-                    in_specs=(MATRIX, REPLICATED, REPLICATED), out_dtype=dtype)
+    return _map(_norm_adj_body, a, inv_sqrt_degrees(deg), u, ctx=ctx,
+                prefetch_depth=prefetch_depth, out_dtype=dtype)
 
 
-def laplacian(a, deg: torch.Tensor, *, dtype=torch.float32):
-    """L = D - A."""
-    return tile_map(context_of(None, a), _laplacian_body, a, deg, in_specs=(MATRIX, REPLICATED),
-                    out_dtype=dtype)
+def laplacian(a, deg: torch.Tensor, *, dtype=torch.float32, ctx=None,
+              prefetch_depth: int | None = None):
+    """L = D - A; ``a`` may be a snapshot handle, streamed onto the tiles of ``ctx``."""
+    return _map(_laplacian_body, a, deg, ctx=ctx, prefetch_depth=prefetch_depth, out_dtype=dtype)

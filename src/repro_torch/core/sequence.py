@@ -20,10 +20,10 @@ releases the base.
 The sequence-wide top-k is merged on the host from each transition's
 top-k, ties to the lower candidate index as ``lax.top_k`` breaks them.
 
-On a device grid (``ctx``) each snapshot is cut into the grid's tiles and
-the resident path runs tile by tile; the scores come back stitched on the
-home device.  Snapshot handles, ``emb_store`` and ``cfg.incremental_chain``
-stay single-device (ROADMAP item 9b) and raise on a larger grid.
+On a device grid (``ctx``) each snapshot is cut into the grid's tiles (a
+snapshot handle's panels stream onto them) and every path runs tile by
+tile: resident or out of core, full builds or delta updates; the scores,
+and the embedding published from them, live on the home device.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from repro_torch.core import chain
 from repro_torch.core.chain import ChainOperator
 from repro_torch.core.cad import CADResult, node_anomaly_scores, top_anomalies
 from repro_torch.core.delta_chain import BaseChain, build_base_chain, try_delta_update
-from repro_torch.core.distmatrix import ITEM_9B, DistContext, DistMatrix, on_grid
+from repro_torch.core.distmatrix import DistContext, DistMatrix, grid_or_none, on_grid
 from repro_torch.core.embedding import CommuteConfig, Embedding, commute_time_embedding
 from repro_torch.core.tiles import is_streamable
 from repro_torch.device import resolve_device, synchronize
@@ -98,11 +98,8 @@ class SequenceDetector:
         self.cfg = cfg or CommuteConfig()
         self.top_k = top_k
         self.donate = donate
-        self.ctx = None if ctx is None or ctx.is_trivial else ctx
-        if self.ctx is not None and (emb_store is not None or self.cfg.incremental_chain):
-            raise NotImplementedError(f"SequenceDetector with emb_store or incremental_chain: "
-                                      f"{ITEM_9B}")
-        self.device = resolve_device(device if self.ctx is None else self.ctx.home)
+        self.ctx = grid_or_none(ctx)
+        self.device = resolve_device(device if ctx is None else ctx.home)
         # Duck-typed (put_embedding): the core imports no store.
         self.emb_store = emb_store
         self._prev: tuple[torch.Tensor, Embedding] | None = None
@@ -167,7 +164,7 @@ class SequenceDetector:
                     return op
                 self._base.release()  # drift over budget: retire it, then rebuild
                 self._base = None
-            self._base = build_base_chain(a, self.cfg, device=self.device)
+            self._base = build_base_chain(a, self.cfg, device=self.device, ctx=self.ctx)
             sp.annotate(mode="rebuild")
             op = self._base.op
             sp.fence(op.vol)
@@ -179,7 +176,8 @@ class SequenceDetector:
         The artifact is a host copy of (z, vol, deg), so readers never alias
         device buffers that ``donate=True`` frees; the store commits it only
         once every panel is written.  Resident and out-of-core operators
-        both carry ``deg`` on the card.
+        both carry ``deg`` on the card (on a grid, Z and ``deg`` live on its
+        home device).
         """
         with phase("publish", t=self._t, n=int(emb.z.shape[0])):
             self.emb_store.put_embedding(
@@ -192,8 +190,6 @@ class SequenceDetector:
         t0 = time.perf_counter()
         m0 = REGISTRY.snapshot()
         if self.ctx is not None:
-            if is_streamable(a):
-                raise NotImplementedError(f"SequenceDetector.push of a snapshot handle: {ITEM_9B}")
             a = on_grid(self.ctx, a)
         elif isinstance(a, DistMatrix):
             raise ValueError("a DistMatrix snapshot needs SequenceDetector(ctx=) of its grid")

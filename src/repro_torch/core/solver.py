@@ -52,15 +52,16 @@ def estimate_solution(
 
 
 def residual_norm(
-    l_mat, x: torch.Tensor, b: torch.Tensor, *, prefetch_depth: int | None = None
+    l_mat, x: torch.Tensor, b: torch.Tensor, *, prefetch_depth: int | None = None, ctx=None
 ) -> torch.Tensor:
     """||L x - b||_F / ||b||_F, the solver's acceptance metric (a 0-d tensor).
 
-    ``l_mat`` is a resident Laplacian or a store-backed snapshot handle; the
-    product goes through :func:`matmul_rowblock`, which streams a handle's
-    row panels onto ``x``'s device.
+    ``l_mat`` is a resident Laplacian (a DistMatrix on a grid) or a
+    store-backed snapshot handle; the product goes through
+    :func:`matmul_rowblock`, which streams a handle's row panels onto
+    ``x``'s device, or onto the tiles of ``ctx``.
     """
-    r = matmul_rowblock(l_mat, x, prefetch_depth=prefetch_depth) - b
+    r = matmul_rowblock(l_mat, x, ctx=ctx, prefetch_depth=prefetch_depth) - b
     num = torch.sqrt(torch.sum(r.to(torch.float32) ** 2))
     den = torch.sqrt(torch.sum(b.to(torch.float32) ** 2))
     return num / torch.clamp(den, min=1e-30)

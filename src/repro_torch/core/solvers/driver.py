@@ -8,7 +8,8 @@ weights, the Manteuffel interval adaptation) run in numpy float32 so they
 round like the JAX program's float32 scalars and the iteration counts match.
 
 Store-backed operators (an out-of-core chain) take the streamed branch
-(:func:`_solve_streamed`): every P2 mat-vec is a pass over the panel stream.
+(:func:`_solve_streamed`): every P2 mat-vec is a pass over the panel stream,
+put on the tiles of the grid the operator was built on (``op.ctx``).
 With the kernel path (``use_gemm_kernel``) the chi build is one
 ``stream_gemm`` pass over P1, each richardson / chebyshev iteration is one
 ``fused_panel_matvec`` pass over P2, and CG's direction product is a
@@ -39,7 +40,7 @@ import torch
 
 from repro_torch.core.distmatrix import matmul_rowblock
 from repro_torch.core.solvers.base import SolveReport, SolverSpec
-from repro_torch.core.tiles import is_streamable, stream_stats
+from repro_torch.core.tiles import _to, is_streamable, reduce_blocks, stream_stats
 from repro_torch.kernels import stream_gemm as _sg
 from repro_torch.obs import REGISTRY, trace
 
@@ -104,7 +105,7 @@ def _low_rank(u: torch.Tensor, v: torch.Tensor, x: torch.Tensor) -> torch.Tensor
 
 
 def _p2_matvec(p2, y: torch.Tensor, u2, v2) -> torch.Tensor:
-    """P2' y = P2 y (+ u2 (v2^T y) on a corrected operator)."""
+    """P2' y = P2 y (+ u2 (v2^T y) on a corrected operator); P2 is resident."""
     out = matmul_rowblock(p2, y)
     if u2 is not None:
         out = (out.to(torch.float32) + _low_rank(u2, v2, y)).to(y.dtype)
@@ -204,7 +205,7 @@ def _run_cg(p2, chi, y0, w, deflate, tol, max_steps, u2=None, v2=None):
     return y, k, float(res), hist
 
 
-def _kernel_stream_pass(handle, y, chi, *, depth, fused):
+def _kernel_stream_pass(handle, y, chi, *, depth, fused, ctx=None):
     """One pass over a store-backed operator through the CUDA kernels.
 
     Panels stream in stored form (bf16 scratch ships uint16 bits, half the
@@ -213,40 +214,73 @@ def _kernel_stream_pass(handle, y, chi, *, depth, fused):
     ``fused=False`` returns the plain mat-vec (the chi build / the CG
     direction product).
 
+    On a grid (``ctx``, the JAX package's ``_kernel_panel_program``) each
+    panel arrives as R x C tiles and ``y`` / ``chi`` stay whole on the home
+    device, copied once to each tile's device.  With one column shard each
+    row tile runs ``fused_panel_matvec`` on its ``(ph/R, n)`` tile; with
+    C > 1 each tile runs ``stream_gemm`` on its column slice of ``y``, the C
+    partials are summed in order on the home device and the epilogue
+    ``gy = chi + y - mv`` is plain.
+
     The kernel's column sums and sum of squares of ``delta = chi - P2 y``
     are not read: the residual ``ss - |cs|^2 / n`` they give cancels to
     noise (even <= 0) once the residual falls far below delta's never-decaying
     column mean, which ended fixed-q solves early.  The caller measures the
     residual from ``gy - y``, an (n, q) device op at the same cost.
     """
+    from repro_torch.core.distmatrix import trivial_context
     from repro_torch.store import PanelPipeline  # the store is optional
 
+    grid = ctx if ctx is not None else trivial_context(y.device)
+    R, C = grid.n_row_shards, grid.n_col_shards
     n = int(handle.shape[0])
-    ph = int(handle.panel_rows)
+    ph = int(np.lcm(int(handle.panel_rows), R))
     if n % ph:
         raise ValueError(f"panel height {ph} does not tile n={n}")
+    pr, pc = ph // R, n // C
     st = stream_stats()
     st.add(calls=1)
     y32 = y.to(torch.float32).contiguous()
     chi32 = chi.to(torch.float32).contiguous() if fused else None
+    on = {}  # y / chi on each tile's device, copied once a pass
+
+    def at(x, d):
+        if (id(x), d) not in on:
+            on[(id(x), d)] = _to(x, d)
+        return on[(id(x), d)]
+
     parts = []
-    with PanelPipeline([handle], range(0, n, ph), ph, depth=depth, device=y.device,
+    with PanelPipeline([handle], range(0, n, ph), ph, depth=depth, device=y.device, grid=ctx,
                        stats=st, encoded=True) as pipe:
         for r0, (panel,) in pipe:
-            if fused:
-                gy_p, _, _ = _sg.fused_panel_matvec(
-                    panel, y32, chi32[r0 : r0 + ph], y32[r0 : r0 + ph])
-            else:
-                gy_p = _sg.stream_gemm(panel, y32)
-            st._note_live(pipe.device_live_bytes + gy_p.numel() * 4)
-            parts.append(gy_p)
+            tiles = grid.blocks(panel)
+            for r in range(R):
+                g0 = r0 + r * pr  # the row tile's first global row
+                if C == 1:
+                    d = grid.device(r, 0)
+                    if fused:
+                        gy_p, _, _ = _sg.fused_panel_matvec(
+                            tiles[r][0], at(y32, d), at(chi32, d)[g0 : g0 + pr],
+                            at(y32, d)[g0 : g0 + pr])
+                    else:
+                        gy_p = _sg.stream_gemm(tiles[r][0], at(y32, d))
+                    gy_p = _to(gy_p, grid.home)
+                else:
+                    mv = reduce_blocks([_sg.stream_gemm(
+                        tiles[r][c], at(y32, grid.device(r, c))[c * pc : (c + 1) * pc])
+                        for c in range(C)], grid.home)
+                    gy_p = chi32[g0 : g0 + pr] + y32[g0 : g0 + pr] - mv if fused else mv
+                st._note_live(pipe.device_live_bytes + gy_p.numel() * 4)
+                parts.append(gy_p)
     return torch.cat(parts, dim=0)
 
 
 def _solve_streamed(p2_handle, chi, y0, method, deflate, tol, max_steps, rho,
-                    solver_batch, prefetch_depth, use_kernel=False, w=None, u2=None, v2=None):
+                    solver_batch, prefetch_depth, use_kernel=False, w=None, u2=None, v2=None,
+                    ctx=None):
     """The streamed solve: a host loop with one pass over P2 per mat-vec (plus
-    the rank-r correction ``u2 (v2^T x)``, which never touches the stream)."""
+    the rank-r correction ``u2 (v2^T x)``, which never touches the stream);
+    on a grid (``ctx``) each pass puts the panels on its tiles."""
     p2, cached = p2_handle, None
     if solver_batch > 1:
         from repro_torch.store import CachingHandle  # the store is optional
@@ -264,9 +298,9 @@ def _solve_streamed(p2_handle, chi, y0, method, deflate, tol, max_steps, rho,
     def stream_matvec(x):
         next_pass()
         if use_kernel:
-            mv = _kernel_stream_pass(p2, x, None, depth=prefetch_depth, fused=False)
+            mv = _kernel_stream_pass(p2, x, None, depth=prefetch_depth, fused=False, ctx=ctx)
         else:
-            mv = matmul_rowblock(p2, x.to(torch.float32), prefetch_depth=prefetch_depth)
+            mv = matmul_rowblock(p2, x.to(torch.float32), ctx=ctx, prefetch_depth=prefetch_depth)
         if u2 is not None:
             mv = mv + _low_rank(u2, v2, x)
         return mv
@@ -325,7 +359,7 @@ def _solve_streamed(p2_handle, chi, y0, method, deflate, tol, max_steps, rho,
     while k < max_steps and res > tol:
         if use_kernel:  # one fused pass over the P2 stream
             next_pass()
-            gy = _kernel_stream_pass(p2, y, chi, depth=prefetch_depth, fused=True)
+            gy = _kernel_stream_pass(p2, y, chi, depth=prefetch_depth, fused=True, ctx=ctx)
             if u2 is not None:
                 # the fused pass applied the base P2: fold in the rank-r term;
                 # the residual below is still measured from gy' - y
@@ -399,7 +433,7 @@ def solve(
             from repro_torch.core.solvers.power import estimate_rho
 
             # cached: later solves on this operator reuse it
-            op.rho = estimate_rho(op.p2, device=b.device, prefetch_depth=depth)
+            op.rho = estimate_rho(op.p2, device=b.device, prefetch_depth=depth, ctx=op.ctx)
         rho = min(RHO_MAX, max(0.0, float(op.rho)))
 
     streamed = is_streamable(op.p1) or is_streamable(op.p2)
@@ -413,9 +447,10 @@ def solve(
             scale_col = op.p1_scale.to(torch.float32).reshape(-1, 1)
             b_in = (b.to(torch.float32) * scale_col).to(b.dtype)
         if use_k and is_streamable(op.p1):
-            chi = _kernel_stream_pass(op.p1, b_in, None, depth=depth, fused=False).to(b.dtype)
+            chi = _kernel_stream_pass(op.p1, b_in, None, depth=depth, fused=False,
+                                      ctx=op.ctx).to(b.dtype)
         else:
-            chi = matmul_rowblock(op.p1, b_in, prefetch_depth=depth)
+            chi = matmul_rowblock(op.p1, b_in, ctx=op.ctx, prefetch_depth=depth)
         if op.p1_scale is not None:
             chi = (chi.to(torch.float32) * scale_col + _low_rank(op.u1, op.v1, b)).to(b.dtype)
         if deflate:
@@ -437,7 +472,7 @@ def solve(
             y, iters, res, res_hist, rho_c = _solve_streamed(
                 op.p2, chi, y_start, spec.method, deflate, tol, max_steps, rho or 0.0,
                 solver_batch, depth, use_kernel=use_k and is_streamable(op.p2), w=op.deg,
-                u2=op.u2, v2=op.v2,
+                u2=op.u2, v2=op.v2, ctx=op.ctx,
             )
             if spec.method == "chebyshev":
                 rho_final = rho_c

@@ -29,11 +29,13 @@ def estimate_rho(
     seed: int = 0,
     device: str | torch.device | None = None,
     prefetch_depth: int | None = None,
+    ctx=None,
 ) -> float:
     """Spectral-radius estimate of ``G = I - P2``, clamped to ``[0, 0.999]``.
 
-    ``p2`` is a tensor or a snapshot handle; a handle's iterate lives on
-    ``device``.
+    ``p2`` is a tensor, a DistMatrix or a snapshot handle; a handle's
+    iterate lives on ``device`` (a grid's home device), its panels stream
+    onto the tiles of ``ctx``.
     """
     if iters < 1:
         raise ValueError(f"power iters must be >= 1, got {iters}")
@@ -53,7 +55,7 @@ def estimate_rho(
 
     nrm = None
     for _ in range(iters):  # stays on the device; one host sync at the end
-        gv = v - matmul_rowblock(handle, v, prefetch_depth=prefetch_depth)
+        gv = v - matmul_rowblock(handle, v, ctx=ctx, prefetch_depth=prefetch_depth)
         gv = gv - gv.mean(dim=0, keepdim=True)
         nrm = torch.sqrt(torch.sum(gv * gv))
         v = gv / torch.clamp(nrm, min=1e-30)

@@ -7,9 +7,9 @@ in a fixed order and stitches the result; on a 1x1 grid it runs the body
 once on the whole matrix, so one device and a grid share one
 implementation.  Its plans (the tiles' index tensors) are cached per
 context and geometry, and counted by :class:`ProgramCacheStats`.
-:func:`tile_stream` is the out-of-core executor on one device: a plain
-loop over row panels of store-backed operands (:func:`is_streamable`,
-:class:`StreamStats`).
+:func:`tile_stream` is the out-of-core executor: the same tile bodies over
+row panels of store-backed operands (:func:`is_streamable`,
+:class:`StreamStats`), each panel cut into the grid's tiles.
 """
 
 from __future__ import annotations
@@ -176,6 +176,29 @@ def reduce_blocks(parts: list, home: torch.device) -> torch.Tensor:
     return acc
 
 
+def _run_tiles(ctx, fn, tiles: list, operands, blocks: list, out_dtype) -> list:
+    """``fn(tile, *args)`` on every tile: R x C outputs.  ``blocks[i]`` is
+    operand i's R x C tiles, or for a replicated operand a per-device dict
+    of its copies, filled on first use."""
+    outs = []
+    for r in range(ctx.n_row_shards):
+        row = []
+        for c in range(ctx.n_col_shards):
+            dev = ctx.device(r, c)
+            args = []
+            for op, blk in zip(operands, blocks):
+                if isinstance(blk, dict):
+                    if dev not in blk:
+                        blk[dev] = _to(op, dev)
+                    args.append(blk[dev])
+                else:
+                    args.append(blk[r][c])
+            out = fn(tiles[r][c], *args)
+            row.append(out if out_dtype is None else out.to(out_dtype))
+        outs.append(row)
+    return outs
+
+
 def tile_map(
     ctx,
     fn: Callable[..., torch.Tensor],
@@ -235,22 +258,7 @@ def tile_map(
             blocks.append(ctx.blocks(op))
         else:
             blocks.append({})  # per device, filled on first use
-    outs = []
-    for r in range(R):
-        row = []
-        for c in range(C):
-            dev = ctx.device(r, c)
-            args = []
-            for op, sp, blk in zip(operands, in_specs, blocks):
-                if sp == MATRIX:
-                    args.append(blk[r][c])
-                else:
-                    if dev not in blk:
-                        blk[dev] = _to(op, dev)
-                    args.append(blk[dev])
-            out = fn(tiles[r][c], *args)
-            row.append(out if out_dtype is None else out.to(out_dtype))
-        outs.append(row)
+    outs = _run_tiles(ctx, fn, tiles, operands, blocks, out_dtype)
     if reduce is None:
         return ctx.assemble(outs)
     if reduce == "cols":
@@ -261,7 +269,7 @@ def tile_map(
 
 
 # ---------------------------------------------------------------------------
-# the streaming tile executor (out-of-core operands, one device)
+# the streaming tile executor (out-of-core operands)
 # ---------------------------------------------------------------------------
 
 
@@ -341,56 +349,140 @@ def reset_stream_stats() -> StreamStats:
     return _STREAM_STATS
 
 
-def _infer_panel_rows(handles, n0: int) -> int:
-    """Smallest height that is tile-aligned for every handle."""
-    rows = int(np.lcm.reduce(np.asarray([int(h.panel_rows) for h in handles], np.int64)))
+def _infer_panel_rows(handles, n0: int, n_row_shards: int) -> int:
+    """Smallest height that is tile-aligned for every handle and shardable."""
+    quanta = [int(h.panel_rows) for h in handles] + [n_row_shards]
+    rows = int(np.lcm.reduce(np.asarray(quanta, np.int64)))
     if n0 % rows:
-        raise ValueError(f"no common panel height: tile rows don't tile n0={n0}")
+        raise ValueError(f"no common panel height: operand tile rows {quanta} don't tile n0={n0}")
     return rows
+
+
+def panel_tiles(ctx, row0: int, pr: int, pc: int) -> list:
+    """The R x C :class:`Tile` windows of the row panel at global row ``row0``:
+    tile (r, c) holds global rows ``row0 + r * pr`` on and columns ``c * pc``
+    on, as a resident tile of ``pr`` rows would at the same place."""
+    axes = tuple(ctx.row_axes) + tuple(ctx.col_axes)
+    return [[Tile(rows=torch.arange(row0 + r * pr, row0 + (r + 1) * pr, device=ctx.device(r, c)),
+                  cols=torch.arange(c * pc, (c + 1) * pc, device=ctx.device(r, c)),
+                  row_index=row0 // pr + r, col_index=c, block_shape=(pr, pc), mesh_axes=axes)
+             for c in range(ctx.n_col_shards)] for r in range(ctx.n_row_shards)]
 
 
 def tile_stream(
     fn: Callable[..., torch.Tensor],
     *operands,
-    device: torch.device,
-    consts: tuple = (),
+    ctx=None,
+    device=None,
+    in_specs: Sequence[str] | None = None,
+    reduce: str | None = None,
+    out_dtype=None,
     panel_rows: int | None = None,
     prefetch_depth: int | None = None,
-) -> torch.Tensor:
-    """Run a row-parallel body over streamed row panels of ``operands``.
+):
+    """Run a :func:`tile_map` body over *streamed* row panels of the operands.
 
-    ``fn(row0, *panels, *consts)`` gets the global row origin and one
-    (ph, n1) panel per operand -- snapshot handles stream through a
-    :class:`~repro_torch.store.PanelPipeline` onto ``device``, resident
-    tensors are sliced -- and returns the output rows of that panel.  The
-    per-panel outputs are stacked by rows into one (n0, ...) tensor (the
-    JAX executor's ``reduce="cols"`` concatenation; a body returning whole
-    panels gives the assembled matrix).
+    The out-of-core executor: snapshot handles (:func:`is_streamable`) are
+    read one full-width row panel at a time through a
+    :class:`~repro_torch.store.PanelPipeline`, which puts each panel on the
+    ``ctx`` grid as R x C tiles of ``(panel_rows / R, n1 / C)``, every tile
+    on its own device.  ``fn(tile, *blocks)`` runs on each tile under the
+    :func:`tile_map` contract, ``tile.rows`` carrying the panel tile's global
+    ids (``row0 + r * panel_rows / R``), so the resident tile bodies run
+    unchanged.  ``MATRIX`` operands that are not handles (resident tensors or
+    DistMatrices of the full shape) are sliced into the same panel tiles;
+    ``REPLICATED`` ones arrive whole on every tile's device.  ``ctx=None``
+    means the 1x1 grid of ``device``: one tile, the whole panel.
+
+    Bitwise contract, as in the JAX package: every supported body is
+    row-parallel, and a panel run splits the column extents exactly as
+    :func:`tile_map` does on the same grid, so the results equal the
+    resident grid's bitwise (on the CPU; a kernel whose work depends on the
+    tile's place may round differently on the card).
+
+    ``reduce=None`` assembles the (n0, n1) output tile by tile into a
+    DistMatrix of ``ctx`` (a tensor on a 1x1 grid); ``reduce="cols"`` sums
+    each panel tile row's outputs over the columns in order c = 0..C-1 on the
+    home device and stacks the rows.  ``panel_rows`` overrides the streaming
+    unit (default: the finest height aligned to every handle's tiles and to
+    the R row shards), ``prefetch_depth`` the host-side staging depth.
     """
     from repro_torch.store.pipeline import PanelPipeline  # the store is optional
 
+    if reduce not in (None, "cols"):
+        raise ValueError(f"tile_stream supports reduce=None or 'cols', got {reduce!r}")
+    if ctx is None:
+        if device is None:
+            raise ValueError("tile_stream needs ctx= or device=")
+        from repro_torch.core.distmatrix import trivial_context  # distmatrix imports this module
+
+        ctx = trivial_context(device)
+    if in_specs is None:
+        in_specs = (MATRIX,) * len(operands)
+    in_specs = tuple(in_specs)
+    if len(in_specs) != len(operands):
+        raise ValueError(f"{len(operands)} operands but {len(in_specs)} in_specs")
     handles = [op for op in operands if is_streamable(op)]
     if not handles:
         raise ValueError("tile_stream needs at least one streamable operand")
-    n0 = int(handles[0].shape[0])
-    for op in operands:
-        if tuple(op.shape) != tuple(handles[0].shape):
-            raise ValueError(f"streamed operand is {tuple(op.shape)}, want {tuple(handles[0].shape)}")
+    n0, n1 = (int(x) for x in handles[0].shape)
+    for op, sp in zip(operands, in_specs):
+        if (is_streamable(op) or sp == MATRIX) and tuple(op.shape) != (n0, n1):
+            raise ValueError(f"streamed operand is {tuple(op.shape)}, want {(n0, n1)}")
+    R, C = ctx.n_row_shards, ctx.n_col_shards
     if panel_rows is None:
-        panel_rows = _infer_panel_rows(handles, n0)
-    if n0 % panel_rows:
-        raise ValueError(f"panel_rows={panel_rows} must divide n0={n0}")
+        panel_rows = _infer_panel_rows(handles, n0, R)
+    if n0 % panel_rows or panel_rows % R or n1 % C:
+        raise ValueError(
+            f"panel_rows={panel_rows} must divide n0={n0} and the {R}x{C} shard grid")
+    pr, pc = panel_rows // R, n1 // C
+    paneled = [is_streamable(op) or sp == MATRIX for op, sp in zip(operands, in_specs)]
+    consts = [{} for _ in operands]  # REPLICATED operands per device, filled on first use
     stats = _STREAM_STATS
     stats.add(calls=1)
     out = None
     origins = list(range(0, n0, panel_rows))
-    with obs_trace.span("tile_stream", body=getattr(fn, "__name__", repr(fn)), n0=n0,
+    with obs_trace.span("tile_stream", body=getattr(fn, "__name__", repr(fn)), n0=n0, n1=n1,
                         panels=len(origins)):
-        with PanelPipeline(operands, origins, panel_rows, depth=prefetch_depth,
-                           device=device, stats=stats) as pipe:
+        with PanelPipeline([op for op, p in zip(operands, paneled) if p], origins, panel_rows,
+                           depth=prefetch_depth, grid=ctx, stats=stats) as pipe:
             for r0, panels in pipe:
-                blk = fn(r0, *panels, *consts)
-                if out is None:
-                    out = torch.empty((n0, *blk.shape[1:]), dtype=blk.dtype, device=blk.device)
-                out[r0 : r0 + panel_rows] = blk
+                it = iter(panels)
+                blocks = [ctx.blocks(next(it)) if p else cache
+                          for p, cache in zip(paneled, consts)]
+                outs = _run_tiles(ctx, fn, panel_tiles(ctx, r0, pr, pc), operands, blocks,
+                                  out_dtype)
+                out = _stream_put(ctx, out, outs, r0, n0, reduce)
+    return out if reduce is not None or ctx.is_trivial else ctx.assemble(out)
+
+
+def _stream_put(ctx, out, outs: list, r0: int, n0: int, reduce):
+    """Write one panel's R x C tile outputs into the streamed result.
+
+    ``reduce="cols"``, or a 1x1 grid: a tensor of rows on the home device
+    (allocated from the first panel's output).  ``reduce=None`` on a larger
+    grid: the R x C output tiles of ``(n0 / R, n1 / C)``, each on its grid
+    device; a panel tile lands in the output tile that holds its rows.
+    """
+    R, C = ctx.n_row_shards, ctx.n_col_shards
+    pr = outs[0][0].shape[0]
+    if reduce is None and not ctx.is_trivial:
+        br = n0 // R
+        if out is None:
+            o = outs[0][0]
+            out = [[torch.empty((br, *o.shape[1:]), dtype=o.dtype, device=ctx.device(i, c))
+                    for c in range(C)] for i in range(R)]
+        for r in range(R):
+            g0 = r0 + r * pr
+            for c in range(C):
+                dst = out[g0 // br][c]
+                dst[g0 % br: g0 % br + pr].copy_(outs[r][c], non_blocking=True)
+        return out
+    parts = [outs[r][0] if reduce is None else reduce_blocks(outs[r], ctx.home)
+             for r in range(R)]
+    if out is None:
+        out = torch.empty((n0, *parts[0].shape[1:]), dtype=parts[0].dtype,
+                          device=parts[0].device)
+    for r, part in enumerate(parts):
+        out[r0 + r * pr: r0 + (r + 1) * pr] = part
     return out

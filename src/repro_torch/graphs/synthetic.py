@@ -27,7 +27,7 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
-from repro_torch.core.distmatrix import DistContext, build_from_nodes
+from repro_torch.core.distmatrix import DistContext, DistMatrix, build_from_nodes
 from repro_torch.device import resolve_device
 
 
@@ -381,10 +381,11 @@ def climate_snapshot_sequence(
 def store_snapshot_sequence(store, seq: SnapshotSequence, *, ids: list[str] | None = None) -> list[str]:
     """Write a :class:`SnapshotSequence` into a :class:`repro_torch.store.TileStore`.
 
-    Snapshots are built one at a time on their device, copied to the host,
-    tiled into the store and dropped: at most one snapshot is resident
-    during the write.  Already-committed ids are skipped, so an interrupted
-    write resumes where it stopped.
+    Snapshots are built one at a time on their device (or device grid),
+    copied to the host (a grid's tiles one by one), tiled into the store and
+    dropped: at most one snapshot is resident during the write.
+    Already-committed ids are skipped, so an interrupted write resumes where
+    it stopped.
     """
     ids = ids if ids is not None else [f"t{t:04d}" for t in range(seq.t_steps)]
     if len(ids) != seq.t_steps:
@@ -392,7 +393,7 @@ def store_snapshot_sequence(store, seq: SnapshotSequence, *, ids: list[str] | No
     committed = set(store.snapshot_ids)
     for sid, a in zip(ids, seq.snapshots()):
         if sid not in committed:
-            store.put_snapshot(sid, a.cpu().numpy())
+            store.put_snapshot(sid, a.numpy() if isinstance(a, DistMatrix) else a.cpu().numpy())
     return ids
 
 

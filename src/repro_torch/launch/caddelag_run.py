@@ -11,10 +11,11 @@ embedding to an embedding store that ``caddelag-query-torch`` serves reads from.
 updates against a retained base chain instead of full rebuilds;
 ``--run-report`` and ``--trace`` write the run report (schema 2) and a
 Chrome trace, both checked by ``python -m repro_torch.obs.report FILE...``.
-``--data R --model C`` runs the resident path on an R x C device grid (one
-card per tile on ``cuda``, every tile on the CPU with ``--device cpu``) with
-the chain GEMMs on ``--schedule``; the store, out-of-core, incremental and
-embedding-store paths stay on one device (ROADMAP item 9b).
+``--data R --model C`` runs every path on an R x C device grid (one card per
+tile on ``cuda``, every tile on the CPU with ``--device cpu``): the resident
+chain GEMMs on ``--schedule``, and with ``--store`` / ``--oocore-chain`` the
+panels on the grid's tiles (a default store grid's panels divide the R row
+shards).
 
   caddelag-run-torch --n 10512 --t-steps 3 --dataset climate        # on the card
   caddelag-run-torch --device cpu --n 64 --t-steps 3 --d 3 --q 4    # plain PyTorch
@@ -26,6 +27,8 @@ embedding-store paths stay on one device (ROADMAP item 9b).
       --run-report report.json --trace trace.json                    # delta chain
   caddelag-run-torch --device cpu --n 64 --t-steps 3 --data 2 --model 2 \
       --schedule summa --d 3 --q 4                                   # a 2x2 grid
+  caddelag-run-torch --device cpu --n 64 --t-steps 3 --data 2 --model 2 \
+      --d 3 --q 4 --store DIR --oocore-chain --use-gemm-kernel       # out of core on it
 """
 
 from __future__ import annotations
@@ -35,7 +38,6 @@ import argparse
 import numpy as np
 
 from repro_torch.core import CommuteConfig, SequenceDetector, reset_stream_stats, stream_stats
-from repro_torch.core.distmatrix import ITEM_9B
 from repro_torch.graphs import (
     climate_snapshot_sequence,
     gmm_snapshot_sequence,
@@ -141,13 +143,6 @@ def main(argv=None) -> None:
 
     ctx = make_device_grid(args.data, args.model, args.device)
     grid = None if ctx.is_trivial else ctx
-    if grid is not None:
-        for flag, on in (("--store", args.store), ("--oocore-chain", args.oocore_chain),
-                         ("--incremental-chain", args.incremental_chain),
-                         ("--emb-store", args.emb_store)):
-            if on:
-                raise SystemExit(f"caddelag-run-torch: {flag} with --data {args.data} --model "
-                                 f"{args.model}: {ITEM_9B}")
     if args.trace is not None:
         enable_tracing(fence=True)
 
@@ -195,11 +190,11 @@ def main(argv=None) -> None:
     det = SequenceDetector(cfg, top_k=args.top_k, donate=args.donate, device=args.device,
                            emb_store=emb_store, ctx=grid)
     if args.store is not None:
-        grid = args.store_grid or _default_grid(n_nodes)
+        store_grid = args.store_grid or _default_grid(n_nodes, ctx.n_row_shards)
         # meta fingerprints the generator: a reused directory with other
         # content is rejected, not silently scored.
         meta = {"dataset": args.dataset, "n": n_nodes, "seed": 0}
-        store = TileStore.create(args.store, n=n_nodes, grid=grid, codec=effective_codec,
+        store = TileStore.create(args.store, n=n_nodes, grid=store_grid, codec=effective_codec,
                                  meta=meta)
         ids = store_snapshot_sequence(store, seq)
         reset_stream_stats()
@@ -208,7 +203,7 @@ def main(argv=None) -> None:
         st = stream_stats()
         what = "adjacency + chain scratch" if args.oocore_chain else "adjacency"
         print(
-            f"[caddelag] store={args.store} grid={grid}x{grid} "
+            f"[caddelag] store={args.store} grid={store_grid}x{store_grid} "
             f"codec={store.manifest.codec} prefetch={args.prefetch_depth}: "
             f"{args.t_steps} snapshots, {args.t_steps * store.snapshot_nbytes / 1e6:.1f} MB "
             f"logical; read {st.bytes_read / 1e6:.1f} MB from store, decoded "

@@ -26,6 +26,19 @@ origins of one or more operands:
   no pageable fallback).  With ``device="cpu"``
   nothing is copied to a card: panels become tensors through
   ``torch.from_numpy(np.array(...))`` (memory-mapped tiles are read-only);
+* **grid placement** (``grid=``, a
+  :class:`~repro_torch.core.distmatrix.DistContext`, the counterpart of the
+  JAX pipeline's ``sharding=``; ``device=`` means its 1x1 grid): on a grid
+  larger than 1x1 a panel of ``ph`` rows is yielded as a DistMatrix of
+  R x C tiles of ``(ph / R, n / C)``, each contiguous on its own grid
+  device.  The host panel is copied once into one pinned buffer laid out
+  tile after tile (:func:`to_device_tiles`), and each tile goes from its
+  slice of that buffer straight to its own card, that card current, on
+  that card's side stream (by the tile's bytes, as above); nothing is
+  staged through the home device.  (A column slice of a pinned row panel is not contiguous, and
+  ``Tensor.to`` copies such a source through a pageable temporary first,
+  which waits for the copy: the tile-major layout avoids that.)  Resident
+  operands are cut into the same panel tiles (``DistContext.row_panel``);
 * **encoded shipping** (``encoded=True``): bf16 tiles travel as their uint16
   bit patterns, carried in torch as ``int16`` views (torch has no complete
   ``uint16`` type; every consumer reinterprets the bits), half the decoded
@@ -105,28 +118,51 @@ def _torch_dtype(dtype: np.dtype) -> torch.dtype:
     return torch.int16 if dtype == np.uint16 else torch.from_numpy(np.zeros(0, dtype)).dtype
 
 
-def to_device(panel: np.ndarray, device: torch.device, stream=None):
-    """Copy a host panel to ``device``; returns ``(tensor, event or None)``.
+def to_device_tiles(panel: np.ndarray, grid, streams: dict | None = None):
+    """Copy a host panel onto ``grid`` as its R x C tiles (on a 1x1 grid the
+    whole panel); returns ``(tiles, events)``, R x C lists.
 
-    On CUDA the panel is copied into a pinned buffer (raises if pinning
-    fails) and sent with a ``non_blocking`` copy, on the current stream or
-    on ``stream``.  Only a copy on another stream returns an event: it marks
-    the copy's end, and a consumer must wait on it before reading the tensor.
+    CUDA tiles come from one pinned buffer per panel (pinning is the path: a
+    failure to pin raises), filled by one host copy in tile-major order
+    (``(R, C, ph / R, n / C)``), so every tile is a contiguous pinned slice
+    and its ``non_blocking`` copy is asynchronous.  Each copy runs with its
+    tile's card current, on ``streams[card]`` when ``streams`` has one (then
+    an event marks its end, and a consumer must wait on it before reading
+    the tile) or on the card's current stream.  CPU tiles are contiguous
+    host copies.
     """
-    if device.type != "cuda":
-        return host_tensor(panel).to(device), None
     panel = np.asarray(panel)
-    t0 = time.perf_counter()
-    pinned = torch.empty(panel.shape, dtype=_torch_dtype(panel.dtype), pin_memory=True)
-    np.copyto(pinned.numpy(), panel.view(np.int16) if panel.dtype == np.uint16 else panel)
-    _OBS_REGISTRY.inc("pipeline.pin_copy_seconds", time.perf_counter() - t0)
-    if stream is None:
-        return pinned.to(device, non_blocking=True), None
-    with torch.cuda.stream(stream):
-        dev = pinned.to(device, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(stream)
-    return dev, event
+    R, C = grid.n_row_shards, grid.n_col_shards
+    h, w = panel.shape
+    pr, pc = h // R, w // C
+    if R * pr != h or C * pc != w:
+        raise ValueError(f"panel {panel.shape} does not divide the {R}x{C} grid")
+    devs = [[grid.device(r, c) for c in range(C)] for r in range(R)]
+    pinned = None
+    if any(d.type == "cuda" for row in devs for d in row):
+        t0 = time.perf_counter()
+        pinned = torch.empty((R, C, pr, pc), dtype=_torch_dtype(panel.dtype), pin_memory=True)
+        src = panel.view(np.int16) if panel.dtype == np.uint16 else panel
+        np.copyto(pinned.numpy(), src.reshape(R, pr, C, pc).transpose(0, 2, 1, 3))
+        _OBS_REGISTRY.inc("pipeline.pin_copy_seconds", time.perf_counter() - t0)
+    tiles = [[None] * C for _ in range(R)]
+    events = [[None] * C for _ in range(R)]
+    for r in range(R):
+        for c in range(C):
+            dev = devs[r][c]
+            if dev.type != "cuda":
+                tiles[r][c] = host_tensor(panel[r * pr:(r + 1) * pr, c * pc:(c + 1) * pc]).to(dev)
+                continue
+            stream = None if streams is None else streams.get(dev)
+            with torch.cuda.device(dev):
+                if stream is None:
+                    tiles[r][c] = pinned[r, c].to(dev, non_blocking=True)
+                    continue
+                with torch.cuda.stream(stream):
+                    tiles[r][c] = pinned[r, c].to(dev, non_blocking=True)
+                    events[r][c] = torch.cuda.Event()
+                    events[r][c].record(stream)
+    return tiles, events
 
 
 class _Ring:
@@ -177,7 +213,8 @@ class PanelPipeline:
     Yields ``(row0, panels)`` per origin, in order, one entry per operand.
     ``device=None`` yields host numpy panels (the out-of-core GEMM slices
     its left panel on the host); with a device, each streamed panel is a
-    tensor on it, staged one origin ahead.  Use as a context manager (or
+    tensor on it, staged one origin ahead; with a ``grid`` larger than 1x1,
+    a DistMatrix of the grid's tiles (a 1x1 grid means its one device).  Use as a context manager (or
     call :meth:`close`) so an early exit cancels the producer.
     """
 
@@ -189,6 +226,7 @@ class PanelPipeline:
         *,
         depth: int | None = None,
         device: str | torch.device | None = None,
+        grid=None,
         stats=None,
         encoded: bool = False,
     ):
@@ -198,10 +236,15 @@ class PanelPipeline:
         self.depth = DEFAULT_PREFETCH_DEPTH if depth is None else int(depth)
         if self.depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {self.depth}")
-        self.device = None if device is None else torch.device(device)
+        if grid is None and device is not None:
+            from repro_torch.core.distmatrix import trivial_context  # core imports the store lazily
+
+            grid = trivial_context(device)
+        self.grid = grid  # None: host mode
+        self.device = None if grid is None else grid.home
         self.stats = stats
         self.encoded = bool(encoded)
-        self._copy_stream = None
+        self._copy_streams: dict = {}  # side copy stream per card
         self._threaded = [_is_handle(s) for s in self.sources]
         streamed = [s for s, t in zip(self.sources, self._threaded) if t]
         self._windowed = bool(streamed) and all(
@@ -307,7 +350,7 @@ class PanelPipeline:
             bundle, decs = [], []
             for src, fetched in zip(self.sources, entry):
                 if fetched is None:
-                    bundle.append(src[row0 : row0 + self.height])
+                    bundle.append(self._slice(src, row0))
                     decs.append(None)
                 else:
                     panel, decoded, sp = fetched
@@ -318,7 +361,7 @@ class PanelPipeline:
         bundle, decs = [], []
         for src, ring in zip(self.sources, self._rings):
             if ring is None:
-                bundle.append(src[row0 : row0 + self.height])
+                bundle.append(self._slice(src, row0))
                 decs.append(None)
                 continue
             t_w0 = time.perf_counter()
@@ -337,8 +380,34 @@ class PanelPipeline:
             decs.append(decoded)
         return bundle, decs
 
+    def _slice(self, src, row0: int):
+        """A resident operand's rows of one origin (the panel tiles on a grid
+        larger than 1x1)."""
+        if self.grid is not None and not self.grid.is_trivial:
+            return self.grid.row_panel(src, row0, self.height)
+        return src[row0 : row0 + self.height]
+
+    def _to_grid(self, panel: np.ndarray):
+        """One host panel on the grid: ``(staged, events, bytes)``, the panel
+        a tensor and its copy's event on a 1x1 grid, else a DistMatrix of the
+        tiles and their R x C events.  A tile of ``SIDE_STREAM_MIN_BYTES`` or
+        more is copied on its card's side stream."""
+        grid = self.grid
+        tile_bytes = panel.nbytes // (grid.n_row_shards * grid.n_col_shards)
+        if tile_bytes >= SIDE_STREAM_MIN_BYTES:
+            for row in grid.devices:
+                for d in row:
+                    if d.type == "cuda" and d not in self._copy_streams:
+                        self._copy_streams[d] = torch.cuda.Stream(d)
+        tiles, events = to_device_tiles(panel, grid, self._copy_streams)
+        nbytes = sum(t.numel() * t.element_size() for row in tiles for t in row)
+        if grid.is_trivial:
+            return tiles[0][0], events[0][0], nbytes
+        return grid.assemble(tiles), events, nbytes
+
     def _stage(self, row0: int) -> tuple[int, list, list, int]:
-        """Pop one origin's bundle and copy its streamed panels to the device."""
+        """Pop one origin's bundle and copy its streamed panels to the device
+        (or the grid's tiles to their devices)."""
         bundle, decs = self._next_host_bundle(row0)
         staged, events, nbytes = [], [], 0
         for panel, decoded, threaded in zip(bundle, decs, self._threaded):
@@ -346,11 +415,7 @@ class PanelPipeline:
                 staged.append(panel)
                 events.append(None)
                 continue
-            side = self.device.type == "cuda" and panel.nbytes >= SIDE_STREAM_MIN_BYTES
-            if side and self._copy_stream is None:
-                self._copy_stream = torch.cuda.Stream(self.device)
-            dev, event = to_device(panel, self.device, self._copy_stream if side else None)
-            nb = dev.numel() * dev.element_size()
+            dev, event, nb = self._to_grid(panel)
             nbytes += nb
             if self.stats is not None:
                 inc = {"panels": 1, "bytes_h2d": nb}
@@ -361,13 +426,23 @@ class PanelPipeline:
             events.append(event)
         return row0, staged, events, nbytes
 
+    @staticmethod
+    def _wait(t: torch.Tensor, event) -> None:
+        if event is not None:
+            compute = torch.cuda.current_stream(t.device)
+            compute.wait_event(event)
+            t.record_stream(compute)
+
     def _ready(self, staged: list, events: list) -> list:
-        """Make the compute stream wait for the copies before the panels are used."""
+        """Make each compute stream wait for the copies before the panels (or
+        their tiles) are used."""
         for t, event in zip(staged, events):
-            if event is not None:
-                compute = torch.cuda.current_stream(self.device)
-                compute.wait_event(event)
-                t.record_stream(compute)
+            if isinstance(event, list):  # a grid panel: one event per tile
+                for t_row, e_row in zip(t.tiles, event):
+                    for tile, e in zip(t_row, e_row):
+                        self._wait(tile, e)
+            else:
+                self._wait(t, event)
         return staged
 
     def __iter__(self) -> Iterator[tuple[int, list]]:

@@ -897,3 +897,113 @@ def test_kernels_launch_on_their_operands_card(dev):
     _rel_close(flash.flash_attention(q, kk, vv, causal=True, groups=2),
                ref.flash_attention(q, kk, vv, causal=True, groups=2), 2.0**-7)
     assert torch.cuda.current_device() == 0
+
+
+# ---------------------------------------------------------------------------
+# the out-of-core paths on a device grid (every tile on one card)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("form", ["init+", "init-", "bits+", "bits-"])
+def test_stream_gemm_at_the_summa_tile_shape(dev, form):
+    """One tile of the grid's out-of-core K step at n=10512 on a 2x2 grid with
+    1314-row panels: (657 x 1314) @ (1314 x 5256) into its accumulator tile,
+    fp32 or bf16-bit operands, init +- the product, in place with the
+    caller's scratch: against the plain version (2e-5 of the largest value),
+    bitwise repeatable."""
+    rng = np.random.default_rng(23)
+    m, k, n = 657, 1314, 5256
+    a, b, init = _arr(rng, (m, k), dev), _arr(rng, (k, n), dev), _arr(rng, (m, n), dev)
+    if form.startswith("bits"):
+        a, b = _bits(a), _bits(b)
+    sign = -1.0 if form.endswith("-") else 1.0
+    want = ref.stream_gemm(a, b, init, sign=sign)
+    scratch = torch.empty(sg.scratch_elems(m, n, k), device=dev)
+    acc = init.clone()
+    assert sg.stream_gemm(a, b, acc, sign=sign, out=acc, scratch=scratch) is acc
+    _rel_close(acc, want, 2e-5)
+    assert torch.equal(acc, sg.stream_gemm(a, b, init, sign=sign))
+    assert kernels.launch_counts()["stream_gemm_tc"] == 2
+
+
+@pytest.mark.parametrize("rows", [2, 1])
+@pytest.mark.parametrize("codec", ["raw", "bf16"])
+def test_pipeline_grid_tiles_on_card(dev, rows, codec):
+    """A grid placement on the card: each tile contiguous on its device,
+    bitwise the host panel's slice (bf16 tiles as their bits)."""
+    from repro_torch.core import make_context, reset_stream_stats
+    from repro_torch.store import PanelPipeline, TileStore
+
+    n = 512
+    ctx = make_context([dev] * 4, rows)
+    a = np.random.default_rng(3).random((n, n), dtype=np.float32)
+    h = TileStore.create(None, n=n, grid=4, codec=codec).put_snapshot("a", a)
+    st = reset_stream_stats()
+    with PanelPipeline([h], range(0, n, 128), 128, grid=ctx, stats=st, encoded=True) as pipe:
+        for r0, (p,) in pipe:
+            want = h.read_panel_encoded_info(r0, 128)[0] if codec == "bf16" else a[r0:r0 + 128]
+            want = torch.from_numpy(np.ascontiguousarray(want).view(
+                np.int16 if codec == "bf16" else np.float32))
+            pr, pc = p.block_shape
+            for r in range(ctx.n_row_shards):
+                for c in range(ctx.n_col_shards):
+                    t = p.tiles[r][c]
+                    assert t.is_cuda and t.is_contiguous()
+                    assert torch.equal(t.cpu(), want[r * pr:(r + 1) * pr, c * pc:(c + 1) * pc])
+    assert st.panels == 4 and st.bytes_h2d == n * n * (2 if codec == "bf16" else 4)
+
+
+def test_streamed_grid_edge_projection_against_the_resident_grid(dev, capsys):
+    """edge_projection of a handle on a 2x2 grid of the card (one launch per
+    panel tile at its (row0, col0)) against the resident grid's (one launch
+    per tile): within 1e-5 of the largest |Y|, and both against the CPU grid.
+    A panel tile's rows overlap its column block differently from a resident
+    tile's, so the unordered-pair hashing can round differently: the test
+    prints whether the two card results are bitwise equal, and the gap."""
+    from repro_torch.core import edge_projection, make_context
+    from repro_torch.store import TileStore
+
+    n = 2048
+    a = np.abs(np.random.default_rng(8).normal(size=(n, n))).astype(np.float32)
+    h = TileStore.create(None, n=n, grid=8).put_snapshot("a", a)  # 256-row panels
+    card, cpu = make_context([dev] * 4, 2), make_context(["cpu"] * 4, 2)
+    streamed = edge_projection(h, 3, 17, ctx=card)
+    assert kernels.launch_counts()["edge_projection"] == 8 * 4
+    resident = edge_projection(card.put_matrix(a), 3, 17)
+    plain = edge_projection(h, 3, 17, ctx=cpu)
+    _rel_close(streamed.cpu(), resident.cpu(), 1e-5)
+    _rel_close(streamed.cpu(), plain, 1e-5)
+    gap = float((streamed - resident).abs().max())
+    with capsys.disabled():
+        print(f"\n[grid edge_projection] streamed vs resident on the card: "
+              f"{'bitwise' if gap == 0 else f'max |diff| {gap:.3e}'}")
+
+
+def test_oocore_grid_sequence_on_card_matches_cpu_grid(dev):
+    """The out-of-core sequence on a 2x2 grid of the card against the same
+    grid of the CPU: exact launch counts (a K step is R x C = 4 stream_gemm
+    launches; with C = 2 the solve passes are stream_gemm too and
+    fused_panel_matvec never runs), scores within 1e-3 of the largest."""
+    from repro_torch.core import CommuteConfig, SequenceDetector, make_context
+    from repro_torch.graphs import gmm_snapshot_sequence, store_snapshot_sequence
+    from repro_torch.store import TileStore
+
+    cfg = CommuteConfig(d=6, q=10, oocore=True, tile_codec="bf16", use_gemm_kernel=True)
+    store = TileStore.create(None, n=256, grid=8, codec="bf16")
+    ids = store_snapshot_sequence(store, gmm_snapshot_sequence(256, 3, seed=4, inject_p=0.02,
+                                                               device="cpu"))
+    runs = {}
+    for d in ("cuda", "cpu"):
+        kernels.reset_launch_counts()
+        runs[d] = SequenceDetector(cfg, top_k=10, ctx=make_context([d] * 4, 2)).run(
+            store.snapshot(i) for i in ids)
+        if d == "cuda":
+            counts = kernels.launch_counts()
+    # scratch grid 8 (32-row panels): 3 x (11 GEMMs x 8 x 8 K steps + 8 chi panels) x 4 tiles
+    # plus 9 solve passes of 8 panels x 4 tiles per snapshot
+    assert counts["stream_gemm"] == 3 * (11 * 64 + 8 + 9 * 8) * 4
+    assert counts["fused_panel_matvec"] == 0 and counts["block_matmul"] == 0
+    assert counts["edge_projection"] == 3 * 8 * 4 and counts["cad_scores"] == 2 * 8 * 4
+    for g, c in zip(runs["cuda"].transitions, runs["cpu"].transitions):
+        _rel_close(g.scores.cpu(), c.scores, 1e-3)
+        assert g.top_idx.tolist() == c.top_idx.tolist()

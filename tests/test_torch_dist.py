@@ -16,6 +16,7 @@ from a seed, go to both.  Tolerances are the JAX tests' own:
 """
 
 import math
+from dataclasses import replace
 
 import jax.numpy as jnp
 import numpy as np
@@ -61,7 +62,7 @@ from repro_torch.graphs import gmm_graph_sequence, gmm_snapshot_sequence
 from repro_torch.kernels import ref
 from repro_torch.launch import caddelag_run
 from repro_torch.launch.mesh import make_device_grid, mesh_chip_count
-from repro_torch.store import TileStore
+from repro_torch.store import EmbeddingStore, TileStore
 
 CPU4 = ["cpu"] * 4
 
@@ -444,7 +445,8 @@ def test_trivial_context_is_bitwise_the_plain_call(g1):
 
 
 # ---------------------------------------------------------------------------
-# the CLI and the paths that stay single-device (ROADMAP item 9b)
+# the CLI, and the store, out-of-core, incremental and embedding-store paths
+# (refused on a grid until ROADMAP item 9b, now run on it)
 # ---------------------------------------------------------------------------
 
 
@@ -471,27 +473,52 @@ def test_make_device_grid_on_cpu():
 
 
 @pytest.mark.parametrize("flag", [["--store", "unused"], ["--oocore-chain"],
-                                  ["--incremental-chain"], ["--emb-store", "unused"]],
+                                  ["--incremental-chain", "--drift-nodes", "3"],
+                                  ["--emb-store", "unused"]],
                          ids=["store", "oocore-chain", "incremental-chain", "emb-store"])
-def test_cli_single_device_paths_refuse_a_grid(tmp_path, flag):
-    flag = [str(tmp_path / f) if f == "unused" else f for f in flag]
-    with pytest.raises(SystemExit, match="item 9b"):
-        caddelag_run.main(["--device", "cpu", "--n", "16", "--data", "2", "--model", "2", *flag])
-    assert not any(tmp_path.iterdir())  # refused before anything was written
+def test_cli_single_device_paths_refuse_a_grid(tmp_path, capsys, flag):
+    """Each path that once refused a grid (ROADMAP item 9b) now runs on a 2x2
+    grid, and its sequence-wide top-k equals the 1x1 run's."""
+    tops = []
+    for grid in ("1", "2"):
+        args = [str(tmp_path / f"{f}{grid}") if f == "unused" else f for f in flag]
+        tops.append(_cli_topk(capsys, "--data", grid, "--model", grid, *args))
+    assert tops[0] == tops[1]
+    if flag[0] == "--emb-store":
+        assert EmbeddingStore.open(tmp_path / "unused2").embedding_ids == ["t0000", "t0001",
+                                                                           "t0002"]
 
 
-def test_core_single_device_paths_refuse_a_grid(g22, tmp_path):
-    a = g22.put_matrix(_sym(32, 1))
-    for kw in ({"oocore": True}, {"fuse_l": True}, {"level_sink": {}}):
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            chain_product(a, 3, **kw)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        SequenceDetector(CommuteConfig(incremental_chain=True), ctx=g22)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        SequenceDetector(CFG_SEQ, ctx=g22, emb_store=object())
+def test_core_single_device_paths_refuse_a_grid(g22, g1):
+    """The core paths that once refused a grid now run on it and match the
+    1x1 grid: the out-of-core, fuse_l and level_sink chains, a handle's
+    chain, and SequenceDetector with incremental_chain, emb_store and
+    handles (chain: rtol 1e-4, floor 1e-4 x the largest entry; scores:
+    rtol 1e-3, atol 1e-2, as above)."""
+    a = _sym(32, 1)
     store = TileStore.create(None, n=32, grid=2)
-    h = store.put_snapshot("t0", _sym(32, 1))
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        SequenceDetector(CFG_SEQ, ctx=g22).push(h)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        chain_product(h, 3, ctx=g22)
+    h = store.put_snapshot("t0", a)
+    for kw in ({"oocore": True}, {"fuse_l": True}, {"level_sink": {}}, {"oocore": True,
+                                                                        "level_sink": {}}):
+        ops = [chain_product(src, 3, **kw, ctx=g) for g, src in ((g22, g22.put_matrix(a)),
+                                                                 (g1, torch.from_numpy(a)))]
+        for x, y in ((ops[0].p1, ops[1].p1), (ops[0].p2, ops[1].p2)):
+            _close(*(m.to_numpy() if hasattr(m, "to_numpy") else _dense(m) for m in (x, y)),
+                   1e-4, 1e-4)
+        assert ops[0].ctx == g22 and ops[1].ctx is None
+        for op in ops:
+            op.release_scratch()
+    _close(chain_product(h, 3, ctx=g22).p2.numpy(), chain_product(h, 3, ctx=g1).p2, 1e-4, 1e-4)
+    snaps = [_sym(32, s) for s in (1, 2, 3)]
+    hs = [store.put_snapshot(f"s{i}", x) for i, x in enumerate(snaps)]
+    cfgs = (replace(CFG_SEQ, incremental_chain=True, delta_budget=10.0), CFG_SEQ)
+    for cfg in cfgs:
+        for src in (hs, [torch.from_numpy(x) for x in snaps]):
+            runs = []
+            for g in (g22, g1):
+                emb = EmbeddingStore.create(None, n=32, k=cfg.k_rp(32), seed=cfg.seed)
+                runs.append(SequenceDetector(cfg, ctx=g, emb_store=emb).run(src))
+                assert emb.embedding_ids == ["t0000", "t0001", "t0002"]
+            for x, y in zip(runs[0].transitions, runs[1].transitions, strict=True):
+                np.testing.assert_allclose(x.scores.numpy(), y.scores.numpy(), rtol=1e-3,
+                                           atol=1e-2)
