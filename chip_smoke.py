@@ -27,7 +27,9 @@ Phases, in order; any failure exits non-zero:
    ``torch.profiler`` trace) apart from the host's cost of a call and of a
    query's merger step, ``wkv``'s device time over its three launches and
    a bound that counts its exponentials, ``flash_attention``'s route per form and
-   its earlier (SIMT) design timed on the same inputs; then the pinned
+   its earlier (SIMT) design timed on the same inputs, and ``flash_attention``
+   at zamba2's shared-block prefill (q/k/v 128 x 1024 x 224 bf16, causal, the
+   SIMT route) beside SDPA and its bound; then the pinned
    host-to-device rate of one out-of-core panel (the ``[h2d]`` line);
 3. the resident main path: ``SequenceDetector`` over the n=10512 climate
    sequence (the 2.5-degree NCEP/NCAR Reanalysis 1 grid, 73 x 144), with
@@ -148,14 +150,29 @@ Phases, in order; any failure exits non-zero:
    queried raw at top-20 against a brute force;
    (d) ``caddelag-run-torch --device cpu --data 2 --model 2`` with each of
    ``--store``, ``--oocore-chain``, ``--incremental-chain`` and
-   ``--emb-store``: top-k equal to the 1x1 run's.
+   ``--emb-store``: top-k equal to the 1x1 run's;
+13. the other decoder-only families served (``[serve2]`` lines): granite-3-2b,
+   stablelm-1.6b, granite-moe-3b-a800m, zamba2-7b and chameleon-34b at full
+   width and depth, deepseek-67b at 50 of its 95 layers and
+   llama4-maverick-400b-a17b at 2 of its 48 (one dense layer, one MoE layer
+   of 128 experts and the shared expert), random weights from seed 0,
+   through ``ServeEngine.generate`` with phase 9's requests: exact launch
+   counts (``flash_attention`` once per attention block in prefill, zamba2's
+   13 shared-block calls on the SIMT route at D=224, the others on the
+   tensor-core route; none in decode), tokens in range, finite logits,
+   time to first token, decode time per step, peak device memory (at most
+   76 GB) and the prefill's device split; then each model card against CPU
+   in fp32 at full width and depth 2 (zamba2 7, so the shared block runs
+   once; llama4 at its SMOKE config): greedy tokens equal, prefill logits
+   within 1e-3 of the largest, and each MoE layer's expert ids and kept
+   masks equal but for flips between probabilities within 1e-5 (counted).
 
 A copy of the script beside another tree's ``src/`` (a parent commit's
 ``git archive``) runs the same phases on that tree's package, so both trees
 are measured by the same code in one call.
 
 The line before the last is the JSON ``kernels`` table (``launches`` sums
-the main paths of phases 3, 5, 7, 8, 9, 10, 11 and 12; ``launches_by_path`` splits them); the
+the main paths of phases 3, 5, 7, 8, 9, 10, 11, 12 and 13; ``launches_by_path`` splits them); the
 last line is ``{"ok": true, "device": {...}}``.  It imports neither JAX nor
 the JAX package.  Long logs go to ``OUT``, a gitignored directory beside
 the script; the on-disk stores of phases 5, 7, 8, 10 and 12 live under ``build/``
@@ -1913,15 +1930,50 @@ def phase_lm_kernels(torch, rows: list) -> dict:
     log(f"[kernels] {name}: wgmma route {ms_f:.4f} ms, SDPA {lib:.4f} ms ({ms_f / lib:.2f}x), "
         f"the SIMT kernel on the same inputs {simt_ms:.4f} ms (its output within {simt_err:.3e} "
         f"of the wgmma route's)")
+    d224 = _flash_d224(torch, fa, ref, randn, route, sdpa, tol_b)
     pairs = nkv * grp * s * (s + 1) / 2  # the causal (q, k) pairs these inputs need
     rows.append(kernel_row(
         "flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:70",
         f"q ({nkv * grp},{s},{d}) k/v ({nkv},{s},{d}) bf16 causal, groups {grp}", check, tol_b,
         ms_f, plain_f, 4.0 * d * pairs, nbytes(q, kk, vv, q), lib, peak_ops=PEAK_BF16_OPS,
         forms=fforms, library_call="scaled_dot_product_attention(is_causal, enable_gqa)",
-        kernel_route="wgmma (bf16, D in {64, 128}); SIMT for fp32 and other D",
-        simt_kernel_ms=simt_ms))
+        kernel_route="wgmma (bf16, D in {64, 128}); SIMT for fp32 and other D up to 256",
+        simt_kernel_ms=simt_ms, d224=d224))
     return {"wkv_ms": ms, "flash_attention_ms": ms_f}
+
+
+def _flash_d224(torch, fa, ref, randn, route, sdpa, tol: float) -> dict:
+    """flash_attention at zamba2's shared-block prefill: q/k/v (4 x 32, 1024,
+    224) bf16, causal, groups 1, on the SIMT route; against the plain version,
+    twice bitwise, timed (events and device) beside SDPA and its bound."""
+    bh, s, d = SERVE_BATCH * 32, SERVE_PROMPT, 224
+    q, k, v = (randn(bh, s, d, dtype=torch.bfloat16) for _ in range(3))
+    name = f"flash_attention ({bh},{s},{d}) bf16 causal"
+    out, took = route(lambda: fa.flash_attention(q, k, v))
+    if took != "simt":
+        fail(f"{name}: took the {took} route, want the SIMT route")
+    check = check_close(name, out, ref.flash_attention(q, k, v), tol)
+    check_bitwise(torch, name, lambda: fa.flash_attention(q, k, v))
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v), reps=10)
+    dev_ms = kernel_device_ms(torch, lambda: fa.flash_attention(q, k, v), 10, ("flash_kernel",))
+    plain = time_ms(torch, lambda: ref.flash_attention(q, k, v), reps=2)
+    q4, k4, v4 = (t.view(SERVE_BATCH, -1, s, d) for t in (q, k, v))
+    lib = time_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True), reps=10)
+    ops = 4.0 * d * bh * s * (s + 1) / 2  # the causal pairs' two products
+    # the bound takes the card's rate for bf16 operands; the SIMT route's own
+    # floor, the same products as fp32 FFMA, is kept beside it
+    bms, by = bound_ms(ops, nbytes(q, k, v, q), PEAK_BF16_OPS)
+    fp32_floor = ops / PEAK_FP32_OPS * 1e3
+    log(f"[kernels] {name}: SIMT route; max_abs_err {check[0]:.3e} (tol {tol:g} x max|plain| "
+        f"{check[1]:.3e}), bitwise repeatable; {ms:.4f} ms (device {fmt_ms(dev_ms)}), plain "
+        f"{plain:.3f} ms, SDPA {lib:.4f} ms, bound {bms:.4f} ms ({by}: {ops / 1e9:.1f} GFLOP "
+        f"at {PEAK_BF16_OPS / 1e12:g} T/s bf16); as fp32 FFMA at {PEAK_FP32_OPS / 1e12:g} T/s "
+        f"the route's floor is {fp32_floor:.3f} ms")
+    return {"shape": f"q/k/v ({bh},{s},{d}) bf16 causal, groups 1", "route": "simt",
+            "max_abs_err": check[0], "max_abs_plain": check[1], "tolerance": f"{tol:g} x max|plain|",
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain, "library_ms": lib,
+            "library_call": "scaled_dot_product_attention(is_causal)", "bound_ms": bms,
+            "bound_by": by, "simt_fp32_floor_ms": fp32_floor}
 
 
 def device_split(torch, fn) -> dict:
@@ -2140,6 +2192,234 @@ def phase_serve(torch, per: dict) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: every other decoder-only family served
+# ---------------------------------------------------------------------------
+
+# (arch, depth served at full width (None: the config's own), the card-vs-CPU
+# check's depth at full width ("smoke": the SMOKE config)).  deepseek-67b's
+# 95 layers are 134 GB of bf16 weights (1.38 GB a layer and 3.4 GB of
+# embedding and head): 48 layers peaked at 72.03 GB on an H100 80GB HBM3 at
+# 700 W, 1.40 GB a layer with its KV cache, so 50 is the deepest under
+# SERVE2_PEAK_GB.  llama4's one MoE layer is 32 GB of bf16 experts, so it
+# serves one dense and one MoE layer, and is checked at its SMOKE config (that
+# layer is 64 GB in fp32).  zamba2 is checked at depth 7 = attn_every + 1, so
+# that its shared block runs once.
+SERVE2_MODELS = (("granite-3-2b", None, 2), ("stablelm-1.6b", None, 2),
+                 ("granite-moe-3b-a800m", None, 2), ("zamba2-7b", None, 7),
+                 ("chameleon-34b", None, 2), ("deepseek-67b", 50, 2),
+                 ("llama4-maverick-400b-a17b", 2, "smoke"))
+SERVE2_PEAK_GB = 76.0  # a served model's peak device memory, of the card's 80 GB
+ROUTE_FLIP_MARGIN = 1e-5  # card vs CPU: a routing flip only between probabilities this close
+
+
+def _attention_blocks(spec) -> int:
+    return sum(bt in ("attn", "attn_moe", "shared_attn") for bt in spec.layers())
+
+
+def _flash_route(spec, fa) -> str:
+    """The route the model's prefill attention takes on the card."""
+    cfg = spec.cfg
+    hd = 2 * cfg.d_model // cfg.n_heads if spec.has_shared_attn else cfg.hd
+    return ("wgmma" if cfg.compute_dtype == "bfloat16" and hd in fa.WGMMA_DIMS else "simt"), hd
+
+
+def _routing_card_vs_cpu(tag: str, card: list, cpu: list) -> list:
+    """Each MoE layer's expert ids and kept masks, card against CPU.  A flip is
+    allowed where the two probabilities lie within ROUTE_FLIP_MARGIN (the
+    CPU's); it is counted, and as positions are cumsums in token order the
+    kept masks are compared up to the first flipped token; the layers after
+    a flip see other inputs and are not compared (the logits and token gates
+    still hold)."""
+    if len(card) != len(cpu):
+        fail(f"{tag}: {len(card)} MoE calls on the card, {len(cpu)} on the CPU")
+    out = []
+    for li, (rc, rh) in enumerate(zip(card, cpu)):
+        ic, ih = rc.expert_ids.cpu(), rh.expert_ids.cpu()
+        kc, kh = rc.keep.cpu(), rh.keep.cpu()
+        if bool((ic == ih).all()):
+            if not bool((kc == kh).all()):
+                fail(f"{tag} MoE layer {li}: expert ids equal, kept masks differ")
+            out.append({"layer": li, "flips": 0, "dropped": int((~kh).sum())})
+            continue
+        rows, cols = (ic != ih).nonzero(as_tuple=True)
+        probs = rh.probs.cpu()
+        margin = (probs[rows, ic[rows, cols]] - probs[rows, ih[rows, cols]]).abs()
+        if float(margin.max()) > ROUTE_FLIP_MARGIN:
+            fail(f"{tag} MoE layer {li}: {len(rows)} routing flips, the widest between "
+                 f"probabilities {float(margin.max()):.3e} apart (> {ROUTE_FLIP_MARGIN:g})")
+        first = int(rows.min())
+        if not bool((kc[:first] == kh[:first]).all()):
+            fail(f"{tag} MoE layer {li}: kept masks differ before the first flipped token")
+        out.append({"layer": li, "flips": len(rows), "max_margin": float(margin.max()),
+                    "first_flipped_token": first, "later_layers_not_compared": True})
+        log(f"[serve2] {tag} MoE layer {li}: {len(rows)} routing flips between probabilities "
+            f"within {float(margin.max()):.3e} (allowed: {ROUTE_FLIP_MARGIN:g})")
+        break
+    return out
+
+
+def phase_serve_families(torch) -> dict:
+    """Phase 13: the dense, vlm, moe and hybrid families at full width through
+    ``ServeEngine.generate`` (SERVE_BATCH x SERVE_PROMPT, SERVE_NEW greedy
+    tokens), exact launch counts by route, then each model card vs CPU in
+    fp32 at depth 2 (zamba2 7, llama4 its SMOKE config)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch import configs, kernels
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    t_phase = time.perf_counter()
+    out = {}
+    s_max = SERVE_PROMPT + SERVE_NEW
+    for arch, depth, check_depth in SERVE2_MODELS:
+        t_model = time.perf_counter()
+        full = configs.get_config(arch)
+        cfg = full if depth is None else full.replace(n_layers=depth)
+        spec = lm.build_spec(cfg)
+        route_name, hd = _flash_route(spec, fa)
+        n_attn = _attention_blocks(spec)
+        t0 = time.perf_counter()
+        params = lm.init_params(spec, seed=0, device="cuda")
+        eng = ServeEngine(spec, params, s_max=s_max, batch=SERVE_BATCH,
+                          cfg=ServeConfig(max_new_tokens=SERVE_NEW), device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = lm.param_count(params)
+        weights_gb = sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9
+        prompts = np.random.default_rng(0).integers(
+            0, cfg.vocab, size=(SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+        eng.generate(prompts[:, :64])  # the one warm-up: cuBLAS handles and workspaces
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        toks = eng.generate(prompts)
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        st = eng.stats
+        want = {name: 0 for name in counts} | {"flash_attention": n_attn}
+        if route_name == "wgmma":
+            want["flash_attention_wgmma"] = n_attn
+        if counts != want:
+            fail(f"serve {arch}: launch counts {counts} != {want} ({n_attn} attention blocks "
+                 f"at head dim {hd}, the {route_name} route)")
+        if toks.shape != (SERVE_BATCH, SERVE_NEW) or toks.min() < 0 or toks.max() >= cfg.vocab:
+            fail(f"serve {arch}: tokens of shape {toks.shape} in [{toks.min()}, {toks.max()}] "
+                 f"(want ({SERVE_BATCH}, {SERVE_NEW}) below vocab {cfg.vocab})")
+        if peak > SERVE2_PEAK_GB:
+            fail(f"serve {arch}: peak device memory {peak:.2f} GB > {SERVE2_PEAK_GB:g} GB")
+        tokens = torch.from_numpy(prompts).long().cuda()
+        with torch.inference_mode():
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = lm.prefill(spec, eng.params, tokens, s_max)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            c_pre = kernels.launch_counts()
+            if not bool(torch.isfinite(logits[:, : cfg.vocab].float()).all()):
+                fail(f"serve {arch}: prefill logits not finite")
+            kernels.reset_launch_counts()
+            tok = logits.float().argmax(-1)
+            for _ in range(2):
+                logits, cache = lm.decode_step(spec, eng.params, tok, cache)
+                tok = logits.float().argmax(-1)
+            if not bool(torch.isfinite(logits[:, : cfg.vocab].float()).all()):
+                fail(f"serve {arch}: decode logits not finite")
+            c_dec = kernels.launch_counts()
+            del cache
+            sp_pre = device_split(torch, lambda: lm.prefill(spec, eng.params, tokens, s_max))
+        if c_pre != want:
+            fail(f"serve {arch}: prefill launches {c_pre}, want {want}")
+        if sum(c_dec.values()) != 0:
+            fail(f"serve {arch}: decode launched kernels {c_dec}")
+        if sp_pre:
+            sp_pre["idle_share_unprofiled"] = max(0.0, 1.0 - sp_pre["busy_ms"] / (prefill_s * 1e3))
+        step_ms = st.decode_s / st.decode_steps * 1e3
+        tok_s = SERVE_BATCH * st.decode_steps / st.decode_s
+        depth_note = ("full depth" if depth is None
+                      else f"reduced from {full.n_layers} layers")
+        log(f"[serve2] {arch} ({n_params / 1e9:.3f} B params, {weights_gb:.2f} GB of "
+            f"{cfg.param_dtype} weights, {cfg.n_layers} layers, {depth_note}; {cfg.compute_dtype} "
+            f"compute; init {init_s:.1f} s): batch {SERVE_BATCH} x prompt {SERVE_PROMPT}, "
+            f"{SERVE_NEW} greedy tokens: time to first token {st.ttft_s * 1e3:.1f} ms; decode "
+            f"{step_ms:.2f} ms/step, {tok_s:.1f} tok/s; peak device memory {peak:.2f} GB; "
+            f"launches flash_attention {counts['flash_attention']} on the {route_name} route at "
+            f"D={hd} (prefill {c_pre['flash_attention']}, decode 0); prefill alone "
+            f"{prefill_s * 1e3:.1f} ms")
+        log(f"[serve2] {arch} prefill under torch.profiler: {fmt_split(sp_pre)}"
+            + (f"; against the unprofiled {prefill_s * 1e3:.1f} ms the card is idle "
+               f"{100 * sp_pre['idle_share_unprofiled']:.1f}%" if sp_pre else ""))
+        out[arch] = {"n_layers": cfg.n_layers, "full_n_layers": full.n_layers,
+                     "reduced": depth is not None, "params": n_params, "weights_gb": weights_gb,
+                     "param_dtype": cfg.param_dtype, "init_s": init_s,
+                     "route": route_name, "head_dim": hd, "attention_blocks": n_attn,
+                     "counts": counts, "prefill_counts": c_pre, "decode_counts": c_dec,
+                     "ttft_ms": st.ttft_s * 1e3, "decode_ms_per_step": step_ms,
+                     "decode_tok_s": tok_s, "peak_gb": peak, "prefill_ms": prefill_s * 1e3,
+                     "prefill_device_split": sp_pre,
+                     "first_tokens": toks[0, :8].tolist()}
+        del params, eng, logits, tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch]["card_vs_cpu"] = _serve2_card_vs_cpu(torch, arch, check_depth, np)
+        out[arch]["seconds"] = time.perf_counter() - t_model
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[serve2] phase 13 in {out['seconds']:.1f} s ("
+        + ", ".join(f"{a} {out[a]['seconds']:.1f}" for a, *_ in SERVE2_MODELS) + ")")
+    return out
+
+
+def _serve2_card_vs_cpu(torch, arch: str, depth, np) -> dict:
+    """One model card against CPU: full width at ``depth`` ("smoke": the SMOKE
+    config), fp32 compute, batch 2 x a ragged prompt of 100, 8 greedy tokens:
+    tokens equal, prefill logits within 1e-3 of the largest, MoE routing per
+    layer (_routing_card_vs_cpu)."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.models import moe
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    t0 = time.perf_counter()
+    if depth == "smoke":
+        cfg, setup = configs.get_smoke(arch), "SMOKE config"
+    else:
+        cfg = configs.get_config(arch).replace(n_layers=depth, compute_dtype="float32")
+        setup = f"full width, depth {cfg.n_layers}"
+    spec = lm.build_spec(cfg)
+    params = lm.init_params(spec, seed=0, device="cuda")
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, size=(2, 100)).astype(np.int32)
+    res = {}
+    for d in ("cuda", "cpu"):
+        eng = ServeEngine(spec, params, s_max=108, cfg=ServeConfig(max_new_tokens=8), device=d)
+        toks = eng.generate(prompts)
+        with torch.inference_mode(), moe.record_routing() as routes:
+            lg, _ = lm.prefill(spec, eng.params, torch.from_numpy(prompts).long().to(d), 108)
+        res[d] = (toks, lg[:, : cfg.vocab].float().cpu(), routes)
+        del eng, lg
+    if not np.array_equal(res["cuda"][0], res["cpu"][0]):
+        fail(f"serve {arch} card vs CPU: greedy tokens differ: {res['cuda'][0].tolist()} vs "
+             f"{res['cpu'][0].tolist()}")
+    err, scale = check_close(f"serve {arch} card vs CPU prefill logits", res["cuda"][1],
+                             res["cpu"][1], 1e-3)
+    routing = _routing_card_vs_cpu(f"serve {arch} card vs CPU", res["cuda"][2], res["cpu"][2])
+    n_moe = spec.layers().count("attn_moe")
+    log(f"[serve2] {arch} card vs CPU ({setup}, fp32, batch 2 x prompt 100, 8 new tokens, "
+        f"{time.perf_counter() - t0:.1f} s): greedy tokens equal; prefill logits max |diff| "
+        f"{err:.3e} (tol 1e-3 x max|logit| {scale:.3e})"
+        + (f"; MoE routing of {n_moe} layers: flips {sum(r['flips'] for r in routing)}, "
+           f"dropped slots {[r.get('dropped') for r in routing]}" if n_moe else ""))
+    del params, res
+    return {"setup": setup, "n_layers": cfg.n_layers, "tokens_equal": True, "logits_err": err,
+            "max_logit": scale, "routing": routing, "seconds": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------------------
@@ -3279,6 +3559,8 @@ def main() -> int:
     grid = phase_grid(torch, rows, resident, s64)
     torch.cuda.empty_cache()
     grid_oocore = phase_grid_oocore(torch, rows, oocore, s5_t0)
+    torch.cuda.empty_cache()
+    serve2 = phase_serve_families(torch)
     for row in rows:
         by_path = {"resident": resident["counts"][row["name"]],
                    "oocore": oocore["counts"][row["name"]],
@@ -3290,11 +3572,14 @@ def main() -> int:
         by_path["paper"] = paper["counts"][row["name"]]
         by_path["grid"] = grid["counts"][row["name"]]
         by_path["grid oocore"] = grid_oocore["counts"][row["name"]]
+        by_path |= {f"serve {arch}": serve2[arch]["counts"][row["name"]]
+                    for arch, *_ in SERVE2_MODELS}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if row["name"] == "flash_attention":
-            row["launches_wgmma"] = sum(serve[arch]["counts"]["flash_attention_wgmma"]
-                                        for arch, _ in SERVE_MODELS)
+            row["launches_wgmma"] = (
+                sum(serve[arch]["counts"]["flash_attention_wgmma"] for arch, _ in SERVE_MODELS)
+                + sum(serve2[arch]["counts"]["flash_attention_wgmma"] for arch, *_ in SERVE2_MODELS))
         if row["name"] == "stream_gemm":
             row["launches_tc"] = (oocore["counts"]["stream_gemm_tc"]
                                   + incremental["oocore"]["counts"]["stream_gemm_tc"]
@@ -3306,7 +3591,8 @@ def main() -> int:
     (OUT / "chip_smoke_incremental.json").write_text(json.dumps({"card": smi, **incremental},
                                                                 indent=1))
     (OUT / "chip_smoke_query.json").write_text(json.dumps({"card": smi, **query}, indent=1))
-    (OUT / "chip_smoke_serve.json").write_text(json.dumps({"card": smi, **serve}, indent=1))
+    (OUT / "chip_smoke_serve.json").write_text(json.dumps(
+        {"card": smi, **serve, "phase 13 (the other decoder families)": serve2}, indent=1))
     (OUT / "chip_smoke_paper.json").write_text(json.dumps({"card": smi, **paper}, indent=1))
     (OUT / "chip_smoke_grid.json").write_text(json.dumps(
         {"card": smi, **grid, "phase 12 (out of core on the grid)": grid_oocore}, indent=1,

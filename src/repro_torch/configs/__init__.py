@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` -> (full config, smoke config).
 
-The port serves two of the JAX package's ten architectures so far; the other
-eight ids are known and raise ``NotImplementedError`` (ROADMAP.md, Queue 1).
+The port serves nine of the JAX package's ten architectures; the
+encoder-decoder ``seamless-m4t-medium`` is known and raises
+``NotImplementedError`` (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -11,19 +12,17 @@ import importlib
 from repro_torch.models.common import ArchConfig
 
 _MODULES = {
+    "granite-3-2b": "granite_3_2b",
     "qwen2-1.5b": "qwen2_1_5b",
+    "deepseek-67b": "deepseek_67b",
+    "stablelm-1.6b": "stablelm_1_6b",
+    "zamba2-7b": "zamba2_7b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b",
+    "granite-moe-3b-a800m": "granite_moe_3b",
     "rwkv6-3b": "rwkv6_3b",
+    "chameleon-34b": "chameleon_34b",
 }
-_NOT_PORTED = (
-    "seamless-m4t-medium",
-    "granite-3-2b",
-    "deepseek-67b",
-    "stablelm-1.6b",
-    "zamba2-7b",
-    "llama4-maverick-400b-a17b",
-    "granite-moe-3b-a800m",
-    "chameleon-34b",
-)
+_NOT_PORTED = ("seamless-m4t-medium",)
 
 ARCH_IDS = tuple(_MODULES)
 

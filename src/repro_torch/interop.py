@@ -69,6 +69,15 @@ def embedding_from_numpy(z, vol, device="cuda") -> Embedding:
     return Embedding(z=_tensor(z, dev), vol=_tensor(vol, dev).reshape(()))
 
 
+def _leaf(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A writable copy of ``a`` in its dtype (bfloat16 too, which numpy holds
+    as the ``ml_dtypes`` type that ``torch.from_numpy`` does not take)."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
 def _params_tree(tree: dict, dev: torch.device, index=None) -> Params:
     """Nested dicts of numpy arrays -> nested :class:`Params`; ``index`` picks
     one layer of a stacked ``(count, ...)`` group."""
@@ -77,8 +86,7 @@ def _params_tree(tree: dict, dev: torch.device, index=None) -> Params:
         if isinstance(x, dict):
             children[name] = _params_tree(x, dev, index)
         else:
-            a = np.asarray(x) if index is None else np.asarray(x)[index]
-            tensors[name] = torch.from_numpy(np.array(a)).to(dev)  # a writable copy
+            tensors[name] = _leaf(np.asarray(x) if index is None else np.asarray(x)[index], dev)
     return Params(tensors, **children)
 
 
@@ -88,17 +96,22 @@ def lm_params_from_numpy(spec: LMSpec, tree: dict, device="cuda") -> Params:
     ``tree`` is that pytree with numpy leaves (``jax.tree.map(np.asarray,
     params)``): ``embed``, ``final_norm``, ``lm_head`` unless tied, and
     ``groups``, a list with one dict per group whose block entries are stacked
-    on a leading ``(count, ...)`` layer axis.  The layers are unstacked into
-    ``params.blocks`` in execution order; dtypes are kept.
+    on a leading ``(count, ...)`` layer axis, and the unstacked
+    ``shared_attn`` of a hybrid.  The layers are unstacked into
+    ``params.blocks`` in execution order (a group's shared-block positions
+    have no entry, and no block); dtypes are kept.
     """
     dev = resolve_device(device)
     top = {k: v for k, v in tree.items() if k in ("embed", "lm_head")}
     blocks = []
     for g, gp in zip(spec.groups, tree["groups"], strict=True):
         for layer in range(g.count):
-            for bi in range(len(g.block_types)):
-                blocks.append(_params_tree(gp[str(bi)], dev, index=layer))
+            for bi, bt in enumerate(g.block_types):
+                if bt != "shared_attn":
+                    blocks.append(_params_tree(gp[str(bi)], dev, index=layer))
     out = _params_tree(top, dev)
     out.add_module("final_norm", _params_tree(tree["final_norm"], dev))
     out.add_module("blocks", torch.nn.ModuleList(blocks))
+    if "shared_attn" in tree:
+        out.add_module("shared_attn", _params_tree(tree["shared_attn"], dev))
     return out

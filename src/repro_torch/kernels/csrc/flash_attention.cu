@@ -35,13 +35,15 @@
 //   TPU kernel's fp32 P: at most one bf16 step of the output.  Causal tiles
 //   past a warpgroup's last row are skipped; the heaviest q tiles of every
 //   head are issued first.
-// * `flash_kernel`, fp32 or any other D <= 128: the SIMT kernel.  One block
+// * `flash_kernel`, fp32 or any other D <= 256: the SIMT kernel.  One block
 //   of 256 threads per (q head, tile of 64 q rows); the scaled Q tile and
 //   each 64-row K/V tile are widened to fp32 in shared memory (~113 KB at
-//   D = 128); thread (ti, tj) owns q rows 4ti..4ti+3 and computes scores
-//   and output columns with FFMA on CUDA cores; P goes through shared
-//   memory; rows and keys past S and T are masked; heavy causal tiles
-//   first.
+//   D = 128, 189,184 bytes at D = 224: zamba2's shared block, whose head is
+//   2 x 3584 / 32 wide); thread (ti, tj) owns q rows 4ti..4ti+3 and computes
+//   scores and ceil(D / 16) output columns with FFMA on CUDA cores (4 x 14
+//   fp32 accumulators a thread at D = 224); P goes through shared memory;
+//   rows and keys past S and T are masked; heavy causal tiles first.
+//   Compiled for D = 64, 128 and 224, and once for any D read at run time.
 //
 // No atomics in either; every sum runs in a fixed order, so two runs are
 // bitwise equal.
@@ -52,8 +54,8 @@ namespace {
 constexpr int FA_BQ = 64;
 constexpr int FA_BK = 64;
 constexpr int FA_THREADS = 256;  // 16 x 16: (ti, tj)
-constexpr int FA_DMAX = 128;
-constexpr int FA_CMAX = FA_DMAX / 16;  // output columns per thread
+constexpr int FA_DMAX = 256;
+constexpr int FA_CMAX = FA_DMAX / 16;  // output columns per thread, D read at run time
 constexpr float FA_NEG_INF = -1e30f;
 
 size_t fa_smem_bytes(int d) {
@@ -67,6 +69,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
              T* __restrict__ o, int s_len, int t_len, int d_rt, int groups, int causal,
              float scale) {
   const int D = DC > 0 ? DC : d_rt;
+  constexpr int CM = DC > 0 ? (DC + 15) / 16 : FA_CMAX;  // output columns per thread
   const int ldk = D + 1;
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;                    // BQ x ldk, scaled
@@ -89,13 +92,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     qs[i * ldk + c] = row < s_len ? to_f32(qh[(size_t)row * D + c]) * scale : 0.0f;
   }
 
-  float m_i[4], l_i[4], acc[4][FA_CMAX];
+  float m_i[4], l_i[4], acc[4][CM];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     m_i[a] = FA_NEG_INF;
     l_i[a] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < FA_CMAX; ++c) acc[a][c] = 0.0f;
+    for (int c = 0; c < CM; ++c) acc[a][c] = 0.0f;
   }
 
   const int kv_end = causal ? min(t_len, q0 + FA_BQ) : t_len;
@@ -155,7 +158,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       l_i[a] = alpha * l_i[a] + sum;
       m_i[a] = m_new;
 #pragma unroll
-      for (int c = 0; c < FA_CMAX; ++c) acc[a][c] *= alpha;
+      for (int c = 0; c < CM; ++c) acc[a][c] *= alpha;
     }
     __syncthreads();
 
@@ -165,7 +168,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
       for (int a = 0; a < 4; ++a) pa[a] = ps[(4 * ti + a) * (FA_BK + 1) + j];
 #pragma unroll
-      for (int c = 0; c < FA_CMAX; ++c) {
+      for (int c = 0; c < CM; ++c) {
         const int col = tj + 16 * c;
         if (col < D) {
           const float vv = vs[j * D + col];
@@ -183,7 +186,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     if (row >= s_len) continue;
     const float inv = 1.0f / fmaxf(l_i[a], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < FA_CMAX; ++c) {
+    for (int c = 0; c < CM; ++c) {
       const int col = tj + 16 * c;
       if (col < D) oh[(size_t)row * D + col] = from_f32<T>(acc[a][c] * inv);
     }
@@ -211,6 +214,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int bhq, int 
     return launch<T, 128>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, scale, stream);
   if (d == 64)
     return launch<T, 64>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, scale, stream);
+  if (d == 224)
+    return launch<T, 224>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, scale, stream);
   return launch<T, 0>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, scale, stream);
 }
 
@@ -442,7 +447,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int bhq, 
 
 }  // namespace
 
-// Grid (ceil(S / 64), BHq).  The wrapper bounds d <= 128, checks that BHq =
+// Grid (ceil(S / 64), BHq).  The wrapper bounds d <= 256, checks that BHq =
 // BHkv x groups, and checks every shape and type.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o, int bhq,
                                   int s_len, int t_len, int d, int groups, int causal,

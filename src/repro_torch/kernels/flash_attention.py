@@ -13,8 +13,9 @@ fallback:
   tensor-core kernel (``flash_kernel_wgmma``: TMA, ``wgmma``, P rounded to
   bf16 for the P V product); it needs 16-byte aligned operands and raises
   otherwise;
-* fp32, or any other D up to 128, take the SIMT kernel (``flash_kernel``,
-  FFMA in fp32).
+* fp32, or any other D up to 256, take the SIMT kernel (``flash_kernel``,
+  FFMA in fp32): zamba2's shared block attends at D = 224.  A wider head
+  raises.
 
 ``launches`` counts both routes; ``wgmma_launches`` the tensor-core route alone.
 """
@@ -28,7 +29,7 @@ from repro_torch.kernels import _build, ref
 launches = 0  # kernel launches since the last reset (see kernels.reset_launch_counts)
 wgmma_launches = 0  # of which on the tensor-core route
 
-D_MAX = 128  # widest head the kernels take (register accumulators per thread)
+D_MAX = 256  # widest head the SIMT kernel takes (register accumulators per thread)
 WGMMA_DIMS = (64, 128)  # head dims of the tensor-core route (bf16 only)
 _DTYPES = (torch.float32, torch.bfloat16)
 

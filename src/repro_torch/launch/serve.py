@@ -1,7 +1,10 @@
 """Batched serving launcher of the port: prefill a prompt batch, decode N tokens.
 
-Port of :mod:`repro.launch.serve` on one device.  Weights are random, from
-the port's own init (seed 0); prompts come from numpy ``default_rng(0)``.
+Port of :mod:`repro.launch.serve` on one device, for every architecture of
+``repro_torch.configs.ARCH_IDS``.  Weights are random, from the port's own
+init (seed 0); prompts come from numpy ``default_rng(0)``.  A model that
+does not fit the card at its full depth (deepseek-67b, llama4) is served at
+a reduced depth from code, with ``cfg.replace(n_layers=...)``.
 
   python -m repro_torch.launch.serve --arch rwkv6-3b --batch 4 --prompt-len 1024 \\
       --max-new 32                                                  # on the card

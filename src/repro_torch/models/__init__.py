@@ -1,4 +1,5 @@
-"""The LM substrate of the port: the dense (GQA) and RWKV6 families, for serving."""
+"""The LM substrate of the port, for serving: the dense (GQA), vlm, MoE, Mamba2
+hybrid and RWKV6 families."""
 
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.lm import (

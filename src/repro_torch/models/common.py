@@ -122,7 +122,12 @@ COMPUTE_NAMES = frozenset({
     "wq", "wk", "wv", "wo", "bq", "bk", "bv",
     "w_gate", "w_up", "w_down",
     "mix", "wr", "wg", "cm_mix", "cm_k", "cm_v", "cm_r",
+    "w_z", "w_x", "w_b", "w_c", "w_dt", "w_out",
 })
+# Not Mamba2's conv filters (conv_wx, conv_wbc, conv_b), norm, a_log, d_skip or
+# dt_bias, nor the MoE router: prefill casts the conv filters to the compute
+# dtype, but decode reads them in fp32 from the parameter dtype, and the
+# others are read in fp32.
 
 
 def cast_for_compute(mod: nn.Module, dtype: torch.dtype, device=None) -> nn.Module:
@@ -144,13 +149,26 @@ def cast_for_compute(mod: nn.Module, dtype: torch.dtype, device=None) -> nn.Modu
     return new
 
 
+def _trunc_normal(gen: torch.Generator, shape, device) -> torch.Tensor:
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    return nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-3.0, b=3.0, generator=gen)
+
+
 def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None,
                device=None) -> torch.Tensor:
-    """Truncated-normal fan-in init (within 3 std), as the JAX package's."""
+    """Truncated-normal fan-in init (within 3 std), as the JAX package's.
+
+    The fan-in is ``shape[0]``, as there: E for a (E, d_in, d_out) expert
+    stack.  Such a stack is drawn one matrix at a time into its dtype, so no
+    fp32 temporary of the whole stack exists (llama4's is 21.5 GB in fp32).
+    """
     std = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-3.0, b=3.0, generator=gen)
-    return (t * std).to(dtype)
+    if len(shape) == 3:
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for i in range(shape[0]):
+            out[i] = _trunc_normal(gen, shape[1:], device).mul_(std)
+        return out
+    return _trunc_normal(gen, shape, device).mul_(std).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype, device=None) -> torch.Tensor:

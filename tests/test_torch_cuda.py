@@ -633,7 +633,8 @@ def test_wkv_kernel_at_strong_decay_matches_the_oracle(dev, s):
 
 @pytest.mark.parametrize("bhkv,groups,s,t,d", [(2, 1, 64, 64, 64), (2, 3, 100, 100, 128),
                                                (3, 2, 1, 1, 16), (1, 6, 130, 130, 128),
-                                               (2, 2, 70, 33, 32)])
+                                               (2, 2, 70, 33, 32), (2, 1, 130, 130, 224),
+                                               (1, 2, 70, 33, 200), (1, 1, 65, 65, 256)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel(dev, bhkv, groups, s, t, d, causal, dtype):
@@ -668,6 +669,18 @@ def test_flash_attention_wgmma_route(dev, s, t, groups, causal, d):
     assert counts["flash_attention"] == counts["flash_attention_wgmma"] == 2
 
 
+def test_flash_attention_kernel_at_zamba2_head_dim(dev):
+    """zamba2's shared block: D = 224, groups 1, bf16 causal on the SIMT route,
+    two whole 64-row tiles and a ragged one."""
+    rng = np.random.default_rng(224)
+    q, k, v = (_arr(rng, (6, 1000, 224), dev).to(torch.bfloat16) for _ in range(3))
+    got = flash.flash_attention(q, k, v, causal=True)
+    _rel_close(got, ref.flash_attention(q, k, v, causal=True), 2.0**-7)
+    assert torch.equal(got, flash.flash_attention(q, k, v, causal=True))
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 2 and counts["flash_attention_wgmma"] == 0
+
+
 def test_lm_kernels_refuse_what_they_cannot_take(dev):
     r = torch.zeros((2, 8, 65), device=dev)
     with pytest.raises(ValueError, match="dk=65"):
@@ -678,8 +691,8 @@ def test_lm_kernels_refuse_what_they_cannot_take(dev):
                 torch.zeros((2, 16), device=dev))
     with pytest.raises(TypeError):
         wkv.wkv(r.half(), r.half(), r.half(), r, torch.zeros((2, 16), device=dev))
-    q = torch.zeros((4, 8, 129), device=dev)
-    with pytest.raises(ValueError, match="d=129"):
+    q = torch.zeros((4, 8, 257), device=dev)
+    with pytest.raises(ValueError, match="d=257"):
         flash.flash_attention(q, q, q)
     q = torch.zeros((4, 8, 32), device=dev)
     with pytest.raises(ValueError, match="groups"):
@@ -694,10 +707,17 @@ def test_lm_kernels_refuse_what_they_cannot_take(dev):
     assert kernels.launch_counts()["flash_attention_wgmma"] == 0
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "rwkv6-3b", "granite-3-2b", "stablelm-1.6b",
+                                  "deepseek-67b", "chameleon-34b", "granite-moe-3b-a800m",
+                                  "llama4-maverick-400b-a17b", "zamba2-7b"])
 def test_smoke_models_on_card_match_cpu(dev, arch):
+    """Every served family at SMOKE: greedy tokens equal, the prefill's kernel
+    once per rwkv layer (``wkv``) or attention block (``flash_attention``, the
+    shared block's calls too) and never in decode, MoE routing equal, prefill
+    logits within 1e-4 of the largest."""
     from repro_torch import configs
     from repro_torch.models import lm
+    from repro_torch.models import moe
     from repro_torch.serving import ServeConfig, ServeEngine
 
     spec = lm.build_spec(configs.get_smoke(arch))  # fp32 params and compute
@@ -709,14 +729,19 @@ def test_smoke_models_on_card_match_cpu(dev, arch):
         out[d] = eng.generate(prompts)
     np.testing.assert_array_equal(out["cuda"], out["cpu"])
     counts = kernels.launch_counts()
-    want = spec.cfg.n_layers
-    assert counts["flash_attention" if arch == "qwen2-1.5b" else "wkv"] == want
-    assert sum(counts.values()) == want
-    logits = {}
+    kname = "wkv" if spec.cfg.rwkv else "flash_attention"
+    want = sum(bt in ("rwkv", "attn", "attn_moe", "shared_attn") for bt in spec.layers())
+    assert counts[kname] == want and sum(counts.values()) == want
+    logits, routes = {}, {}
     for d in ("cuda", "cpu"):
         p = params if d == "cpu" else ServeEngine(spec, params, s_max=48, device=d).params
-        logits[d], _ = lm.prefill(spec, p, torch.from_numpy(prompts).long().to(d), 48)
+        with moe.record_routing() as log:
+            logits[d], _ = lm.prefill(spec, p, torch.from_numpy(prompts).long().to(d), 48)
+        routes[d] = [(r.expert_ids.cpu(), r.keep.cpu()) for r in log]
     _rel_close(logits["cuda"].cpu(), logits["cpu"], 1e-4)
+    assert len(routes["cuda"]) == spec.layers().count("attn_moe")
+    for (ic, kc), (ih, kh) in zip(routes["cuda"], routes["cpu"]):
+        assert torch.equal(ic, ih) and torch.equal(kc, kh)
 
 
 @pytest.mark.parametrize("oocore", [False, True], ids=["resident", "oocore"])

@@ -156,7 +156,7 @@ def test_engine_leaves_the_callers_params_alone(model):
 
 
 def test_unported_family_raises():
-    cfg = tconfigs.get_smoke("qwen2-1.5b").replace(family="moe")
+    cfg = tconfigs.get_smoke("qwen2-1.5b").replace(family="encdec")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tlm.build_spec(cfg)
 
