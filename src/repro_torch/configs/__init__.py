@@ -1,8 +1,6 @@
 """Architecture registry of the port: ``--arch <id>`` -> (full config, smoke config).
 
-The port serves nine of the JAX package's ten architectures; the
-encoder-decoder ``seamless-m4t-medium`` is known and raises
-``NotImplementedError`` (ROADMAP.md, Queue 1).
+The JAX package's ten architectures, in its order.
 """
 
 from __future__ import annotations
@@ -12,6 +10,7 @@ import importlib
 from repro_torch.models.common import ArchConfig
 
 _MODULES = {
+    "seamless-m4t-medium": "seamless_m4t_medium",
     "granite-3-2b": "granite_3_2b",
     "qwen2-1.5b": "qwen2_1_5b",
     "deepseek-67b": "deepseek_67b",
@@ -22,18 +21,12 @@ _MODULES = {
     "rwkv6-3b": "rwkv6_3b",
     "chameleon-34b": "chameleon_34b",
 }
-_NOT_PORTED = ("seamless-m4t-medium",)
-
 ARCH_IDS = tuple(_MODULES)
 
 
 def _module(arch_id: str):
-    if arch_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported to repro_torch yet (ROADMAP.md, Queue 1); "
-            f"ported: {list(_MODULES)}")
     if arch_id not in _MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {list(_MODULES) + list(_NOT_PORTED)}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {list(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
 
 

@@ -6,7 +6,8 @@ into the port's, so one module can be checked at a time: a JAX-built
 operator (plain or delta-corrected) into the port's solver, a JAX-built base
 chain into the port's incremental update, two JAX-built embeddings into the
 port's scorer, or a JAX-initialized LM parameter tree into the port's
-serving path.  This module imports neither JAX nor the JAX package.
+serving path, or its parameter tree and optimizer state into the port's
+training step.  This module imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from repro_torch.core.embedding import Embedding
 from repro_torch.device import resolve_device
 from repro_torch.models.common import Params
 from repro_torch.models.lm import LMSpec
+from repro_torch.tree import tree_map
 
 
 def _tensor(x, dev: torch.device) -> torch.Tensor:
@@ -96,22 +98,55 @@ def lm_params_from_numpy(spec: LMSpec, tree: dict, device="cuda") -> Params:
     ``tree`` is that pytree with numpy leaves (``jax.tree.map(np.asarray,
     params)``): ``embed``, ``final_norm``, ``lm_head`` unless tied, and
     ``groups``, a list with one dict per group whose block entries are stacked
-    on a leading ``(count, ...)`` layer axis, and the unstacked
-    ``shared_attn`` of a hybrid.  The layers are unstacked into
-    ``params.blocks`` in execution order (a group's shared-block positions
-    have no entry, and no block); dtypes are kept.
+    on a leading ``(count, ...)`` layer axis, the unstacked ``shared_attn``
+    of a hybrid, and an encoder-decoder's ``enc_groups`` (stacked as
+    ``groups``) and ``enc_final_norm``.  The layers are unstacked into
+    ``params.blocks`` (``params.enc_blocks``) in execution order (a group's
+    shared-block positions have no entry, and no block); dtypes are kept.
     """
     dev = resolve_device(device)
-    top = {k: v for k, v in tree.items() if k in ("embed", "lm_head")}
-    blocks = []
-    for g, gp in zip(spec.groups, tree["groups"], strict=True):
-        for layer in range(g.count):
-            for bi, bt in enumerate(g.block_types):
-                if bt != "shared_attn":
-                    blocks.append(_params_tree(gp[str(bi)], dev, index=layer))
-    out = _params_tree(top, dev)
+
+    def blocks(gspecs, gtrees):
+        out = []
+        for g, gp in zip(gspecs, gtrees, strict=True):
+            for layer in range(g.count):
+                for bi, bt in enumerate(g.block_types):
+                    if bt != "shared_attn":
+                        out.append(_params_tree(gp[str(bi)], dev, index=layer))
+        return torch.nn.ModuleList(out)
+
+    out = _params_tree({k: v for k, v in tree.items() if k in ("embed", "lm_head")}, dev)
     out.add_module("final_norm", _params_tree(tree["final_norm"], dev))
-    out.add_module("blocks", torch.nn.ModuleList(blocks))
+    out.add_module("blocks", blocks(spec.groups, tree["groups"]))
+    if spec.is_encdec:
+        out.add_module("enc_blocks", blocks(spec.enc_groups, tree["enc_groups"]))
+        out.add_module("enc_final_norm", _params_tree(tree["enc_final_norm"], dev))
     if "shared_attn" in tree:
         out.add_module("shared_attn", _params_tree(tree["shared_attn"], dev))
     return out
+
+
+def tree_from_numpy(tree, device="cuda"):
+    """A tree of numpy arrays (dicts and lists, the JAX package's layout) as
+    the same tree of tensors on ``device``, dtypes (bf16 too) and bits kept."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _leaf(a, dev), tree)
+
+
+def lm_tree_from_numpy(tree: dict, device="cuda") -> dict:
+    """The training step's parameters (the layout of ``lm.params_tree``) from
+    the JAX package's ``lm.init_params`` tree with numpy leaves, each leaf a
+    leaf tensor that requires grad."""
+    return tree_map(lambda t: t.requires_grad_(True), tree_from_numpy(tree, device))
+
+
+def opt_state_from_numpy(state: dict, device="cuda") -> dict:
+    """An optimizer state of the port from the JAX package's, as numpy.
+
+    AdamW's ``{"m": tree, "v": tree, "count": int32 ()}`` and Adafactor's
+    ``{"v": tree of {"vr", "vc"} (a parameter of two or more dims) or {"v"},
+    "count"}`` have the same layout in both packages, moments fp32, so the
+    state carries across leaf for leaf: a train step then starts from the
+    same state in both.
+    """
+    return tree_from_numpy(state, device)

@@ -172,3 +172,21 @@ def on_device(t):
     import torch
 
     return torch.cuda.device(t.device)
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when grad mode is on and an operand requires grad.
+
+    No kernel has a backward of its own: a gradient through one goes by its
+    ``torch.autograd.Function`` (``flash_attention.FlashAttentionFn``,
+    ``wkv.WKVFn``), whose forward runs with grad mode off.  A wrapper called
+    directly on such an operand would return a tensor cut from the graph, so
+    the gradient would stop there without a word.
+    """
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an operand requires grad and the kernel has no backward; differentiate "
+            f"through its autograd.Function, or call it under torch.no_grad()")

@@ -42,6 +42,7 @@ def block_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.T
     if a.device != b.device:
         raise ValueError(f"block_matmul: operands on {a.device} and {b.device}")
     out_dtype = out_dtype or a.dtype
+    _build.refuse_grad("block_matmul", a, b)
     if a.device.type == "cpu":
         return ref.block_matmul(a, b, out_dtype=out_dtype)
     if a.device.type != "cuda":
@@ -75,6 +76,7 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """
     if x.ndim != 2 or x.dtype != torch.float32:
         raise ValueError(f"split_tf32: want an fp32 matrix, got {x.dtype} {tuple(x.shape)}")
+    _build.refuse_grad("split_tf32", x)
     if x.device.type == "cpu":
         return ref.split_tf32(x)
     if x.device.type != "cuda":

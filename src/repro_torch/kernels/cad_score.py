@@ -32,6 +32,7 @@ def cad_scores_tile(a1, a2, z1i, z1j, z2i, z2j, vol1, vol2) -> torch.Tensor:
             f"Z2j {tuple(z2j.shape)} do not agree"
         )
     tensors = (a1, a2, z1i, z1j, z2i, z2j)
+    _build.refuse_grad("cad_scores", *tensors)
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("cad_scores: all operands must be float32")
     if any(t.device != a1.device for t in tensors):

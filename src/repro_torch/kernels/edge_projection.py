@@ -38,6 +38,7 @@ def edge_projection(a: torch.Tensor, *, seed: int, k: int, row0: int = 0,
     """
     global launches
     _check(a, k)
+    _build.refuse_grad("edge_projection", a)
     if row0 < 0 or col0 < 0:
         raise ValueError(f"edge_projection: row0={row0} and col0={col0} must be >= 0")
     if a.device.type == "cpu":

@@ -96,6 +96,7 @@ class PanelTopk:
         if run_idx.dtype != torch.int32 or exclude.dtype != torch.int32:
             raise TypeError("panel_topk_update: run_idx and exclude must be int32")
         tensors = (run_vals, run_idx, zq, inv_deg_q, inv_deg, exclude)
+        _build.refuse_grad("panel_topk_update", *tensors)
         if any(t.device != zq.device for t in tensors):
             raise ValueError("panel_topk_update: operands on different devices")
         self.device, self.q, self.k = zq.device, q, kdim
@@ -137,6 +138,7 @@ class PanelTopk:
         """Merge one (ph, k) panel, fp32 or bf16 bit patterns carried as
         int16, of global rows ``row0 .. row0 + ph``."""
         global launches
+        _build.refuse_grad("panel_topk_update", z_panel)
         ph = z_panel.shape[0]
         lo = row0 - self._inv_row0
         if (z_panel.ndim != 2 or z_panel.shape[1] != self.k or ph > self.panel_rows or lo < 0

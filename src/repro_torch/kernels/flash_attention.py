@@ -18,6 +18,10 @@ fallback:
   raises.
 
 ``launches`` counts both routes; ``wgmma_launches`` the tensor-core route alone.
+
+The kernel has no backward, nor has the JAX package's.  A gradient goes
+through :class:`FlashAttentionFn`: the kernel forward, and a backward that
+recomputes the plain chunked form with autograd in fp32.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ def flash_attention(q, k, v, *, causal: bool = True, groups: int = 1) -> torch.T
     ``j`` is visible to query ``i`` when ``i >= j``.
     """
     global launches, wgmma_launches
+    _build.refuse_grad("flash_attention", q, k, v)
     if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
         raise ValueError(f"flash_attention: want q (BHq,S,D), k = v (BHkv,T,D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -87,3 +92,34 @@ def flash_attention(q, k, v, *, causal: bool = True, groups: int = 1) -> torch.T
         _build.check(err, "flash_attention")
     launches += 1
     return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient, for the training forward.
+
+    The JAX package trains through its plain chunked scan (``_chunked_flash``
+    under ``jax.checkpoint``) and has no backward kernel.  So the forward
+    launches the kernel and saves its inputs; the backward recomputes
+    ``recompute(q, k, v, causal=, groups=)`` -- the model's chunked form on
+    this layout -- with autograd in fp32, as ``jax.checkpoint`` recomputes,
+    and returns the gradients in the inputs' dtypes.  On the tensor-core
+    route the forward rounds P to bf16 for P V, so the gradient is the fp32
+    form's, of a slightly different function.
+
+    ``FlashAttentionFn.apply(q, k, v, causal, groups, recompute)``.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, groups: int, recompute):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.groups, ctx.recompute = causal, groups, recompute
+        return flash_attention(q, k, v, causal=causal, groups=groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().to(torch.float32).requires_grad_(True) for t in (q, k, v)]
+            out = ctx.recompute(*ins, causal=ctx.causal, groups=ctx.groups)
+            gq, gk, gv = torch.autograd.grad(out, ins, grad.to(torch.float32))
+        return gq.to(q.dtype), gk.to(k.dtype), gv.to(v.dtype), None, None, None

@@ -109,6 +109,7 @@ def stream_gemm(
     device, saves the card a per-call allocation (the plain version needs none).
     """
     global gemm_launches, tc_launches
+    _build.refuse_grad("stream_gemm", a, b, init)
     _check_operand("stream_gemm: A", a)
     _check_operand("stream_gemm: B", b)
     m, k = a.shape
@@ -163,6 +164,7 @@ def fused_panel_matvec(
     rows of chi and y; all three fp32.
     """
     global matvec_launches
+    _build.refuse_grad("fused_panel_matvec", p_panel, y, chi_panel, y_panel)
     _check_operand("fused_panel_matvec: P", p_panel)
     ph, kdim = p_panel.shape
     q = y.shape[1]

@@ -10,6 +10,10 @@ call is a chunk-parallel scan of three launches over chunks of
 each chunk's outputs), with :func:`scratch_elems` floats of scratch; it
 masks a ragged last chunk itself and takes the decay ratios pairwise, so
 it has no chunk argument and no limit on the decay.
+
+The kernels have no backward, nor has the JAX package's kernel.  A gradient
+goes through :class:`WKVFn`: the kernel forward from a zero state, and a
+backward that recomputes the plain chunked form with autograd in fp32.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ def wkv(r, k, v, lw, u, *, s0=None, return_state: bool = False):
     fp32 log decay <= 0; u (BH, dk) fp32 bonus; s0 (BH, dk, dv) fp32 or None.
     """
     global launches
+    _build.refuse_grad("wkv", r, k, v, lw, u, s0)
     if r.ndim != 3 or k.shape != r.shape or lw.shape != r.shape:
         raise ValueError(f"wkv: r, k and lw must share one (BH, S, dk) shape, got "
                          f"{tuple(r.shape)}, {tuple(k.shape)}, {tuple(lw.shape)}")
@@ -79,3 +84,34 @@ def wkv(r, k, v, lw, u, *, s0=None, return_state: bool = False):
         _build.check(err, "wkv")
         launches += 1
     return (y, s_fin) if return_state else y
+
+
+class WKVFn(torch.autograd.Function):
+    """:func:`wkv` from a zero state with a gradient, for the training forward.
+
+    The JAX package trains through its plain chunked form (``wkv_chunked``
+    in ``apply_rwkv_timemix``) and has no backward kernel.  So the forward
+    launches the kernels and saves the inputs; the backward recomputes
+    ``recompute(r, k, v, lw, u)`` -- the model's chunked form on this layout
+    -- with autograd in fp32 and returns the gradients in the inputs' dtypes.
+    ``u`` is (H, dk), the bonus of each of the H heads, shared by the
+    BH / H sequences of the batch (row ``b * H + h`` reads ``u[h]``).
+
+    ``WKVFn.apply(r, k, v, lw, u, recompute)`` -> y (BH, S, dv).
+    """
+
+    @staticmethod
+    def forward(ctx, r, k, v, lw, u, recompute):
+        ctx.save_for_backward(r, k, v, lw, u)
+        ctx.recompute = recompute
+        reps = r.shape[0] // u.shape[0]
+        return wkv(r, k, v, lw, u.repeat(reps, 1))
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().to(torch.float32).requires_grad_(True) for t in saved]
+            y = ctx.recompute(*ins)
+            grads = torch.autograd.grad(y, ins, grad.to(torch.float32))
+        return (*(g.to(t.dtype) for g, t in zip(grads, saved)), None)

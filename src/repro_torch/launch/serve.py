@@ -2,7 +2,10 @@
 
 Port of :mod:`repro.launch.serve` on one device, for every architecture of
 ``repro_torch.configs.ARCH_IDS``.  Weights are random, from the port's own
-init (seed 0); prompts come from numpy ``default_rng(0)``.  A model that
+init (seed 0); prompts come from numpy ``default_rng(0)``, and for an
+encoder-decoder (``input_mode == "frames"``) the encoder's frames
+(B, prompt_len, d_model) right after them from the same generator, as the
+JAX launcher draws them.  A model that
 does not fit the card at its full depth (deepseek-67b, llama4) is served at
 a reduced depth from code, with ``cfg.replace(n_layers=...)``.
 
@@ -44,12 +47,15 @@ def main(argv=None) -> None:
     params = lm.init_params(spec, seed=0, device=dev)
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab, size=(args.batch, args.prompt_len)).astype(np.int32)
+    frames = None
+    if cfg.input_mode == "frames":
+        frames = rng.normal(size=(args.batch, args.prompt_len, cfg.d_model)).astype(np.float32)
     eng = ServeEngine(spec, params, s_max=args.prompt_len + args.max_new, batch=args.batch,
                       cfg=ServeConfig(max_new_tokens=args.max_new, temperature=args.temperature),
                       device=dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    out = eng.generate(prompts)
+    out = eng.generate(prompts, frames=frames)
     st = eng.stats
     tput = args.batch * st.decode_steps / st.decode_s if st.decode_steps else float("nan")
     peak = (f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB" if dev.type == "cuda"

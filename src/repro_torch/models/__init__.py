@@ -1,5 +1,5 @@
-"""The LM substrate of the port, for serving: the dense (GQA), vlm, MoE, Mamba2
-hybrid and RWKV6 families."""
+"""The LM substrate of the port, for training and serving: the dense (GQA),
+vlm, MoE, Mamba2 hybrid, RWKV6 and encoder-decoder families."""
 
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.lm import (
@@ -9,7 +9,10 @@ from repro_torch.models.lm import (
     decode_step,
     init_cache,
     init_params,
+    loss_fn,
     param_count,
+    params_tree,
+    params_view,
     prefill,
 )
 
@@ -21,6 +24,9 @@ __all__ = [
     "decode_step",
     "init_cache",
     "init_params",
+    "loss_fn",
     "param_count",
+    "params_tree",
+    "params_view",
     "prefill",
 ]

@@ -7,14 +7,18 @@ bottleneck:
     S_t = diag(w_t) S_{t-1} + k_t (x) v_t
     y_t = r_t . (S_{t-1} + diag(u) k_t (x) v_t)
 
-Prefill evaluates the recurrence chunk by chunk: on the card through the
-hand-written ``wkv`` kernel, on the CPU through :func:`wkv_chunked`, the
-port of the JAX package's chunked form.  Decode is one step of
+Prefill and the training forward evaluate the recurrence chunk by chunk: on
+the card through the hand-written ``wkv`` kernel (through ``WKVFn`` when a
+gradient is wanted, whose backward differentiates :func:`wkv_chunked` in
+fp32), on the CPU through :func:`wkv_chunked`, the port of the JAX
+package's chunked form.  Decode is one step of
 :func:`wkv_reference`, plain PyTorch on either device (plain XLA in JAX).
 Tensors keep the JAX layout (B, S, H, D).
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 import torch.nn.functional as F
@@ -132,9 +136,24 @@ def wkv_reference(r, k, v, lw, u, s0=None):
     return torch.stack(ys, dim=1).to(r.dtype), st
 
 
+def _wkv_chunked_heads_first(batch: int, chunk: int, r, k, v, lw, u):
+    """:func:`wkv_chunked`'s y on the kernel's (B*H, S, D) layout, u (H, K);
+    ``WKVFn``'s backward differentiates it."""
+    bh, s, _ = r.shape
+    nh = bh // batch
+
+    def model_layout(x):  # (B*H, S, D) -> (B, S, H, D)
+        return x.reshape(batch, nh, s, x.shape[-1]).transpose(1, 2)
+
+    y, _ = wkv_chunked(*(model_layout(x) for x in (r, k, v, lw)), u, chunk=chunk)
+    return y.transpose(1, 2).reshape(bh, s, -1)
+
+
 def _wkv_prefill(r, k, v, lw, u, *, chunk: int):
-    """Prefill's WKV from a zero state: the ``wkv`` kernel on the card, else
-    :func:`wkv_chunked`.  Returns (y (B,S,H,V), s_final (B,H,K,V))."""
+    """WKV over a whole sequence from a zero state: the ``wkv`` kernel on the
+    card, else :func:`wkv_chunked`.  Returns (y (B,S,H,V), s_final (B,H,K,V));
+    when a gradient is wanted the card goes through ``WKVFn`` and s_final is
+    None (the training forward drops it)."""
     if r.device.type != "cuda":
         return wkv_chunked(r, k, v, lw, u, chunk=chunk)
     b, s, nh, dk = r.shape
@@ -143,9 +162,13 @@ def _wkv_prefill(r, k, v, lw, u, *, chunk: int):
     def heads_first(x):  # (B, S, H, D) -> (B*H, S, D)
         return x.transpose(1, 2).reshape(b * nh, s, x.shape[-1]).contiguous()
 
+    ins = (heads_first(r), heads_first(k), heads_first(v), heads_first(lw.to(torch.float32)))
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (r, k, v, lw, u)):
+        y = wkv_kernel.WKVFn.apply(*ins, u.to(torch.float32).contiguous(),
+                                   partial(_wkv_chunked_heads_first, b, chunk))
+        return y.reshape(b, nh, s, dv).transpose(1, 2), None
     uu = u.to(torch.float32).expand(b, nh, dk).reshape(b * nh, dk).contiguous()
-    y, s_fin = wkv_kernel.wkv(heads_first(r), heads_first(k), heads_first(v),
-                              heads_first(lw.to(torch.float32)), uu, return_state=True)
+    y, s_fin = wkv_kernel.wkv(*ins, uu, return_state=True)
     return y.reshape(b, nh, s, dv).transpose(1, 2), s_fin.reshape(b, nh, dk, dv)
 
 
@@ -192,6 +215,12 @@ def rwkv_timemix_prefill(cfg: ArchConfig, p: Params, x):
     y = _group_norm(p, y) * g
     out = y.to(cfg.cdtype) @ p.wo.to(cfg.cdtype)
     return out, x[:, -1:, :], s_fin
+
+
+def apply_rwkv_timemix(cfg: ArchConfig, p: Params, x):
+    """Time-mix over a full sequence from a zero state (the training forward);
+    x is the normed layer input (B, S, d)."""
+    return rwkv_timemix_prefill(cfg, p, x)[0]
 
 
 def apply_rwkv_channelmix(cfg: ArchConfig, p: Params, x):

@@ -1,8 +1,9 @@
 """Batched serving engine: prefill a prompt batch, then decode token by token.
 
 Port of :mod:`repro.serving.engine` on one device.  ``ServeEngine.generate``
-keeps the JAX engine's contract: prompts (B, S) int32 in, the generated
-tokens (B, max_new_tokens) int32 numpy out, greedy or by temperature.
+keeps the JAX engine's contract: prompts (B, S) int32 [and, for an
+encoder-decoder, frame embeddings (B, T, d_model)] in, the generated tokens
+(B, max_new_tokens) int32 numpy out, greedy or by temperature.
 Temperature sampling is the Gumbel-max draw ``jax.random.categorical``
 makes, from a ``torch.Generator`` seeded with ``ServeConfig.seed``: the same
 distribution, not the same bits.
@@ -60,16 +61,19 @@ class ServeEngine:
             torch.cuda.synchronize(self.device)
 
     @torch.inference_mode()
-    def generate(self, prompts: np.ndarray) -> np.ndarray:
-        """prompts (B, S_prompt) int -> generated tokens (B, max_new) int32."""
+    def generate(self, prompts: np.ndarray, frames: np.ndarray | None = None) -> np.ndarray:
+        """prompts (B, S_prompt) int [+ frames (B, T, d_model) float, the
+        encoder's input] -> generated tokens (B, max_new) int32.  The cache
+        holds the cross-attention's K/V over the T frames."""
         n_new = self.cfg.max_new_tokens
         if prompts.shape[1] + n_new - 1 > self.s_max:
             raise ValueError(f"prompt {prompts.shape[1]} + {n_new} new tokens exceed "
                              f"s_max={self.s_max}")
         gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64, device=self.device)
+        fr = None if frames is None else torch.as_tensor(np.asarray(frames), device=self.device)
         t0 = time.perf_counter()
-        logits, cache = lm.prefill(self.spec, self.params, tokens, self.s_max)
+        logits, cache = lm.prefill(self.spec, self.params, tokens, self.s_max, frames=fr)
         tok = self._sample(logits, gen)
         out = [tok]
         self._sync()

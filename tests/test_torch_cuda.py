@@ -1032,3 +1032,139 @@ def test_oocore_grid_sequence_on_card_matches_cpu_grid(dev):
     for g, c in zip(runs["cuda"].transitions, runs["cpu"].transitions):
         _rel_close(g.scores.cpu(), c.scores, 1e-3)
         assert g.top_idx.tolist() == c.top_idx.tolist()
+
+
+# ---------------------------------------------------------------------------
+# gradients through the kernels: FlashAttentionFn, WKVFn
+# ---------------------------------------------------------------------------
+
+
+def _leaves(xs, dev, dtype):
+    return [torch.from_numpy(x).to(dev, dtype).requires_grad_(True) for x in xs]
+
+
+@pytest.mark.parametrize("s,t,causal", [(64, 64, True), (100, 100, True), (37, 160, False),
+                                        (130, 24, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_fn_gradients_match_the_cpu_chunked_form(dev, s, t, causal, dtype):
+    """Attention with a gradient on the card (the kernel forward, the fp32
+    chunked form recomputed in the backward) against autograd through
+    ``_chunked_flash`` on the CPU, from the same inputs: the output within
+    the kernel's tolerance (1e-4 fp32, 2^-7 bf16 of the largest), the
+    gradients within 1e-4 of the largest in fp32 and 2^-7 in bf16 (both
+    backwards are the same fp32 function; bf16 gradients are rounded once
+    more).  GQA 2, D 64 (bf16 takes the tensor-core route), S != T across."""
+    from repro_torch.models import attention
+    from repro_torch.models.common import ArchConfig
+
+    cfg = ArchConfig(name="t", family="dense", n_layers=1, d_model=256, n_heads=4,
+                     n_kv_heads=2, d_ff=1, vocab=1, attn_chunk=32,
+                     compute_dtype="float32" if dtype == torch.float32 else "bfloat16")
+    rng = np.random.default_rng(s + t)
+    xs = [rng.normal(size=(2, n, h, 64)).astype(np.float32) for n, h in ((s, 4), (t, 2), (t, 2))]
+    gout = torch.from_numpy(rng.normal(size=(2, s, 4, 64)).astype(np.float32))
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        q, k, v = _leaves(xs, d, dtype)
+        out = attention._flash(cfg, q, k, v, causal=causal)
+        grads = torch.autograd.grad(out, (q, k, v), gout.to(d, dtype))
+        res[d.type] = [x.detach().float().cpu() for x in (out, *grads)]
+    tol = 1e-4 if dtype == torch.float32 else 2.0**-7
+    for got, want in zip(res["cuda"], res["cpu"]):
+        _rel_close(got, want, tol)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 1  # the forward; the backward launches nothing
+    assert counts["flash_attention_wgmma"] == int(dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("s", [64, 100, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_fn_gradients_match_the_cpu_chunked_form(dev, s, dtype):
+    """The WKV recurrence with a gradient on the card (the kernels forward
+    from a zero state, ``wkv_chunked`` recomputed in the backward) against
+    autograd through ``wkv_chunked`` on the CPU: y within 1e-4 (fp32) or 2^-7
+    (bf16) of the largest, the gradients of r, k, v, lw and u within 1e-4 of
+    the largest in fp32 and 2^-7 in bf16."""
+    from repro_torch.models import rwkv6
+
+    rng = np.random.default_rng(s)
+    b, nh, hd = 2, 3, 64
+    r, k, v = (rng.normal(size=(b, s, nh, hd)).astype(np.float32) for _ in range(3))
+    lw = -np.exp(rng.normal(size=(b, s, nh, hd)) * 0.5 - 1.0).astype(np.float32)
+    u = (0.1 * rng.normal(size=(nh, hd))).astype(np.float32)
+    gout = torch.from_numpy(rng.normal(size=(b, s, nh, hd)).astype(np.float32))
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        tr, tk, tv = _leaves((r, k, v), d, dtype)
+        tlw, tu = _leaves((lw, u), d, torch.float32)
+        y, _ = rwkv6._wkv_prefill(tr, tk, tv, tlw, tu, chunk=64)
+        grads = torch.autograd.grad(y, (tr, tk, tv, tlw, tu), gout.to(d, dtype))
+        res[d.type] = [x.detach().float().cpu() for x in (y, *grads)]
+    tol = 1e-4 if dtype == torch.float32 else 2.0**-7
+    for got, want in zip(res["cuda"], res["cpu"]):
+        _rel_close(got, want, tol)
+    assert kernels.launch_counts()["wkv"] == 1
+
+
+def test_kernel_wrappers_refuse_grad_on_the_card(dev):
+    """A wrapper called on a CUDA operand that requires grad raises instead of
+    cutting the gradient; its autograd Function runs it with grad mode off."""
+    q = torch.zeros((4, 8, 64), device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        flash.flash_attention(q, q, q)
+    r = torch.zeros((2, 8, 16), device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        wkv.wkv(r, r, r, -torch.ones((2, 8, 16), device=dev), torch.zeros((2, 16), device=dev))
+    a = torch.ones((32, 32), device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        bm.block_matmul(a, a)
+    out = flash.FlashAttentionFn.apply(q, q.detach(), q.detach(), True, 1,
+                                       lambda q, k, v, causal, groups: ref.flash_attention(
+                                           q, k, v, causal=causal, groups=groups))
+    (g,) = torch.autograd.grad(out.sum(), (q,))
+    assert g.shape == q.shape and kernels.launch_counts()["flash_attention"] == 1
+    with torch.no_grad():
+        flash.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("arch,kernel,per_layer", [("granite-3-2b", "flash_attention", 1),
+                                                   ("seamless-m4t-medium", "flash_attention", 1),
+                                                   ("rwkv6-3b", "wkv", 1)])
+def test_train_step_on_card_matches_cpu(dev, arch, kernel, per_layer):
+    """One train step of a SMOKE model (fp32) with remat on the card against
+    the CPU from the same parameters: loss and grad norm within 1e-5, the
+    parameters within 1e-3 x lr (an AdamW step at eps 1e-3 moves an entry by
+    at most lr, and a relative difference d of its gradient by at most d / 4
+    of lr; rwkv6's first position divides by a near-cancelled group-norm
+    std, so its gradients differ by up to ~1e-3 relative: one entry moved
+    1.06e-6 at lr 1e-2).  Under remat each kernel
+    launches twice a layer (the forward, its recompute in the backward);
+    seamless has three attention calls a layer pair (encoder, decoder self,
+    cross)."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, host_batch
+    from repro_torch.models import lm
+    from repro_torch.training import OptConfig, init_state, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = configs.get_smoke(arch).replace(remat=True)
+    spec = lm.build_spec(cfg)
+    ocfg = OptConfig(lr=1e-2, warmup_steps=1, total_steps=10, eps=1e-3)
+    params, opt = init_state(spec, ocfg, seed=3, device="cpu")
+    batch = host_batch(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4, seed=1,
+                                  frames_dim=cfg.d_model if cfg.input_mode == "frames" else 0), 0)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        p = tree_map(lambda t: t.detach().to(d, copy=True).requires_grad_(True), params)
+        o = tree_map(lambda t: t.to(d, copy=True), opt)
+        kernels.reset_launch_counts()
+        p, o, m = make_train_step(spec, ocfg, device=d)(p, o, batch)
+        out[d.type] = (p, {k: float(v) for k, v in m.items()}, kernels.launch_counts())
+    (pc, mc, cc), (ph, mh, _) = out["cuda"], out["cpu"]
+    for key in ("loss", "grad_norm"):
+        assert mc[key] == pytest.approx(mh[key], rel=1e-5)
+    for a, b in zip(tree_leaves(pc), tree_leaves(ph)):
+        assert float((a.detach().cpu() - b.detach()).abs().max()) <= 1e-3 * ocfg.lr
+    calls = len(spec.layers()) + len(spec.enc_layers()) + (len(spec.layers()) if spec.is_encdec
+                                                           else 0)
+    assert cc[kernel] == 2 * per_layer * calls

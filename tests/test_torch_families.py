@@ -79,11 +79,72 @@ def test_configs_are_the_jax_packages(arch):
         assert tc.pdtype == getattr(torch, jc.param_dtype)
 
 
-def test_registry_holds_nine_architectures():
-    assert len(tconfigs.ARCH_IDS) == 9
-    assert set(jconfigs.ARCH_IDS) - set(tconfigs.ARCH_IDS) == {"seamless-m4t-medium"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfigs.get_smoke("seamless-m4t-medium")
+def test_registry_holds_every_architecture():
+    """Every JAX ``ARCH_IDS`` entry, in its order, builds a spec in the port
+    at both sizes: the same groups (and encoder groups) as the JAX package's."""
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS and len(tconfigs.ARCH_IDS) == 10
+    for arch in jconfigs.ARCH_IDS:
+        for get_t, get_j in ((tconfigs.get_config, jconfigs.get_config),
+                             (tconfigs.get_smoke, jconfigs.get_smoke)):
+            got, want = tlm.build_spec(get_t(arch)), jlm.build_spec(get_j(arch))
+            for g_groups, w_groups in ((got.groups, want.groups),
+                                       (got.enc_groups, want.enc_groups)):
+                assert [(g.block_types, g.count, g.overrides) for g in g_groups] == \
+                    [(g.block_types, g.count, g.overrides) for g in w_groups], arch
+            assert got.is_encdec == want.is_encdec
+
+
+def _wrapper_calls():
+    """(name, call(t)) for every kernel wrapper; ``t(x)`` makes a CPU tensor of x."""
+    rng = np.random.default_rng(1)
+    a = rng.random((32, 32)).astype(np.float32)
+    z = rng.normal(size=(32, 5)).astype(np.float32)
+    r = rng.normal(size=(2, 8, 4)).astype(np.float32)
+    from repro_torch.kernels import (block_matmul, cad_score, edge_projection, emb_query,
+                                     flash_attention, stream_gemm, wkv)
+
+    def topk(t, update_only=False):
+        vals, ids = emb_query.topk_init(1, 4, largest=True, device="cpu")
+        args = (t(z[:1]), torch.zeros((1, 1)), torch.zeros((1, 32)),
+                torch.full((1, 1), -1, dtype=torch.int32), 1.0)
+        if update_only:
+            merger = emb_query.PanelTopk(torch.from_numpy(z[:1]), *args[1:], topk=4,
+                                         panel_rows=32)
+            return merger.update(t(z), 0)
+        return emb_query.panel_topk_update(vals, ids, args[0], t(z), args[1], args[2], 1.0, 0,
+                                           args[3], topk=4)
+
+    return [
+        ("block_matmul", lambda t: block_matmul.block_matmul(t(a), t(a))),
+        ("split_tf32", lambda t: block_matmul.split_tf32(t(a))),
+        ("edge_projection", lambda t: edge_projection.edge_projection(t(a), seed=0, k=5)),
+        ("cad_scores", lambda t: cad_score.cad_scores(t(a), t(a), t(z), t(z), 1.0, 1.0)),
+        ("cad_scores_tile", lambda t: cad_score.cad_scores_tile(t(a), t(a), t(z), t(z), t(z),
+                                                                t(z), 1.0, 1.0)),
+        ("stream_gemm", lambda t: stream_gemm.stream_gemm(t(a), t(z), t(z))),
+        ("fused_panel_matvec", lambda t: stream_gemm.fused_panel_matvec(t(a), t(z), t(z),
+                                                                        t(z))),
+        ("panel_topk_update", topk),
+        ("PanelTopk.update", lambda t: topk(t, update_only=True)),
+        ("wkv", lambda t: wkv.wkv(t(r), t(r), t(r), -torch.ones(r.shape), torch.zeros((2, 4)))),
+        ("flash_attention", lambda t: flash_attention.flash_attention(t(r), t(r[:1]), t(r[:1]),
+                                                                      groups=2)),
+    ]
+
+
+@pytest.mark.parametrize("name,call", _wrapper_calls(), ids=[n for n, _ in _wrapper_calls()])
+def test_kernel_wrappers_refuse_operands_that_require_grad(name, call):
+    """No kernel has a backward: a wrapper given an operand that requires grad
+    under grad mode raises (the gradient would stop there), on the CPU as on
+    the card; under no_grad, or without such an operand, it runs."""
+    def grad_t(x):
+        return torch.from_numpy(np.array(x)).requires_grad_(True)
+
+    with pytest.raises(RuntimeError, match="requires grad"):
+        call(grad_t)
+    with torch.no_grad():
+        call(grad_t)
+    call(lambda x: torch.from_numpy(np.array(x)))
 
 
 def test_build_spec_takes_every_decoder_family():
@@ -98,8 +159,8 @@ def test_build_spec_takes_every_decoder_family():
         assert [(g.block_types, g.count, g.overrides) for g in got.groups] == \
             [(g.block_types, g.count, g.overrides) for g in want.groups]
         assert got.has_shared_attn == want.has_shared_attn
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.build_spec(base.replace(family="encdec"))
+    spec = tlm.build_spec(base.replace(family="encdec", enc_layers=3, dec_layers=2))
+    assert spec.is_encdec and spec.enc_layers() == ["enc"] * 3 and spec.layers() == ["dec"] * 2
 
 
 def test_params_carry_over(model):

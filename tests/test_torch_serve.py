@@ -156,8 +156,9 @@ def test_engine_leaves_the_callers_params_alone(model):
 
 
 def test_unported_family_raises():
-    cfg = tconfigs.get_smoke("qwen2-1.5b").replace(family="encdec")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A family without a block layout (an SSM that is not RWKV) raises."""
+    cfg = tconfigs.get_smoke("qwen2-1.5b").replace(family="ssm")
+    with pytest.raises(NotImplementedError, match="block layout"):
         tlm.build_spec(cfg)
 
 
