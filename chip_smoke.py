@@ -192,6 +192,17 @@ Phases, in order; any failure exits non-zero:
    restart from a checkpoint bitwise equal to the uninterrupted run under
    deterministic algorithms.
 
+16. the dry run (``[dryrun]`` lines) of ``repro_torch.launch.dryrun``: every
+   cell of ``--all --mesh both`` (32 archs x shapes on the 16x16 and
+   2x16x16 logical grids) and the 16x16 chain cell (n=65536, d=6, three
+   schedules) on the meta device, one line a cell with its per-tile bytes
+   against 80 GB; granite-3-2b's phase-15 cell at 1x1, its parameter and
+   optimizer bytes equal to phase 15's tensors on the card, dot_flops
+   against ``_train_bound``'s ops and the activation estimate against the
+   card's peak; the 2x2 chain at n=10512 whose moved bytes equal phase 11's
+   counter readings on the card (``[grid] ... tile moves`` lines); its
+   seconds, under 120.
+
 A copy of the script beside another tree's ``src/`` (a parent commit's
 ``git archive``) runs the same phases on that tree's package, so both trees
 are measured by the same code in one call.
@@ -2801,6 +2812,7 @@ def phase_train(torch, rows: list) -> dict:
     from repro_torch import configs, kernels
     from repro_torch.launch.train import train_loop
     from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
 
     t_phase = time.perf_counter()
     log(f"[train] phase 15 starts with {torch.cuda.memory_allocated() / 1e9:.2f} GB in use")
@@ -2829,6 +2841,8 @@ def phase_train(torch, rows: list) -> dict:
             fail(f"train {arch}: a loss or grad norm is not finite: {hist}")
         n_params = lm.param_count(params)
         n_embed = params["embed"].numel()
+        param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        opt_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(opt))
         tokens = batch * seq
         steady = hist[1:] if len(hist) > 1 else hist
         step_ms = sum(h["seconds"] for h in steady) / len(steady) * 1e3
@@ -2851,7 +2865,8 @@ def phase_train(torch, rows: list) -> dict:
         res = {"n_layers": cfg.n_layers, "reduced": depth is not None, "params": n_params,
                "batch": batch, "seq": seq, "steps": hist, "step_ms": step_ms,
                "tokens_per_s": tokens / step_ms * 1e3, "peak_gb": peak, "counts": counts,
-               "bound": bound}
+               "bound": bound, "param_bytes": param_bytes, "opt_bytes": opt_bytes,
+               "peak_bytes": torch.cuda.max_memory_allocated()}
         if arch == "granite-3-2b":
             res |= _train_split(torch, spec, params, opt, batch, seq, step_ms, rows)
         if kernel == "wkv":
@@ -3049,6 +3064,102 @@ def _train_restart(torch) -> dict:
              f"the uninterrupted run (losses {lc} vs {la[2:]}, max |state diff| {max(diffs):.3e}, "
              f"ops without a deterministic implementation {nondet})")
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the dry run (every cell on the meta device) and its card anchors
+# ---------------------------------------------------------------------------
+
+DRYRUN_BUDGET_S = 120.0  # the phase's time limit, its anchors included
+
+
+def _dryrun_anchor(torch, train: dict) -> dict:
+    """(b) granite-3-2b's phase-15 cell (batch 8 x 512, full width and depth,
+    1x1) dry: parameter and optimizer bytes against phase 15's tensors on the
+    card (exact), dot_flops against ``_train_bound``'s ops, the activation
+    estimate (and one full-depth meta step's peak) against the card's peak."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import LogicalGrid
+    from repro_torch.models import common as cm
+    from repro_torch.models import lm
+
+    arch, _, batch, seq, _ = TRAIN_MODELS[0]
+    t15 = train[arch]
+    grid = LogicalGrid(("data", "model"), (1, 1))
+    shape = configs.ShapeSpec(f"train_b{batch}_s{seq}", "train", seq, batch)
+    cell = dryrun.dry_cell(arch, shape, grid)
+    if (cell["param_bytes_per_tile"], cell["opt_state_bytes_per_tile"]) != (
+            t15["param_bytes"], t15["opt_bytes"]):
+        fail(f"dryrun {arch} {shape.name}: parameter / optimizer bytes "
+             f"{cell['param_bytes_per_tile']} / {cell['opt_state_bytes_per_tile']} != phase 15's "
+             f"tensors on the card {t15['param_bytes']} / {t15['opt_bytes']}")
+    spec = lm.build_spec(configs.get_config(arch))
+    full = dryrun.run_step(spec, shape, batch, grid=grid, rules=dict(cm.DEFAULT_RULES))
+    if full["dot_flops"] != cell["dot_flops"]:
+        fail(f"dryrun {arch}: the full-depth step's dot_flops {full['dot_flops']:.6e} != the "
+             f"extrapolated {cell['dot_flops']:.6e}")
+    ops = t15["bound"]["ops"]
+    est = cell["argument_bytes_per_tile"] + cell["activation_bytes_estimate"]
+    out = {"cell": cell, "full_depth_peak_live_bytes": full["peak_live_bytes"],
+           "train_bound_ops": ops, "dot_flops_over_bound_ops": cell["dot_flops"] / ops,
+           "card_peak_bytes": t15["peak_bytes"], "estimate_over_card_peak": est / t15["peak_bytes"]}
+    log(f"[dryrun] {arch} phase 15's cell (batch {batch} x {seq}, {spec.cfg.n_layers} layers, "
+        f"1x1) on meta: parameters {cell['param_bytes_per_tile']} B and AdamW state "
+        f"{cell['opt_state_bytes_per_tile']} B, equal to phase 15's tensors on the card; "
+        f"dot_flops {cell['dot_flops']:.4e} against _train_bound's {ops:.4e} ops "
+        f"({cell['dot_flops'] / ops:.4f}x; the full-depth meta step counts the same); "
+        f"activation estimate {cell['activation_bytes_estimate'] / 1e9:.3f} GB (one full-depth "
+        f"step: {full['peak_live_bytes'] / 1e9:.3f} GB) + arguments "
+        f"{cell['argument_bytes_per_tile'] / 1e9:.3f} GB = {est / 1e9:.3f} GB against "
+        f"torch.cuda.max_memory_allocated {t15['peak_bytes'] / 1e9:.3f} GB over phase 15's "
+        f"{arch} run ({est / t15['peak_bytes']:.3f}x)")
+    return out
+
+
+def phase_dryrun(torch, train: dict, grid: dict) -> dict:
+    """Phase 16: (a) ``dryrun --all --mesh both`` and the 16x16 chain cell on
+    meta, one ``[dryrun]`` line a cell (per-tile GB against 80 GB), every cell
+    ``ok`` and the LM cells' collective bytes null; (b) :func:`_dryrun_anchor`;
+    (c) the 2x2 chain at n=10512, d=6 on meta, whose moved bytes times phase
+    11's chain builds equal phase 11's counter readings on the card exactly,
+    for cannon and summa; under DRYRUN_BUDGET_S."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    out_dir = OUT / "dryrun_torch"
+    records = dryrun.run_cells(configs.all_cells(), ["single", "multi"], str(out_dir), log=log)
+    bad = [f"{r['arch']} {r['shape']} {r['mesh']}: {r['error']}" for r in records
+           if r["status"] != "ok"]
+    if bad:
+        fail(f"dryrun cells failed: {bad}")
+    if any(r["analysis"]["collective_bytes"] is not None for r in records):
+        fail("dryrun: an LM cell reports collective bytes; no LM cell runs on a grid")
+    t_cells = time.perf_counter() - t_phase
+    slowest = max(records, key=lambda r: r["seconds"])
+    chain = dryrun.dry_chain(65536, 6, log=log)
+    (out_dir / "chain__n65536__d6__16x16.json").write_text(json.dumps(chain, indent=1))
+    anchor = _dryrun_anchor(torch, train)
+    small = dryrun.dry_chain(N_MAIN, 6, rows=2, cols=2, schedules=("summa", "cannon"), log=log)
+    for sched, r in small["schedules"].items():
+        run = grid["main_path"][sched]
+        want = {k: v * run["chain_builds"] for k, v in r["moves_analytic"].items()}
+        if run["moved"] != {k: float(v) for k, v in want.items()}:
+            fail(f"dryrun chain 2x2 {sched}: {r['moves_analytic']} moved a chain x "
+                 f"{run['chain_builds']} builds != phase 11's counter on the card {run['moved']}")
+        log(f"[dryrun] chain n={N_MAIN} d=6 2x2 {sched}: "
+            f"{r['collective_total_bytes'] / 1e9:.4f} GB moved a chain x {run['chain_builds']} "
+            f"builds equals phase 11's counter on the card")
+    seconds = time.perf_counter() - t_phase
+    log(f"[dryrun] phase 16 in {seconds:.1f} s (the {len(records)} cells {t_cells:.1f} s, slowest "
+        f"{slowest['arch']} {slowest['shape']} {slowest['mesh']['data']}-data "
+        f"{slowest['seconds']:.2f} s; the 16x16 chain {chain['seconds']:.1f} s; limit "
+        f"{DRYRUN_BUDGET_S:.0f} s)")
+    if seconds > DRYRUN_BUDGET_S:
+        fail(f"phase 16 took {seconds:.1f} s, over its {DRYRUN_BUDGET_S:.0f} s limit")
+    return {"cells": records, "chain_16x16": chain, "anchor": anchor, "chain_2x2": small,
+            "seconds": seconds, "cells_seconds": t_cells}
 
 
 # ---------------------------------------------------------------------------
@@ -3557,6 +3668,9 @@ def _grid_main_path(torch, resident: dict, s64, schedule: str) -> dict:
     from repro_torch.core import CommuteConfig, SequenceDetector, make_context
     from repro_torch.graphs import climate_snapshot_sequence
 
+    from repro_torch.core.distmatrix import grid_moves
+    from repro_torch.obs import REGISTRY
+
     ctx = make_context([torch.device("cuda")] * 4, 2)
     cfg = CommuteConfig(eps_rp=1e-3, d=6, q=10, schedule=schedule)
     seq = climate_snapshot_sequence(73, 144, t_steps=3, ctx=ctx)
@@ -3564,10 +3678,13 @@ def _grid_main_path(torch, resident: dict, s64, schedule: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    moves0, builds0 = grid_moves()[schedule], REGISTRY.value("chain.builds")
     t0 = time.perf_counter()
     res = det.run(seq.snapshots())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    moved = {k: v - moves0[k] for k, v in grid_moves()[schedule].items()}
+    builds = int(REGISTRY.value("chain.builds") - builds0)
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     want = {name: 0 for name in counts} | {
@@ -3600,8 +3717,13 @@ def _grid_main_path(torch, resident: dict, s64, schedule: str) -> dict:
         f"(phase 3 {resident['wall']:.3f} s); launches {counts}; peak device memory {peak:.2f} GB "
         f"(phase 3 {resident['peak']:.2f} GB); transition 0 max |score - float64 chain| grid "
         f"{near['grid']:.4e}, phase 3 {near['phase3']:.4e}")
+    log(f"[grid] {schedule} 2x2 tile moves between grid positions over {builds} chain builds: "
+        f"{moved['gather_bytes'] / 1e9:.4f} GB in {moved['gathers']:.0f} gathers, "
+        f"{moved['permute_bytes'] / 1e9:.4f} GB in {moved['permutes']:.0f} permutes "
+        f"(one card: counted as four cards would move them)")
     return {"counts": counts, "wall": wall, "seconds": res.transition_seconds, "peak_gb": peak,
-            "max_rel_diff_vs_phase3": errs, "vs_float64_t0": near}
+            "max_rel_diff_vs_phase3": errs, "vs_float64_t0": near, "moved": moved,
+            "chain_builds": builds}
 
 
 def phase_grid(torch, rows: list, resident: dict, s64) -> dict:
@@ -4212,6 +4334,8 @@ def main() -> int:
     seamless = phase_seamless(torch, rows)
     torch.cuda.empty_cache()
     train = phase_train(torch, rows)
+    torch.cuda.empty_cache()
+    dry = phase_dryrun(torch, train, grid)
     for row in rows:
         by_path = {"resident": resident["counts"][row["name"]],
                    "oocore": oocore["counts"][row["name"]],
@@ -4251,6 +4375,8 @@ def main() -> int:
         {"card": smi, **serve, "phase 13 (the other decoder families)": serve2,
          "phase 14 (seamless-m4t-medium)": seamless}, indent=1))
     (OUT / "chip_smoke_train.json").write_text(json.dumps({"card": smi, **train}, indent=1))
+    (OUT / "chip_smoke_dryrun.json").write_text(json.dumps({"card": smi, **dry}, indent=1,
+                                                           default=str))
     (OUT / "chip_smoke_paper.json").write_text(json.dumps({"card": smi, **paper}, indent=1))
     (OUT / "chip_smoke_grid.json").write_text(json.dumps(
         {"card": smi, **grid, "phase 12 (out of core on the grid)": grid_oocore}, indent=1,

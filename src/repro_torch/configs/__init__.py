@@ -1,12 +1,27 @@
 """Architecture registry of the port: ``--arch <id>`` -> (full config, smoke config).
 
-The JAX package's ten architectures, in its order.
+The JAX package's ten architectures, in its order, and the input-shape cells
+(:mod:`repro_torch.configs.shapes`).  Full configs run on a card or, at any
+size, on the ``meta`` device in the dry run; the tests instantiate the
+reduced SMOKE variants on the CPU.
 """
 
 from __future__ import annotations
 
 import importlib
 
+from repro_torch.configs.shapes import (
+    ALL_SHAPES,
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    SHAPES_BY_NAME,
+    TRAIN_4K,
+    ShapeSpec,
+    input_specs,
+    is_supported,
+    supported_shapes,
+)
 from repro_torch.models.common import ArchConfig
 
 _MODULES = {
@@ -38,4 +53,27 @@ def get_smoke(arch_id: str) -> ArchConfig:
     return _module(arch_id).SMOKE
 
 
-__all__ = ["ARCH_IDS", "ArchConfig", "get_config", "get_smoke"]
+def all_cells() -> list[tuple[str, ShapeSpec]]:
+    """Every supported (arch x shape) cell: 32 runnable of the 40 (the eight
+    ``long_500k`` cells of full-attention archs are documented skips; the
+    JAX package's docstring says 34 of 40, its function returns these 32)."""
+    return [(aid, sh) for aid in ARCH_IDS for sh in supported_shapes(get_config(aid))]
+
+
+__all__ = [
+    "ALL_SHAPES",
+    "ARCH_IDS",
+    "ArchConfig",
+    "DECODE_32K",
+    "LONG_500K",
+    "PREFILL_32K",
+    "SHAPES_BY_NAME",
+    "TRAIN_4K",
+    "ShapeSpec",
+    "all_cells",
+    "get_config",
+    "get_smoke",
+    "input_specs",
+    "is_supported",
+    "supported_shapes",
+]

@@ -19,6 +19,15 @@ Three GEMM schedules, as in the JAX package:
 - ``xla``    -- the port has no compiler to leave the schedule to: on a grid
                 it runs SUMMA's gather-and-multiply under its own name.
 
+Every schedule counts the tile bytes it moves between grid positions in the
+obs registry, by schedule: ``grid.<schedule>.gather_bytes`` / ``.gathers``
+(SUMMA's row and column panels, the tiles of a panel that are not at the
+gathering position) and ``grid.<schedule>.permute_bytes`` / ``.permutes``
+(Cannon's skews and shifts, the tiles whose destination is another
+position).  A move counts by logical position: tiles that share a device
+(a 2x2 grid on one card, or on ``meta``) count what a grid of distinct
+cards would move, though no copy is made.  :func:`grid_moves` reads them.
+
 On a 1x1 grid (``ctx=None`` means :func:`trivial_context` of the operand's
 device) a matrix is a plain tensor and all three schedules are one
 ``block_matmul`` call, exactly as before the grid existed.  The builders
@@ -48,6 +57,7 @@ from repro_torch.core.tiles import (
     tile_stream,
 )
 from repro_torch.kernels import block_matmul as _bm
+from repro_torch.obs import REGISTRY
 
 SCHEDULES = ("xla", "summa", "cannon")
 
@@ -296,11 +306,36 @@ def on_grid(ctx: DistContext | None, x):
 # ---------------------------------------------------------------------------
 
 
-def _matmul_summa(a: DistMatrix, b: DistMatrix, out_dtype) -> DistMatrix:
+_MOVE_KINDS = ("gather", "permute")
+
+
+def _count_moves(schedule: str, kind: str, nbytes: int, moves: int) -> None:
+    REGISTRY.add_named({f"grid.{schedule}.{kind}_bytes": float(nbytes),
+                        f"grid.{schedule}.{kind}s": float(moves)})
+
+
+def grid_moves(registry=REGISTRY) -> dict:
+    """Tile traffic between grid positions so far, by schedule:
+    ``{schedule: {"gather_bytes", "gathers", "permute_bytes", "permutes"}}``
+    (process-wide registry counters; take a difference around a run)."""
+    return {s: {f"{k}{suffix}": registry.value(f"grid.{s}.{k}{suffix}")
+                for k in _MOVE_KINDS for suffix in ("_bytes", "s")} for s in SCHEDULES}
+
+
+def _tile_bytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _matmul_summa(a: DistMatrix, b: DistMatrix, out_dtype, schedule: str = "summa") -> DistMatrix:
     """Per tile: A's row panel and B's column panel gathered onto its device,
-    one ``block_matmul``.  A panel is gathered once per (panel, device)."""
+    one ``block_matmul``.  A panel is gathered once per (panel, device); the
+    count is per grid position: each tile (r, c) receives the C - 1 tiles of
+    A's row r and the R - 1 tiles of B's column c held at other positions."""
     ctx = a.ctx
     R, C = ctx.n_row_shards, ctx.n_col_shards
+    a_tile, b_tile = _tile_bytes(a.tiles[0][0]), _tile_bytes(b.tiles[0][0])
+    _count_moves(schedule, "gather", R * C * ((C - 1) * a_tile + (R - 1) * b_tile),
+                 R * C * (C - 1 + R - 1))
     b_cols = {}
     out = []
     for r in range(R):
@@ -329,10 +364,15 @@ def _cannon_perms(R: int, C: int):
 
 
 def _permute(blocks: list, perm, devices: list) -> list:
-    """Move each block to its destination's device (no copy where it is one device)."""
+    """Move each block to its destination's device (no copy where it is one
+    device); a block whose destination is another grid position counts as a
+    ``cannon`` permute."""
     out = [None] * len(blocks)
+    moved = 0
     for src, dst in perm:
         out[dst] = _to(blocks[src], devices[dst])
+        moved += src != dst
+    _count_moves("cannon", "permute", moved * _tile_bytes(blocks[0]), moved)
     return out
 
 
@@ -379,7 +419,8 @@ def matmul(a, b, *, schedule: str = "xla", out_dtype=None,
         raise ValueError("matmul: operands on different device grids")
     if schedule == "cannon":
         return _matmul_cannon(a, b, out_dtype)
-    return _matmul_summa(a, b, out_dtype)  # "summa", and "xla" with no compiler to defer to
+    # "summa", and "xla" with no compiler to defer to (counted under its own name)
+    return _matmul_summa(a, b, out_dtype, schedule)
 
 
 def _rowblock_body(tile, blk: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -30,12 +30,14 @@ def estimate_rho(
     device: str | torch.device | None = None,
     prefetch_depth: int | None = None,
     ctx=None,
-) -> float:
+) -> float | None:
     """Spectral-radius estimate of ``G = I - P2``, clamped to ``[0, 0.999]``.
 
     ``p2`` is a tensor, a DistMatrix or a snapshot handle; a handle's
     iterate lives on ``device`` (a grid's home device), its panels stream
-    onto the tiles of ``ctx``.
+    onto the tiles of ``ctx``.  On the ``meta`` device (the dry run) the
+    iterations run as shapes and the estimate is None: there is no value to
+    read back.
     """
     if iters < 1:
         raise ValueError(f"power iters must be >= 1, got {iters}")
@@ -59,6 +61,8 @@ def estimate_rho(
         gv = gv - gv.mean(dim=0, keepdim=True)
         nrm = torch.sqrt(torch.sum(gv * gv))
         v = gv / torch.clamp(nrm, min=1e-30)
+    if nrm.device.type == "meta":  # the dry run: the iterations ran as shapes; no value to read
+        return None
     rho = float(nrm)
     if not math.isfinite(rho) or rho < 1e-12:
         return 0.0  # G annihilated the iterate: the contraction is effectively zero

@@ -2,7 +2,10 @@
 
 Entry points take ``device=`` and default to ``"cuda"``.  Without a card a
 CUDA request raises: the port never carries on silently on the CPU.  The CPU
-is used only when the caller asks for it (the tests do).
+is used only when the caller asks for it (the tests do).  ``"meta"`` is
+PyTorch's shape-only device: nothing is allocated and nothing is computed,
+and every kernel wrapper takes its plain version's shapes there; the dry run
+(:mod:`repro_torch.launch.dryrun`) builds its cells on it.
 
 fp32 means full fp32: the chain raises S~ to S~^(2^d), so TF32 rounding
 would be amplified 2^d-fold.  Resolving a CUDA device switches TF32 off for
@@ -25,8 +28,8 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             )
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}; want 'cuda' or 'cpu'")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {device!r}; want 'cuda', 'cpu' or 'meta'")
     return dev
 
 

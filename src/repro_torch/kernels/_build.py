@@ -147,6 +147,17 @@ def library() -> ctypes.CDLL:
         return lib
 
 
+# Devices whose tensors take a kernel's plain version (``kernels/ref.py``):
+# the CPU, and the shape-only ``meta`` device of the dry run, where nothing
+# is computed.  A CUDA tensor launches the kernel or raises; nothing else runs.
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+def plain(t) -> bool:
+    """Whether the tensor ``t`` takes its kernel's plain version."""
+    return t.device.type in PLAIN_DEVICES
+
+
 def check(err: int, what: str) -> None:
     """Raise when a launch returned a CUDA error."""
     if err != 0:

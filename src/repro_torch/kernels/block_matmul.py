@@ -1,8 +1,8 @@
 """C = A @ B through the hand-written tensor-core GEMM (``csrc/block_matmul.cu``).
 
-Counterpart of :mod:`repro.kernels.block_matmul`.  A CPU tensor takes the
-plain version (:func:`repro_torch.kernels.ref.block_matmul`); a CUDA tensor
-launches the kernel or raises.
+Counterpart of :mod:`repro.kernels.block_matmul`.  A CPU (or ``meta``)
+tensor takes the plain version (:func:`repro_torch.kernels.ref.block_matmul`);
+a CUDA tensor launches the kernel or raises.
 
 On the card the product runs on the tensor cores, a fixed dispatch on dtype:
 fp32 operands as three TF32 products (each operand split into a TF32 high
@@ -43,7 +43,7 @@ def block_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.T
         raise ValueError(f"block_matmul: operands on {a.device} and {b.device}")
     out_dtype = out_dtype or a.dtype
     _build.refuse_grad("block_matmul", a, b)
-    if a.device.type == "cpu":
+    if _build.plain(a):
         return ref.block_matmul(a, b, out_dtype=out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"block_matmul: unsupported device {a.device}")
@@ -70,14 +70,14 @@ def block_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.T
 def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's split pass alone: ``(hi, lo)`` of an fp32 matrix.
 
-    A CPU tensor takes :func:`repro_torch.kernels.ref.split_tf32`.  On the
-    card this is the check of the pass that every fp32 GEMM runs; it is not
-    counted in ``launches``.
+    A CPU (or ``meta``) tensor takes :func:`repro_torch.kernels.ref.split_tf32`.
+    On the card this is the check of the pass that every fp32 GEMM runs; it
+    is not counted in ``launches``.
     """
     if x.ndim != 2 or x.dtype != torch.float32:
         raise ValueError(f"split_tf32: want an fp32 matrix, got {x.dtype} {tuple(x.shape)}")
     _build.refuse_grad("split_tf32", x)
-    if x.device.type == "cpu":
+    if _build.plain(x):
         return ref.split_tf32(x)
     if x.device.type != "cuda":
         raise ValueError(f"split_tf32: unsupported device {x.device}")

@@ -1,7 +1,7 @@
 """Fused CAD node scores through the CUDA kernel (``csrc/cad_score.cu``).
 
-Counterpart of :mod:`repro.kernels.cad_score`.  A CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises.  A call launches three
+Counterpart of :mod:`repro.kernels.cad_score`.  A CPU (or ``meta``) tensor
+takes the plain version; a CUDA tensor launches the kernel or raises.  A call launches three
 kernels (embedding prep, column-chunk partials, their fixed-order sum) and
 counts once.
 """
@@ -37,7 +37,7 @@ def cad_scores_tile(a1, a2, z1i, z1j, z2i, z2j, vol1, vol2) -> torch.Tensor:
         raise TypeError("cad_scores: all operands must be float32")
     if any(t.device != a1.device for t in tensors):
         raise ValueError("cad_scores: operands on different devices")
-    if a1.device.type == "cpu":
+    if _build.plain(a1):
         return ref.cad_scores_tile(a1, a2, z1i, z1j, z2i, z2j, vol1, vol2)
     if a1.device.type != "cuda":
         raise ValueError(f"cad_scores: unsupported device {a1.device}")

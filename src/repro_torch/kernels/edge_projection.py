@@ -2,8 +2,8 @@
 
 Counterpart of :mod:`repro.kernels.edge_projection`: Y (m, k) =
 B^T W^{1/2} Q / sqrt(k) with Q regenerated in the kernel from the counter
-hash.  A CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises.  A call launches two kernels (per-column-tile partials,
+hash.  A CPU (or ``meta``) tensor takes the plain version; a CUDA tensor
+launches the kernel or raises.  A call launches two kernels (per-column-tile partials,
 then their fixed-order sum) and counts once.
 """
 
@@ -41,7 +41,7 @@ def edge_projection(a: torch.Tensor, *, seed: int, k: int, row0: int = 0,
     _build.refuse_grad("edge_projection", a)
     if row0 < 0 or col0 < 0:
         raise ValueError(f"edge_projection: row0={row0} and col0={col0} must be >= 0")
-    if a.device.type == "cpu":
+    if _build.plain(a):
         return ref.edge_projection(a, seed=seed, k=k, row0=row0, col0=col0)
     if a.device.type != "cuda":
         raise ValueError(f"edge_projection: unsupported device {a.device}")

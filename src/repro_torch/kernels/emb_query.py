@@ -5,7 +5,7 @@ every streamed Z row panel into a running per-query top-k.  :class:`PanelTopk`
 is that merger: it checks the query's arguments once, owns the running
 (q, topk) state, and launches one kernel per panel with only the panel's
 own arguments.  :func:`panel_topk_update` is the one-panel call on top of it.
-A CPU tensor takes the plain version
+A CPU (or ``meta``) tensor takes the plain version
 (:func:`repro_torch.kernels.ref.panel_topk_update`); a CUDA tensor launches
 the kernel or raises.
 
@@ -105,7 +105,7 @@ class PanelTopk:
         self._inv_row0, self._vol = inv_deg_row0, vol
         self._kw = dict(topk=topk, corrected=corrected, largest=largest)
         self._state = (run_vals, run_idx)
-        if zq.device.type == "cpu":
+        if _build.plain(zq):
             return
         if zq.device.type != "cuda":
             raise ValueError(f"panel_topk_update: unsupported device {zq.device}")
@@ -152,7 +152,7 @@ class PanelTopk:
                             f"{z_panel.dtype}")
         if z_panel.device != self.device:
             raise ValueError("panel_topk_update: operands on different devices")
-        if self.device.type == "cpu":
+        if self.device.type in _build.PLAIN_DEVICES:
             self._state = ref.panel_topk_update(
                 *self._state, self._zq, z_panel, self._idq, self._inv[:, lo : lo + ph], self._vol,
                 row0, self._ex, **self._kw)
@@ -174,7 +174,7 @@ class PanelTopk:
 
     def result(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The running (vals, ids): ids are global node ids, -1 in unfilled slots."""
-        if self.device.type == "cpu":
+        if self.device.type in _build.PLAIN_DEVICES:
             return self._state
         return self._slots[self._plan.cur]
 

@@ -3,8 +3,9 @@
 
 Counterpart of :mod:`repro.kernels.flash_attention`, with grouped-query
 attention as one integer: q head ``h`` reads KV head ``h // groups``.  A CPU
-tensor takes the plain version (:func:`repro_torch.kernels.ref.flash_attention`,
-the materialized softmax); a CUDA tensor launches a kernel or raises.
+(or ``meta``) tensor takes the plain version
+(:func:`repro_torch.kernels.ref.flash_attention`, the materialized softmax);
+a CUDA tensor launches a kernel or raises.
 
 On the card the route is a fixed dispatch on dtype and head dim, not a
 fallback:
@@ -60,7 +61,7 @@ def flash_attention(q, k, v, *, causal: bool = True, groups: int = 1) -> torch.T
                         f"{k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: operands on different devices")
-    if q.device.type == "cpu":
+    if _build.plain(q):
         return ref.flash_attention(q, k, v, causal=causal, groups=groups)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")

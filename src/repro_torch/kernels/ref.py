@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the hand-written kernels.
 
-Port of :mod:`repro.kernels.ref`.  The wrappers run these for CPU tensors,
-and ``chip_smoke.py`` holds each CUDA kernel against them on the card.  The
-edge projection and the CAD scorer work in row chunks so they also fit on
-the card at n=10512: a whole (n, n, k) int64 hash tensor would be 15 GB.
+Port of :mod:`repro.kernels.ref`.  The wrappers run these for CPU and
+``meta`` tensors, and ``chip_smoke.py`` holds each CUDA kernel against them
+on the card.  The edge projection and the CAD scorer work in row chunks so
+they also fit on the card at n=10512: a whole (n, n, k) int64 hash tensor
+would be 15 GB.
 """
 
 from __future__ import annotations

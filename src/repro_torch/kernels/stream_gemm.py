@@ -19,7 +19,7 @@ Counterpart of :mod:`repro.kernels.stream_gemm`:
 
 Operands may be fp32 or bf16 bit patterns carried as ``int16`` (the store's
 bf16 codec ships uint16 bits; torch holds them as int16 views), widened
-exactly in the kernel.  A CPU tensor takes the plain version
+exactly in the kernel.  A CPU (or ``meta``) tensor takes the plain version
 (:mod:`repro_torch.kernels.ref`); a CUDA tensor launches the kernel or raises.
 """
 
@@ -130,7 +130,7 @@ def stream_gemm(
                          f"{elems} elements on {a.device}, got {scratch.dtype} "
                          f"{tuple(scratch.shape)} on {scratch.device}")
     tensors = tuple(t for t in (a, b, init, out) if t is not None)
-    if all(t.device.type == "cpu" for t in tensors):
+    if all(_build.plain(t) for t in tensors):
         c = ref.stream_gemm(a, b, init, sign=sign)
         return c if out is None else out.copy_(c)
     _check_cuda("stream_gemm", tensors)
@@ -177,7 +177,7 @@ def fused_panel_matvec(
     if any(t.dtype != torch.float32 for t in (y, chi_panel, y_panel)):
         raise TypeError("fused_panel_matvec: y, chi and y panels must be float32")
     tensors = (p_panel, y, chi_panel, y_panel)
-    if all(t.device.type == "cpu" for t in tensors):
+    if all(_build.plain(t) for t in tensors):
         return ref.fused_panel_matvec(p_panel, y, chi_panel, y_panel)
     _check_cuda("fused_panel_matvec", tensors)
     if not 1 <= q <= Q_MAX:

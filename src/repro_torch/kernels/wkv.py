@@ -2,10 +2,10 @@
 
 Counterpart of :mod:`repro.kernels.wkv`, with the initial state ``s0`` in
 and the final state out, as :func:`repro_torch.models.rwkv6.wkv_chunked`
-computes them (prefill hands the state to decode).  A CPU tensor takes the
-plain version (:func:`repro_torch.kernels.ref.wkv`, the per-step
-recurrence); a CUDA tensor launches the kernels or raises.  On the card a
-call is a chunk-parallel scan of three launches over chunks of
+computes them (prefill hands the state to decode).  A CPU (or ``meta``)
+tensor takes the plain version (:func:`repro_torch.kernels.ref.wkv`, the
+per-step recurrence); a CUDA tensor launches the kernels or raises.  On the
+card a call is a chunk-parallel scan of three launches over chunks of
 :data:`CHUNK` rows (each chunk's state increment, the scan over chunks,
 each chunk's outputs), with :func:`scratch_elems` floats of scratch; it
 masks a ragged last chunk itself and takes the decay ratios pairwise, so
@@ -62,7 +62,7 @@ def wkv(r, k, v, lw, u, *, s0=None, return_state: bool = False):
     tensors = (r, k, v, lw, u) + (() if s0 is None else (s0,))
     if any(t.device != r.device for t in tensors):
         raise ValueError("wkv: operands on different devices")
-    if r.device.type == "cpu":
+    if _build.plain(r):
         return ref.wkv(r, k, v, lw, u, s0=s0, return_state=return_state)
     if r.device.type != "cuda":
         raise ValueError(f"wkv: unsupported device {r.device}")

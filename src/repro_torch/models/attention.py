@@ -47,6 +47,21 @@ def init_attention(cfg: ArchConfig, gen: torch.Generator, *, d_in: int | None = 
     return Params(t)
 
 
+def attention_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of :func:`init_attention`'s parameters, by name."""
+    ax = {
+        "wq": ("embed_p", "heads"),
+        "wk": ("embed_p", "kv_heads"),
+        "wv": ("embed_p", "kv_heads"),
+        "wo": ("heads", "embed_p"),
+    }
+    if cfg.qkv_bias:
+        ax.update(bq=("heads",), bk=("kv_heads",), bv=("kv_heads",))
+    if cfg.qk_norm:
+        ax.update(q_norm=("head_dim",), k_norm=("head_dim",))
+    return ax
+
+
 def _rms(x, scale):
     xf = x.to(torch.float32)
     y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)

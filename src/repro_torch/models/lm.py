@@ -148,12 +148,16 @@ def init_block(cfg: ArchConfig, bt: str, gen: torch.Generator, ov: dict, device=
 
 
 def init_params(spec: LMSpec, seed: int = 0, device="cuda") -> Params:
-    """Random weights from a ``torch.Generator`` seeded with ``seed``, made on ``device``."""
+    """Random weights from a ``torch.Generator`` seeded with ``seed``, made on ``device``.
+
+    On ``"meta"`` (the dry run) there is no generator: the same tree of the
+    same shapes and dtypes is made with ``torch.empty`` and nothing is drawn.
+    """
     from repro_torch.device import resolve_device
 
     dev = resolve_device(device)
     cfg = spec.cfg
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     ninit, _ = cm.make_norm(cfg, cfg.d_model)
     t = {"embed": cm.embed_init(gen, (cfg.vocab_padded, cfg.d_model), cfg.pdtype, device=dev)}
     if not cfg.tie_embeddings:
@@ -177,6 +181,113 @@ def init_params(spec: LMSpec, seed: int = 0, device="cuda") -> Params:
             ln=sn(dev), attn=attn.init_attention(scfg, gen, d_in=2 * cfg.d_model, device=dev),
             ln2=ninit(dev), mlp=mlp_mod.init_mlp(cfg, gen, device=dev))  # the block's FFN (d_ff)
     return Params(t, **children)
+
+
+# ---------------------------------------------------------------------------
+# logical axes of the parameters and caches (the sharding rules' input)
+# ---------------------------------------------------------------------------
+
+
+def block_axes(cfg: ArchConfig, bt: str) -> dict:
+    """Logical axes of one block's parameters (:func:`init_block`'s tree)."""
+    nx = cm.norm_axes(cfg)
+    if bt in ("attn", "enc"):
+        return {"ln1": nx, "attn": attn.attention_axes(cfg), "ln2": nx,
+                "mlp": mlp_mod.mlp_axes(cfg)}
+    if bt == "attn_moe":
+        return {"ln1": nx, "attn": attn.attention_axes(cfg), "ln2": nx,
+                "moe": moe_mod.moe_axes(cfg)}
+    if bt == "mamba":
+        return {"ln": nx, "mamba": mb.mamba_axes(cfg)}
+    if bt == "rwkv":
+        return {"ln1": nx, "ln2": nx, "rwkv": rwkv_mod.rwkv_axes(cfg)}
+    if bt == "dec":
+        return {"ln1": nx, "attn": attn.attention_axes(cfg), "lnx": nx,
+                "xattn": attn.attention_axes(cfg), "ln2": nx, "mlp": mlp_mod.mlp_axes(cfg)}
+    raise ValueError(bt)
+
+
+def _top_axes(spec: LMSpec) -> dict:
+    """The axes of the parameters outside the blocks."""
+    cfg = spec.cfg
+    nx = cm.norm_axes(cfg)
+    axes: dict[str, Any] = {"embed": ("vocab", "embed_d"), "final_norm": nx}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed_d", "vocab")
+    if spec.is_encdec:
+        axes["enc_final_norm"] = nx
+    if spec.has_shared_attn:
+        axes["shared_attn"] = {"ln": nx, "attn": attn.attention_axes(_shared_attn_cfg(cfg)),
+                               "ln2": nx, "mlp": mlp_mod.mlp_axes(cfg)}
+    return axes
+
+
+def params_tree_axes(spec: LMSpec) -> dict:
+    """Logical axes of :func:`params_tree`'s layout (the training state): each
+    group's block entries stacked behind a ``layers`` axis, the JAX package's
+    ``lm.param_axes`` leaf for leaf."""
+    cfg = spec.cfg
+    axes = _top_axes(spec)
+
+    def groups(gspecs):
+        return [{str(bi): cm.stacked_axes(block_axes(cfg, bt))
+                 for bi, bt in enumerate(g.block_types) if bt != "shared_attn"}
+                for g in gspecs]
+
+    axes["groups"] = groups(spec.groups)
+    if spec.is_encdec:
+        axes["enc_groups"] = groups(spec.enc_groups)
+    return axes
+
+
+def param_axes(spec: LMSpec) -> dict:
+    """Logical axes of :func:`init_params`' tree: :func:`params_tree_axes`
+    with each group unstacked into ``blocks`` (and ``enc_blocks``), one
+    entry a layer, each leaf without its leading ``layers`` entry (the port
+    keeps one container a layer), so ``cm.named_leaves(param_axes(spec))``
+    has the module's ``named_parameters`` names."""
+    tree = params_tree_axes(spec)
+    axes = {k: v for k, v in tree.items() if k not in ("groups", "enc_groups")}
+
+    def blocks(gtrees, gspecs):
+        return [cm.map_axes(lambda ax: ax[1:], gt[str(bi)])
+                for gt, g in zip(gtrees, gspecs, strict=True) for _ in range(g.count)
+                for bi, bt in enumerate(g.block_types) if bt != "shared_attn"]
+
+    axes["blocks"] = blocks(tree["groups"], spec.groups)
+    if spec.is_encdec:
+        axes["enc_blocks"] = blocks(tree["enc_groups"], spec.enc_groups)
+    return axes
+
+
+def param_specs(spec: LMSpec, rules) -> dict:
+    """:func:`param_axes` mapped to :class:`~repro_torch.models.common.Spec` by ``rules``."""
+    return cm.tree_specs(param_axes(spec), rules)
+
+
+def cache_axes(spec: LMSpec) -> dict:
+    """Logical axes of :func:`init_cache`'s tree (``kv_seq`` over ``model`` =
+    flash-decode): ``layers`` one entry per block, each shared-block
+    invocation its own; each leaf the JAX package's ``lm.cache_axes`` leaf
+    without its leading ``layers`` entry.  ``pos`` is a host int here (a
+    0-dim int32 in the JAX cache)."""
+    layers = []
+    for bt in spec.layers():
+        if bt in ("attn", "attn_moe", "dec", "shared_attn"):
+            kv = ("batch", "kv_seq", "kv_heads", "head_dim")
+            e = {"k": kv, "v": kv}
+            if bt == "dec":
+                e["xk"] = ("batch", None, "kv_heads", "head_dim")
+                e["xv"] = ("batch", None, "kv_heads", "head_dim")
+        elif bt == "mamba":
+            e = {"conv": ("batch", None, "inner"), "ssm": ("batch", "inner", None, None)}
+        elif bt == "rwkv":
+            e = {"tm_prev": ("batch", None, "embed"), "cm_prev": ("batch", None, "embed"),
+                 "wkv": ("batch", "inner", None, None)}
+        else:
+            raise ValueError(bt)
+        layers.append(e)
+    return {"layers": layers, "pos": ()}
 
 
 def param_count(params) -> int:

@@ -59,6 +59,25 @@ def init_mamba(cfg: ArchConfig, gen: torch.Generator, device=None) -> Params:
     })
 
 
+def mamba_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of :func:`init_mamba`'s parameters, by name."""
+    return {
+        "w_z": ("embed_p", "inner"),
+        "w_x": ("embed_p", "inner"),
+        "w_b": ("embed_p", None),
+        "w_c": ("embed_p", None),
+        "w_dt": ("embed_p", None),
+        "conv_wx": ("inner", None),
+        "conv_wbc": (None, None),
+        "conv_b": (None,),
+        "a_log": ("state",),
+        "d_skip": ("state",),
+        "dt_bias": ("state",),
+        "norm": ("inner",),
+        "w_out": ("inner", "embed_p"),
+    }
+
+
 def _project(cfg: ArchConfig, p: Params, x):
     """x (B,S,d) -> (z, x_in, b, c, dt_raw), the projections before the conv."""
     dt = cfg.cdtype

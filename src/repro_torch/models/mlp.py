@@ -19,6 +19,15 @@ def init_mlp(cfg: ArchConfig, gen: torch.Generator, *, d_ff: int | None = None,
     })
 
 
+def mlp_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of :func:`init_mlp`'s parameters, by name."""
+    return {
+        "w_gate": ("embed_p", "ff"),
+        "w_up": ("embed_p", "ff"),
+        "w_down": ("ff", "embed_p"),
+    }
+
+
 def apply_mlp(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     dt = cfg.cdtype
     g = x @ p.w_gate.to(dt)

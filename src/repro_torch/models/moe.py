@@ -74,6 +74,19 @@ def init_moe(cfg: ArchConfig, gen: torch.Generator, device=None) -> Params:
     return Params(t, **children)
 
 
+def moe_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of :func:`init_moe`'s parameters, by name."""
+    ax = {
+        "router": ("embed_p", "experts"),
+        "w_gate": ("experts", "expert_embed", "expert_ff"),
+        "w_up": ("experts", "expert_embed", "expert_ff"),
+        "w_down": ("experts", "expert_ff", "expert_embed"),
+    }
+    if cfg.n_shared_experts:
+        ax["shared"] = mlp_mod.mlp_axes(cfg)
+    return ax
+
+
 def capacity(cfg: ArchConfig, t: int) -> int:
     """Slots per expert for ``t`` tokens (the JAX package's ``cap_for``)."""
     c = int(cfg.capacity_factor * t * cfg.top_k / cfg.n_experts)

@@ -65,6 +65,27 @@ def init_rwkv(cfg: ArchConfig, gen: torch.Generator, device=None) -> Params:
     })
 
 
+def rwkv_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of :func:`init_rwkv`'s parameters, by name."""
+    return {
+        "mix": (None, "embed_p"),
+        "wr": ("embed_p", "inner"),
+        "wk": ("embed_p", "inner"),
+        "wv": ("embed_p", "inner"),
+        "wg": ("embed_p", "inner"),
+        "wo": ("inner", "embed_p"),
+        "w_base": ("inner",),
+        "w_lora_a": ("embed_p", None),
+        "w_lora_b": (None, "inner"),
+        "u_bonus": (None, None),
+        "ln_x": ("inner",),
+        "cm_mix": (None, "embed_p"),
+        "cm_k": ("embed_p", "ff"),
+        "cm_v": ("ff", "embed_p"),
+        "cm_r": ("embed_p", "inner"),
+    }
+
+
 def _token_shift(x: torch.Tensor, prev: torch.Tensor | None = None) -> torch.Tensor:
     """Shift right by one along S; ``prev`` (B, 1, d) feeds position 0."""
     if prev is None:

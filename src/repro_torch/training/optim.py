@@ -5,7 +5,8 @@ and states are trees in the JAX package's layout (``lm.params_tree``: each
 group's layers stacked), so Adafactor factors and clips each stacked leaf
 as the JAX package does, and a state crosses between the packages leaf for
 leaf (``interop.opt_state_from_numpy``, ``training.checkpoint``).  Moments
-are fp32; parameters keep their dtype.
+are fp32; parameters keep their dtype.  ``*_state_specs`` give the states'
+partition specs from the parameters' (the dry run's per-tile bytes).
 
 The JAX updates are pure functions.  Here ``*_update`` writes the new
 parameters and moments into the given tensors, in place, and returns them:
@@ -106,6 +107,14 @@ def adamw_update(cfg: OptConfig, grads, state, params):
     return params, state
 
 
+def adamw_state_specs(param_specs) -> dict:
+    """Partition specs of :func:`adamw_init`'s state: the moments inherit the
+    parameters' (they are elementwise); ``count`` is replicated."""
+    from repro_torch.models.common import Spec
+
+    return {"m": param_specs, "v": param_specs, "count": Spec()}
+
+
 # ---------------------------------------------------------------------------
 # Adafactor (factored second moments, beta1 = 0)
 # ---------------------------------------------------------------------------
@@ -150,6 +159,24 @@ def adafactor_update(cfg: OptConfig, grads, state, params):
         p.copy_(p.to(torch.float32) - lr * step)
     state["count"] = c
     return params, state
+
+
+def adafactor_state_specs(param_specs, params_shape) -> dict:
+    """Partition specs of :func:`adafactor_init`'s state: a factored state
+    drops its parameter spec's last (``vr``) or second-last (``vc``) entry.
+    ``params_shape`` is the parameter tree (tensors, meta tensors or shapes):
+    whether a leaf is factored depends on its rank, so the specs follow the
+    tree the optimizer runs on (``lm.params_tree``, groups stacked)."""
+    from repro_torch.models.common import Spec, map_axes
+
+    def spec_for(ps, p):
+        ndim = len(p.shape) if hasattr(p, "shape") else len(p)
+        ps_t = tuple(ps) + (None,) * (ndim - len(tuple(ps)))
+        if ndim >= 2:
+            return {"vr": Spec(*ps_t[:-1]), "vc": Spec(*(ps_t[:-2] + ps_t[-1:]))}
+        return {"v": Spec(*ps_t)}
+
+    return {"v": map_axes(spec_for, param_specs, params_shape), "count": Spec()}
 
 
 # ---------------------------------------------------------------------------
