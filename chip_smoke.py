@@ -27,7 +27,10 @@ Phases, in order; any failure exits non-zero:
    ``torch.profiler`` trace) apart from the host's cost of a call and of a
    query's merger step, ``wkv``'s device time over its three launches and
    a bound that counts its exponentials, ``flash_attention``'s route per form and
-   its earlier (SIMT) design timed on the same inputs, and ``flash_attention``
+   its earlier (SIMT) design timed on the same inputs, its ``q_offset`` form
+   (the seqshard tile: the prompt's second half of queries against all keys)
+   against the plain version and the whole sequence's rows, the SHA-256 of
+   its other forms' outputs (``scripts/flash_bits.py``), and ``flash_attention``
    at zamba2's shared-block prefill (q/k/v 128 x 1024 x 224 bf16, causal, the
    SIMT route) beside SDPA and its bound; then the pinned
    host-to-device rate of one out-of-core panel (the ``[h2d]`` line);
@@ -201,14 +204,36 @@ Phases, in order; any failure exits non-zero:
    against ``_train_bound``'s ops and the activation estimate against the
    card's peak; the 2x2 chain at n=10512 whose moved bytes equal phase 11's
    counter readings on the card (``[grid] ... tile moves`` lines); its
-   seconds, under 120.
+   seconds, under 120;
+17. the LM substrate on a 2x2 grid of the one card (``[lmgrid]`` lines,
+   ``make_context([cuda:0] * 4, 2)``): qwen2-1.5b at full width and depth
+   served through ``ServeEngine.generate(grid=)`` with phase 9's requests
+   and weights under the serve rules (exact launches: four tiles, once per
+   attention block in prefill, all on the tensor-core route, none in
+   decode; time to first token, decode ms a step, peak memory and the bytes
+   a prefill and a decode step move between grid positions, beside phase
+   9's 1x1 figures; how many bf16 greedy tokens equal phase 9's; one more
+   decode step under ``torch.profiler``: device busy share, copies), then in
+   fp32 at depth 2 the grid against 1x1 on the card (tokens equal, prefill
+   logits within 1e-3 of the largest); granite-3-2b at full width trained 2
+   steps on the grid through ``train_loop(grid=)`` (AdamW, bf16, remat:
+   loss, grad norm, ms a step, moved bytes by kind, peak <= 76 GB, exact
+   launches, each tile's parameter and optimizer bytes equal to the dry
+   run's ``argument_bytes`` on a 2x2 grid; one more step under
+   ``torch.profiler``: device busy share, copies); in fp32 at depth 2 one step
+   under the baseline, fsdp and seqshard rules against the 1x1 step (loss
+   and grad norm within 1e-5; seqshard launches ``flash_attention`` with
+   ``q_offset > 0``); one int8 compressed step on a 2x2x2 grid of the card
+   (finite; synced gradients within the int8 bound of the pods' mean); a
+   2x2 checkpoint resumed on 1x1 under deterministic algorithms (losses
+   within 1e-5 of the grid run's); its seconds (aim: under 90).
 
 A copy of the script beside another tree's ``src/`` (a parent commit's
 ``git archive``) runs the same phases on that tree's package, so both trees
 are measured by the same code in one call.
 
 The line before the last is the JSON ``kernels`` table (``launches`` sums
-the main paths of phases 3, 5, 7, 8, 9, 10, 11, 12, 13, 14 and 15; ``launches_by_path`` splits
+the main paths of phases 3, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 17; ``launches_by_path`` splits
 them); the
 last line is ``{"ok": true, "device": {...}}``.  It imports neither JAX nor
 the JAX package.  Long logs go to ``OUT``, a gitignored directory beside
@@ -1950,6 +1975,11 @@ def phase_lm_kernels(torch, rows: list) -> dict:
     ms_f = time_ms(torch, lambda: fa.flash_attention(q, kk, vv, groups=grp), reps=20)
     plain_f = time_ms(torch, lambda: ref.flash_attention(q, kk, vv, groups=grp), reps=3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    fforms["bf16 causal q_offset"] = _flash_q_offset(torch, fa, ref, route, sdpa, q, kk, vv,
+                                                     grp, main_out, tol_b)
+    # the existing forms' outputs, for a bitwise comparison with another
+    # tree's kernel on the same inputs (scripts/flash_bits.py recomputes them)
+    digests = _flash_digests(torch, fa)
     q4, k4, v4 = (t.view(SERVE_BATCH, -1, s, d) for t in (q, kk, vv))
     lib = time_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True, enable_gqa=True), reps=20)
     # the SIMT kernel (the earlier design, now the fp32 route) on the same bf16
@@ -1959,7 +1989,7 @@ def phase_lm_kernels(torch, rows: list) -> dict:
 
     def simt():
         _build.check(lib_fn(q.data_ptr(), kk.data_ptr(), vv.data_ptr(), simt_out.data_ptr(),
-                            nkv * grp, s, s, d, grp, 1, 1.0 / d**0.5, 1,
+                            nkv * grp, s, s, d, grp, 1, 0, 1.0 / d**0.5, 1,
                             _build.stream_handle(q)), "flash_attention SIMT")
 
     simt_ms = time_ms(torch, simt, reps=20)
@@ -1975,8 +2005,61 @@ def phase_lm_kernels(torch, rows: list) -> dict:
         ms_f, plain_f, 4.0 * d * pairs, nbytes(q, kk, vv, q), lib, peak_ops=PEAK_BF16_OPS,
         forms=fforms, library_call="scaled_dot_product_attention(is_causal, enable_gqa)",
         kernel_route="wgmma (bf16, D in {64, 128}); SIMT for fp32 and other D up to 256",
-        simt_kernel_ms=simt_ms, d224=d224))
+        simt_kernel_ms=simt_ms, d224=d224, output_digests=digests))
     return {"wkv_ms": ms, "flash_attention_ms": ms_f}
+
+
+def _flash_q_offset(torch, fa, ref, route, sdpa, q, k, v, grp: int, whole, tol: float) -> dict:
+    """flash_attention at the seqshard preset's tile: the second half of the
+    prompt's queries (q_offset = S / 2) against all S keys, bf16 causal on
+    the tensor-core route; against the plain version with the same offset
+    and against the whole sequence's rows, twice bitwise, timed beside the
+    plain version, SDPA with the lower-right causal mask, and its bound (the
+    causal pairs these rows need)."""
+    s, d = q.shape[1], q.shape[2]
+    off = s // 2
+    qo = q[:, off:].contiguous()
+    name = (f"flash_attention q ({qo.shape[0]},{s - off},{d}) q_offset {off} over k/v {s} bf16 "
+            f"causal")
+    out, took = route(lambda: fa.flash_attention(qo, k, v, groups=grp, q_offset=off))
+    if took != "wgmma":
+        fail(f"{name}: took the {took} route, want wgmma")
+    check = check_close(name, out, ref.flash_attention(qo, k, v, groups=grp, q_offset=off), tol)
+    rows_err, _ = check_close(f"{name} against the whole sequence's rows", out, whole[:, off:], tol)
+    same_rows = bool(torch.equal(out, whole[:, off:]))
+    check_bitwise(torch, name, lambda: fa.flash_attention(qo, k, v, groups=grp, q_offset=off))
+    ms = time_ms(torch, lambda: fa.flash_attention(qo, k, v, groups=grp, q_offset=off), reps=20)
+    plain = time_ms(torch, lambda: ref.flash_attention(qo, k, v, groups=grp, q_offset=off), reps=3)
+    b = SERVE_BATCH
+    q4, k4, v4 = qo.view(b, -1, s - off, d), k.view(b, -1, s, d), v.view(b, -1, s, d)
+    mask = (torch.arange(s - off, device=q.device)[:, None] + off
+            >= torch.arange(s, device=q.device)[None, :])
+    lib = time_ms(torch, lambda: sdpa(q4, k4, v4, attn_mask=mask, enable_gqa=True), reps=20)
+    pairs = qo.shape[0] * sum(range(off + 1, s + 1))  # row i sees off + i + 1 keys
+    bms, by = bound_ms(4.0 * d * pairs, nbytes(qo, k, v, qo), PEAK_BF16_OPS)
+    log(f"[kernels] {name}: wgmma route; max_abs_err {check[0]:.3e} (tol {tol:g} x max|plain|), "
+        f"against the whole sequence's rows {rows_err:.3e} "
+        f"({'bitwise equal' if same_rows else 'not bitwise'}); "
+        f"bitwise repeatable; {ms:.4f} ms, plain {plain:.3f} ms, SDPA (lower-right causal mask) "
+        f"{lib:.4f} ms, bound {bms:.4f} ms ({by})")
+    return {"shape": name, "route": took, "max_abs_err": check[0], "whole_rows_err": rows_err,
+            "whole_rows_bitwise": same_rows, "ms": ms, "plain_ms": plain, "library_ms": lib,
+            "library_call": "scaled_dot_product_attention(attn_mask lower-right, enable_gqa)",
+            "bound_ms": bms, "bound_by": by}
+
+
+def _flash_digests(torch, fa) -> dict:
+    """SHA-256 of the bits of flash_attention's output for phase 2's earlier
+    forms (no q_offset argument), on inputs remade from a fixed seed
+    (``scripts/flash_bits.py``, which prints the same for another tree)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("flash_bits", ROOT / "scripts" / "flash_bits.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = mod.digests(torch, fa)
+    log(f"[kernels] flash_attention output digests (scripts/flash_bits.py): {json.dumps(out)}")
+    return out
 
 
 def _flash_d224(torch, fa, ref, randn, route, sdpa, tol: float) -> dict:
@@ -2015,9 +2098,10 @@ def _flash_d224(torch, fa, ref, randn, route, sdpa, tol: float) -> dict:
 
 def device_split(torch, fn) -> dict:
     """Device time of one call of ``fn`` by kernel family, from a torch.profiler
-    trace: our two LM kernels, cuBLAS products, and the rest; ``busy`` is the
-    union of kernel intervals over the host wall of the call.  Empty when the
-    trace holds no device events."""
+    trace: our two LM kernels, cuBLAS products, and the rest; ``copy`` is the
+    part of the rest in copies and concatenations (memcpy, ``cat``, copy
+    kernels); ``busy`` is the union of kernel intervals over the host wall of
+    the call.  Empty when the trace holds no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2031,7 +2115,7 @@ def device_split(torch, fn) -> dict:
                    if e.device_type == DeviceType.CUDA)
     if not spans:
         return {}
-    split = {"wkv": 0.0, "flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    split = {"wkv": 0.0, "flash_attention": 0.0, "matmul": 0.0, "other": 0.0, "copy": 0.0}
     busy, cur_s, cur_e = 0.0, None, None
     for start, end, name in spans:
         low = name.lower()
@@ -2039,6 +2123,8 @@ def device_split(torch, fn) -> dict:
                else "matmul" if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass"))
                else "other")
         split[fam] += (end - start) / 1e3
+        if fam == "other" and any(w in low for w in ("memcpy", "catarray", "copy_kernel")):
+            split["copy"] += (end - start) / 1e3
         if cur_e is None or start > cur_e:
             busy += 0.0 if cur_e is None else cur_e - cur_s
             cur_s, cur_e = start, end
@@ -2055,7 +2141,8 @@ def fmt_split(sp: dict) -> str:
     return (f"device busy {sp['busy_ms']:.1f} of {sp['wall_ms']:.1f} ms (idle "
             f"{100 * sp['idle_share']:.1f}%), {sp['kernels']} kernels: matmul "
             f"{sp['matmul_ms']:.1f} ms, wkv {sp['wkv_ms']:.1f}, flash_attention "
-            f"{sp['flash_attention_ms']:.1f}, other {sp['other_ms']:.1f}")
+            f"{sp['flash_attention_ms']:.1f}, other {sp['other_ms']:.1f} (of it copies "
+            f"{sp['copy_ms']:.1f})")
 
 
 def phase_serve(torch, per: dict) -> dict:
@@ -2199,7 +2286,7 @@ def phase_serve(torch, per: dict) -> dict:
                      "prefill_ms": prefill_s * 1e3, "prefill_kernel_ms_est": kern_s * 1e3,
                      "prefill_device_split": sp_pre, "decode_device_split": sp_dec,
                      "first_generate": first,
-                     "first_tokens": toks[0, :8].tolist()}
+                     "first_tokens": toks[0, :8].tolist(), "tokens": toks.tolist()}
         del params, eng, logits, cache, tokens
         gc.collect()
         torch.cuda.empty_cache()
@@ -2478,9 +2565,9 @@ class _FlashShapes:
     def __enter__(self):
         self.orig = self.fa.flash_attention
 
-        def spy(q, k, v, *, causal=True, groups=1):
+        def spy(q, k, v, *, causal=True, groups=1, q_offset=0):
             self.calls.append((q.shape[1], k.shape[1], bool(causal)))
-            return self.orig(q, k, v, causal=causal, groups=groups)
+            return self.orig(q, k, v, causal=causal, groups=groups, q_offset=q_offset)
 
         self.fa.flash_attention = spy
         return self
@@ -4261,6 +4348,417 @@ def phase_grid_oocore(torch, rows: list, oocore: dict, s5_t0) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the LM substrate on a 2x2 grid of the card
+# ---------------------------------------------------------------------------
+
+LMGRID_SERVE = "qwen2-1.5b"  # phase 9's attention model, its requests and weights (seed 0)
+LMGRID_TRAIN = "granite-3-2b"  # phase 15's model
+LMGRID_TRAIN_BATCH, LMGRID_TRAIN_SEQ, LMGRID_TRAIN_STEPS = 8, 512, 2
+LMGRID_PEAK_GB = 76.0
+LMGRID_CHECK_DEPTH = 2  # layers of the fp32 grid-against-1x1 checks
+# fp32 on the card, the grid step against the 1x1 step: the loss and grad
+# norm within 1e-5 relative, tests/test_sharding.py::test_loss_invariant_to_mesh's
+LMGRID_RTOL = 1e-5
+LMGRID_BUDGET_S = 90.0  # the phase's aim (printed; not a gate)
+
+
+def _moved(torch, before: dict, path: str) -> dict:
+    from repro_torch.core.collectives import lm_moves
+
+    after = lm_moves()[path]
+    return {k: after[k] - before[path][k] for k in after}
+
+
+def _fmt_moved(m: dict, per: float = 1.0) -> str:
+    kinds = ("gather", "reduce", "reduce_scatter", "permute")
+    return ", ".join(f"{k} {m[f'{k}_bytes'] / per / 1e6:.3f} MB ({m[f'{k}s'] / per:g})"
+                     for k in kinds if m[f"{k}s"])
+
+
+def _lmgrid_serve(torch, grid, serve: dict) -> dict:
+    """qwen2-1.5b at full width and depth on the 2x2 grid with phase 9's
+    requests and weights: exact launches (four tiles, once per attention
+    block in prefill, none in decode), time to first token, decode ms a step,
+    peak memory, moved bytes of the prefill and of one decode step, and the
+    bf16 greedy tokens equal to phase 9's, and one more decode step's device
+    split (torch.profiler); then fp32 at depth 2, the grid
+    against 1x1 on the card: tokens equal, prefill logits within 1e-3 of the
+    largest (phase 13's gate)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch import configs, kernels
+    from repro_torch.core.collectives import lm_moves
+    from repro_torch.models import common as cm
+    from repro_torch.models import lm
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    cfg = configs.get_config(LMGRID_SERVE)
+    spec = lm.build_spec(cfg)
+    s_max = SERVE_PROMPT + SERVE_NEW
+    t0 = time.perf_counter()
+    params = lm.init_params(spec, seed=0, device="cuda")
+    eng = ServeEngine(spec, params, s_max=s_max, batch=SERVE_BATCH, device="cuda", grid=grid,
+                      cfg=ServeConfig(max_new_tokens=SERVE_NEW))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    run = cm.GridRun(eng.rules)
+    with torch.inference_mode():  # warm-up: a short prefill and one decode step
+        lg, cache = lm.prefill(spec, eng.params, run.place(
+            torch.from_numpy(prompts[:, :64]).long().cuda(), ("batch", "seq")), s_max,
+            rules=eng.rules)
+        lm.decode_step(spec, eng.params, run.place(eng._whole(lg).argmax(-1), ("batch",)),
+                       cache, rules=eng.rules)
+        del lg, cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    m0 = lm_moves()
+    toks = eng.generate(prompts)
+    counts = kernels.launch_counts()
+    moved = _moved(torch, m0, "lm.serve")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    st = eng.stats
+    want = {name: 0 for name in counts} | {"flash_attention": 4 * cfg.n_layers,
+                                           "flash_attention_wgmma": 4 * cfg.n_layers}
+    if counts != want:
+        fail(f"lmgrid serve {LMGRID_SERVE}: launch counts {counts} != {want}")
+    if toks.shape != (SERVE_BATCH, SERVE_NEW) or toks.min() < 0 or toks.max() >= cfg.vocab:
+        fail(f"lmgrid serve: tokens of shape {toks.shape} in [{toks.min()}, {toks.max()}]")
+    ref = np.asarray(serve[LMGRID_SERVE]["tokens"])
+    equal = int((toks == ref).sum())
+    first_diff = next((j for j in range(SERVE_NEW) if not np.array_equal(toks[:, j], ref[:, j])),
+                      None)
+    with torch.inference_mode():
+        tiles = run.place(torch.from_numpy(prompts).long().cuda(), ("batch", "seq"))
+        m0 = lm_moves()
+        logits, cache = lm.prefill(spec, eng.params, tiles, s_max, rules=eng.rules)
+        pre_moved = _moved(torch, m0, "lm.serve")
+        tok = eng._whole(logits).float().argmax(-1)
+        m0 = lm_moves()
+        lg, cache = lm.decode_step(spec, eng.params, run.place(tok, ("batch",)), cache,
+                                   rules=eng.rules)
+        dec_moved = _moved(torch, m0, "lm.serve")
+        if not bool(torch.isfinite(eng._whole(lg)[:, :cfg.vocab].float()).all()):
+            fail("lmgrid serve: decode logits not finite")
+        step_tok = run.place(eng._whole(lg).float().argmax(-1), ("batch",))
+        sp_dec = device_split(torch, lambda: lm.decode_step(spec, eng.params, step_tok, cache,
+                                                            rules=eng.rules))
+    del logits, cache, lg, tiles, step_tok
+    step_ms = st.decode_s / st.decode_steps * 1e3
+    one = serve[LMGRID_SERVE]
+    log(f"[lmgrid] serve {LMGRID_SERVE} ({cfg.n_layers} layers, bf16 compute) on a 2x2 grid of "
+        f"the card (init {init_s:.1f} s): batch {SERVE_BATCH} x prompt {SERVE_PROMPT}, "
+        f"{SERVE_NEW} greedy tokens: time to first token {st.ttft_s * 1e3:.1f} ms (1x1, phase 9: "
+        f"{one['ttft_ms']:.1f}); decode {step_ms:.2f} ms/step (1x1: "
+        f"{one['decode_ms_per_step']:.2f}); peak {peak:.2f} GB (1x1: {one['peak_gb']:.2f}); "
+        f"flash_attention {counts['flash_attention']} launches (4 tiles x {cfg.n_layers} blocks, "
+        f"all wgmma); tokens equal to phase 9's {equal} of {toks.size}"
+        + (f" (first differing step {first_diff})" if first_diff is not None else ""))
+    log(f"[lmgrid] serve moved between grid positions: prefill {_fmt_moved(pre_moved)}; one "
+        f"decode step {_fmt_moved(dec_moved)}; the whole generate {_fmt_moved(moved)}")
+    log(f"[lmgrid] serve {LMGRID_SERVE} one decode step on the 2x2 grid under torch.profiler: "
+        f"{fmt_split(sp_dec)}")
+    out = {"counts": counts, "init_s": init_s, "ttft_ms": st.ttft_s * 1e3,
+           "decode_ms_per_step": step_ms, "peak_gb": peak, "tokens_equal_1x1": equal,
+           "tokens": toks.size, "first_differing_step": first_diff,
+           "moved_prefill": pre_moved, "moved_decode_step": dec_moved, "moved_generate": moved,
+           "decode_device_split": sp_dec}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # fp32 at depth 2: the grid against 1x1 on the card
+    spec2 = lm.build_spec(cfg.replace(n_layers=LMGRID_CHECK_DEPTH, compute_dtype="float32"))
+    params = lm.init_params(spec2, seed=0, device="cuda")
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, size=(2, 100)).astype(np.int32)
+    res = {}
+    for name, g in (("1x1", None), ("2x2", grid)):
+        eng = ServeEngine(spec2, params, s_max=108, cfg=ServeConfig(max_new_tokens=8),
+                          device="cuda", grid=g)
+        toks = eng.generate(prompts)
+        tokens = torch.from_numpy(prompts).long().cuda()
+        with torch.inference_mode():
+            if g is None:
+                lg, _ = lm.prefill(spec2, eng.params, tokens, 108)
+            else:
+                lg, _ = lm.prefill(spec2, eng.params, cm.GridRun(eng.rules).place(
+                    tokens, ("batch", "seq")), 108, rules=eng.rules)
+                lg = eng._whole(lg)
+        res[name] = (toks, lg[:, :cfg.vocab].float().cpu())
+        del eng
+    if not np.array_equal(res["1x1"][0], res["2x2"][0]):
+        fail(f"lmgrid serve depth {LMGRID_CHECK_DEPTH} fp32: greedy tokens differ between the "
+             f"2x2 grid and 1x1: {res['2x2'][0].tolist()} vs {res['1x1'][0].tolist()}")
+    err, scale = check_close("lmgrid serve fp32 prefill logits", res["2x2"][1], res["1x1"][1],
+                             1e-3)
+    log(f"[lmgrid] serve {LMGRID_SERVE} depth {LMGRID_CHECK_DEPTH}, fp32, batch 2 x prompt 100, 8 "
+        f"new tokens: greedy tokens equal on the 2x2 grid and 1x1; prefill logits max |diff| "
+        f"{err:.3e} (tol 1e-3 x max|logit| {scale:.3e})")
+    out["fp32_check"] = {"tokens_equal": True, "logits_err": err, "max_logit": scale}
+    del params, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lmgrid_train(torch, grid) -> dict:
+    """granite-3-2b at full width on the 2x2 grid (AdamW, bf16 compute,
+    remat) through ``train_loop(grid=)``: loss, grad norm, ms a step, peak
+    memory (<= LMGRID_PEAK_GB), moved bytes a step, exact launches (four
+    tiles, twice a layer a step under remat); each tile's parameter and
+    optimizer bytes against the dry run's ``argument_bytes`` on a 2x2 grid;
+    one more step's device split (torch.profiler)."""
+    import gc
+
+    from repro_torch import configs, kernels
+    from repro_torch.core.collectives import lm_moves
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import as_grid
+    from repro_torch.data import DataConfig
+    from repro_torch.data.pipeline import global_batch_for
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import common as cm
+    from repro_torch.models import lm
+    from repro_torch.training import OptConfig, make_train_step
+    from repro_torch.training import train_step as ts
+    from repro_torch.tree import tree_leaves
+
+    cfg = configs.get_config(LMGRID_TRAIN)  # all 40 layers: the peak stays under LMGRID_PEAK_GB
+    spec = lm.build_spec(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    m0 = lm_moves()
+    hist: list = []
+    params, opt, losses = train_loop(cfg, steps=LMGRID_TRAIN_STEPS, batch=LMGRID_TRAIN_BATCH,
+                                     seq=LMGRID_TRAIN_SEQ, device="cuda", grid=grid,
+                                     history=hist, log_every=100)
+    counts = kernels.launch_counts()
+    moved = _moved(torch, m0, "lm.train")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    calls = 4 * 2 * cfg.n_layers * LMGRID_TRAIN_STEPS
+    want = {name: 0 for name in counts} | {"flash_attention": calls,
+                                           "flash_attention_wgmma": calls}
+    if counts != want:
+        fail(f"lmgrid train {LMGRID_TRAIN}: launch counts {counts} != {want}")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist):
+        fail(f"lmgrid train: non-finite loss or grad norm {hist}")
+    if peak > LMGRID_PEAK_GB:
+        fail(f"lmgrid train: peak {peak:.2f} GB > {LMGRID_PEAK_GB} GB at {cfg.n_layers} layers")
+    # each tile's state against the dry run's per-tile bytes on the same 2x2 grid
+    g = as_grid(grid)
+    cell = dryrun.argument_bytes(spec, configs.SHAPES_BY_NAME["train_4k"], g,
+                                 dict(cm.DEFAULT_RULES), cfg.optimizer)
+    pb = [sum(x.numel() * x.element_size() for x in tree_leaves(p)) for p in params]
+    ob = [sum(x.numel() * x.element_size() for x in tree_leaves(o)) for o in opt]
+    if set(pb) != {cell["param_bytes_per_tile"]} or set(ob) != {cell["opt_state_bytes_per_tile"]}:
+        fail(f"lmgrid train: per-tile bytes {pb} / {ob} != the dry run's "
+             f"{cell['param_bytes_per_tile']} / {cell['opt_state_bytes_per_tile']}")
+    ms = hist[-1]["seconds"] * 1e3
+    tokens = LMGRID_TRAIN_BATCH * LMGRID_TRAIN_SEQ
+    log(f"[lmgrid] train {LMGRID_TRAIN} at full width, {cfg.n_layers} layers, on a 2x2 grid of "
+        f"the card (AdamW, bf16 compute, remat; batch {LMGRID_TRAIN_BATCH} x {LMGRID_TRAIN_SEQ}): "
+        + "; ".join(f"step {i} loss {h['loss']:.4f} grad norm {h['grad_norm']:.4f} "
+                    f"{h['seconds'] * 1e3:.1f} ms" for i, h in enumerate(hist))
+        + f"; {tokens / ms * 1e3:.0f} tokens/s after the first; peak {peak:.2f} GB; "
+        f"flash_attention {counts['flash_attention']} launches (4 tiles x 2 x {cfg.n_layers} x "
+        f"{LMGRID_TRAIN_STEPS}); moved a step: {_fmt_moved(moved, LMGRID_TRAIN_STEPS)}")
+    log(f"[lmgrid] train per-tile state: parameters {pb[0]} B, AdamW {ob[0]} B on each of the "
+        f"4 tiles, equal to the dry run's argument_bytes for the cell on a 2x2 grid")
+    # one more step, on the trained state, under torch.profiler
+    gg = cm.device_grid(grid)
+    step = make_train_step(spec, OptConfig(name=cfg.optimizer, lr=1e-3, warmup_steps=5,
+                                           total_steps=LMGRID_TRAIN_STEPS + 1),
+                           device=gg.home, grid=gg)
+    b = global_batch_for(DataConfig(vocab=cfg.vocab, seq_len=LMGRID_TRAIN_SEQ,
+                                    global_batch=LMGRID_TRAIN_BATCH, seed=0),
+                         LMGRID_TRAIN_STEPS, gg,
+                         cm.logical_to_spec(("batch", "seq"), ts.train_rules(spec, gg)))
+    sp = device_split(torch, lambda: step(params, opt, b))
+    log(f"[lmgrid] train {LMGRID_TRAIN} one more step on the 2x2 grid under torch.profiler: "
+        f"{fmt_split(sp)}")
+    out = {"counts": counts, "depth": cfg.n_layers, "history": hist, "peak_gb": peak,
+           "ms_per_step": ms, "moved": moved, "param_bytes_per_tile": pb[0],
+           "opt_bytes_per_tile": ob[0], "device_split": sp}
+    del params, opt, step, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lmgrid_fp32_presets(torch, grid) -> dict:
+    """granite-3-2b at full width, depth 2, fp32, batch 4 x 256: one train
+    step on the 2x2 grid under the baseline, fsdp and seqshard rules against
+    the 1x1 step on the card (loss and grad norm within LMGRID_RTOL); the
+    seqshard step launches flash_attention with q_offset > 0."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, host_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import as_grid
+    from repro_torch.models import lm
+    from repro_torch.training import OptConfig, init_state, make_train_step
+
+    cfg = configs.get_config(LMGRID_TRAIN).replace(n_layers=LMGRID_CHECK_DEPTH,
+                                                    compute_dtype="float32")
+    spec = lm.build_spec(cfg)
+    ocfg = OptConfig(lr=1e-3, warmup_steps=5, total_steps=10)
+    batch = host_batch(DataConfig(vocab=cfg.vocab, seq_len=256, global_batch=4, seed=0), 0)
+    p1, o1 = init_state(spec, ocfg, seed=0, device="cuda")
+    _, _, m1 = make_train_step(spec, ocfg, device="cuda")(p1, o1, batch)
+    ref = {k: float(m1[k]) for k in ("loss", "grad_norm")}
+    del p1, o1
+    out = {"1x1": ref}
+    for preset in ("baseline", "fsdp", "seqshard"):
+        rules = None if preset == "baseline" else dryrun.RULE_PRESETS[preset](as_grid(grid))
+        pg, og = init_state(spec, ocfg, seed=0, grid=grid, rules=rules)
+        fa.offset_launches = 0
+        _, _, mg = make_train_step(spec, ocfg, grid=grid, rules=rules)(pg, og, batch)
+        got = {k: float(mg[k]) for k in ("loss", "grad_norm")}
+        rel = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in got}
+        out[preset] = {**got, **{f"{k}_rel": v for k, v in rel.items()},
+                       "offset_launches": fa.offset_launches}
+        if not all(v <= LMGRID_RTOL for v in rel.values()):
+            fail(f"lmgrid train {preset} fp32: {got} against 1x1 {ref}: relative {rel} > "
+                 f"{LMGRID_RTOL:g}")
+        if preset == "seqshard" and not fa.offset_launches:
+            fail("lmgrid train seqshard: no flash_attention launch with q_offset > 0")
+        del pg, og
+    log(f"[lmgrid] train {LMGRID_TRAIN} depth {LMGRID_CHECK_DEPTH}, fp32, batch 4 x 256, one step "
+        f"on the card: 1x1 loss {ref['loss']:.6f} grad norm {ref['grad_norm']:.6f}; 2x2 "
+        + "; ".join(f"{p} loss rel {out[p]['loss_rel']:.2e}, grad norm rel "
+                    f"{out[p]['grad_norm_rel']:.2e}" for p in ("baseline", "fsdp", "seqshard"))
+        + f" (tol {LMGRID_RTOL:g}); seqshard launched flash_attention with q_offset > 0 "
+        f"{out['seqshard']['offset_launches']} times")
+    return out
+
+
+def _lmgrid_pod(torch) -> dict:
+    """One compressed step on a 2x2x2 grid of the card (granite-3-2b, full
+    width, depth 2, fp32): the loss finite, the synced gradient within int8
+    error of the pods' uncompressed mean (each pod's dequantized tile within
+    half its step, scale = the leaf's amax over the pod / 127, plus 1e-4 of
+    it: the codec's edge, one ulp of a value up to 127 steps, is 3.0e-5 of
+    half a step)."""
+    from repro_torch import configs
+    from repro_torch.core.collectives import lm_moves
+    from repro_torch.data import DataConfig, host_batch
+    from repro_torch.launch.mesh import make_cpu_mesh
+    from repro_torch.models import lm
+    from repro_torch.training import OptConfig
+    from repro_torch.training import train_step as ts
+    from repro_torch.tree import tree_leaves
+
+    cfg = configs.get_config(LMGRID_TRAIN).replace(n_layers=LMGRID_CHECK_DEPTH,
+                                                    compute_dtype="float32")
+    spec = lm.build_spec(cfg)
+    ocfg = OptConfig(lr=1e-3, warmup_steps=5, total_steps=10)
+    grid = make_cpu_mesh(2, 2, pod=2, device="cuda")
+    step, ef_init, _ = ts.make_compressed_train_step(spec, grid, ocfg)
+    params, opt = ts.init_pod_state(spec, ocfg, grid, seed=0)
+    batch = host_batch(DataConfig(vocab=cfg.vocab, seq_len=256, global_batch=8, seed=0), 0)
+    _, _, raw = step.pod_grads(params, batch)
+    synced, _ = ts.compressed_pod_allreduce(raw, ef_init(params), grid)
+    worst = 0.0  # the largest error as a share of its int8 bound
+    per = grid.n_tiles // 2
+    n_leaves = len(tree_leaves(raw[0]))
+    for i in range(n_leaves):
+        scales = [max(float(tree_leaves(raw[t])[i].abs().max()) for t in range(p * per,
+                                                                                (p + 1) * per))
+                  / 127.0 for p in range(2)]
+        bound = (scales[0] + scales[1]) / 4 * (1 + 1e-4) + 1e-30
+        for t in range(per):
+            a, b, c = (tree_leaves(x)[i] for x in (synced[t], raw[t], raw[t + per]))
+            worst = max(worst, float((a - (b + c) / 2).abs().max()) / bound)
+    if not worst <= 1.0:
+        fail(f"lmgrid pod: a synced gradient is {worst:.3f} x its int8 bound from the mean")
+    m0 = lm_moves()
+    _, _, m, ef = step(params, opt, batch, ef_init(params))
+    moved = _moved(torch, m0, "lm.pod")
+    loss, gn = float(m["loss"]), float(m["grad_norm"])
+    if not (math.isfinite(loss) and math.isfinite(gn)):
+        fail(f"lmgrid pod: loss {loss}, grad norm {gn}")
+    log(f"[lmgrid] pod: {LMGRID_TRAIN} depth {LMGRID_CHECK_DEPTH} fp32 on a 2x2x2 grid of the "
+        f"card, one compressed step: loss {loss:.6f}, grad norm {gn:.6f}; synced gradients "
+        f"within {worst:.3f} x the int8 bound of the pods' uncompressed mean; the pod sync "
+        f"moved {_fmt_moved(moved)}")
+    return {"loss": loss, "grad_norm": gn, "worst_share_of_int8_bound": worst, "moved": moved}
+
+
+def _lmgrid_remesh(torch, grid) -> dict:
+    """Under deterministic algorithms: granite-3-2b at full width, depth 2,
+    fp32, 4 steps on the 2x2 grid with a checkpoint at step 2 (the step-4 one
+    removed); a 1x1 ``train_loop`` restores it and runs steps 2 and 3, whose
+    losses must equal the grid run's within LMGRID_RTOL relative."""
+    import os
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.launch.train import train_loop
+
+    cfg = configs.get_config(LMGRID_TRAIN).replace(n_layers=LMGRID_CHECK_DEPTH,
+                                                    compute_dtype="float32")
+    root = ROOT / "build" / "lmgrid_remesh"
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(batch=4, seq=256, device="cuda", log_every=100)
+    prev_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _, _, la = train_loop(cfg, steps=4, ckpt_dir=str(root), ckpt_every=2, grid=grid, **kw)
+        shutil.rmtree(root / "step_00000004")
+        _, _, lb = train_loop(cfg, steps=4, ckpt_dir=str(root), **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if prev_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev_env
+        shutil.rmtree(root, ignore_errors=True)
+    rel = [abs(b - a) / abs(a) for a, b in zip(la[2:], lb)]
+    if len(lb) != 2 or not max(rel) <= LMGRID_RTOL:
+        fail(f"lmgrid remesh: 1x1 losses {lb} after the 2x2 checkpoint against the grid's "
+             f"{la[2:]} (relative {rel} > {LMGRID_RTOL:g})")
+    log(f"[lmgrid] remesh: {LMGRID_TRAIN} depth {LMGRID_CHECK_DEPTH} fp32, deterministic "
+        f"algorithms: 2x2 grid losses {la}; its step-2 checkpoint resumed on 1x1: {lb} "
+        f"(relative {max(rel):.2e}, tol {LMGRID_RTOL:g})")
+    return {"grid_losses": la, "resumed_1x1": lb, "max_rel": max(rel)}
+
+
+def phase_lmgrid(torch, serve: dict) -> dict:
+    """Phase 17: the LM substrate on a 2x2 grid of the one card
+    (``make_context([cuda:0] * 4, 2)``) -- serving, training, the presets,
+    the int8 pod sync on a 2x2x2 grid of the card, and the remesh restore."""
+    import gc
+
+    from repro_torch.core.distmatrix import make_context
+
+    t_phase = time.perf_counter()
+    grid = make_context([torch.device("cuda", 0)] * 4, 2)
+    log(f"[lmgrid] phase 17 starts with {torch.cuda.memory_allocated() / 1e9:.2f} GB in use")
+    out = {"serve": _lmgrid_serve(torch, grid, serve)}
+    out["train"] = _lmgrid_train(torch, grid)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["fp32_presets"] = _lmgrid_fp32_presets(torch, grid)
+    out["pod"] = _lmgrid_pod(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["remesh"] = _lmgrid_remesh(torch, grid)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[lmgrid] phase 17 in {out['seconds']:.1f} s (aim: under {LMGRID_BUDGET_S:g} s)")
+    return out
+
+
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
@@ -4336,6 +4834,8 @@ def main() -> int:
     train = phase_train(torch, rows)
     torch.cuda.empty_cache()
     dry = phase_dryrun(torch, train, grid)
+    torch.cuda.empty_cache()
+    lmgrid = phase_lmgrid(torch, serve)
     for row in rows:
         by_path = {"resident": resident["counts"][row["name"]],
                    "oocore": oocore["counts"][row["name"]],
@@ -4352,6 +4852,8 @@ def main() -> int:
         by_path[f"serve {SEAMLESS}"] = seamless["counts"][row["name"]]
         by_path |= {f"train {arch}": train[arch]["counts"][row["name"]]
                     for arch, *_ in TRAIN_MODELS}
+        by_path[f"lmgrid serve {LMGRID_SERVE}"] = lmgrid["serve"]["counts"][row["name"]]
+        by_path[f"lmgrid train {LMGRID_TRAIN}"] = lmgrid["train"]["counts"][row["name"]]
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if row["name"] == "flash_attention":
@@ -4359,7 +4861,9 @@ def main() -> int:
                 sum(serve[arch]["counts"]["flash_attention_wgmma"] for arch, _ in SERVE_MODELS)
                 + sum(serve2[arch]["counts"]["flash_attention_wgmma"] for arch, *_ in SERVE2_MODELS)
                 + seamless["counts"]["flash_attention_wgmma"]
-                + sum(train[arch]["counts"]["flash_attention_wgmma"] for arch, *_ in TRAIN_MODELS))
+                + sum(train[arch]["counts"]["flash_attention_wgmma"] for arch, *_ in TRAIN_MODELS)
+                + lmgrid["serve"]["counts"]["flash_attention_wgmma"]
+                + lmgrid["train"]["counts"]["flash_attention_wgmma"])
         if row["name"] == "stream_gemm":
             row["launches_tc"] = (oocore["counts"]["stream_gemm_tc"]
                                   + incremental["oocore"]["counts"]["stream_gemm_tc"]
@@ -4378,6 +4882,8 @@ def main() -> int:
     (OUT / "chip_smoke_dryrun.json").write_text(json.dumps({"card": smi, **dry}, indent=1,
                                                            default=str))
     (OUT / "chip_smoke_paper.json").write_text(json.dumps({"card": smi, **paper}, indent=1))
+    (OUT / "chip_smoke_lmgrid.json").write_text(json.dumps({"card": smi, **lmgrid}, indent=1,
+                                                           default=str))
     (OUT / "chip_smoke_grid.json").write_text(json.dumps(
         {"card": smi, **grid, "phase 12 (out of core on the grid)": grid_oocore}, indent=1,
         default=str))

@@ -29,12 +29,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 ENTRY = """
 extern "C" int rt_flash_attention_runtime_d(const void* q, const void* k, const void* v,
                                             void* o, int bhq, int s_len, int t_len, int d,
-                                            int groups, int causal, float scale, int bf16,
-                                            void* stream) {
+                                            int groups, int causal, int q_offset, float scale,
+                                            int bf16, void* stream) {
   if (bf16)
-    return launch<__nv_bfloat16, 0>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, scale,
-                                    stream);
-  return launch<float, 0>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, scale, stream);
+    return launch<__nv_bfloat16, 0>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, q_offset,
+                                    scale, stream);
+  return launch<float, 0>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, q_offset, scale,
+                          stream);
 }
 """
 
@@ -104,7 +105,7 @@ def main() -> int:
     def runtime_d():
         _build.check(lib.rt_flash_attention_runtime_d(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out_rt.data_ptr(), args.bh, args.s,
-            args.s, args.d, 1, 1, 1.0 / args.d ** 0.5, 1, _build.stream_handle(q)),
+            args.s, args.d, 1, 1, 0, 1.0 / args.d ** 0.5, 1, _build.stream_handle(q)),
             "flash_attention run-time D")
         return out_rt
 

@@ -9,9 +9,9 @@ training step moves them to its device.
 
 Tokens follow a skewed (Zipf-ish) distribution with a deterministic
 next-token structure so small models can measurably learn; labels are the
-next-token shift.  ``global_batch_for`` (each device's shard of a sharded
-batch) needs a device mesh, which the port does not have yet (ROADMAP.md,
-item 9c).
+next-token shift.  :func:`global_batch_for` gives the batch on a device
+grid: each tile's rows generated from the counter hash for those rows
+alone, with no gather.
 """
 
 from __future__ import annotations
@@ -70,6 +70,33 @@ def host_batch(cfg: DataConfig, step: int) -> dict:
                   np.arange(cfg.frames_dim)[None, None, :])
         out["frames"] = (h.astype(np.float32) / 2**31 - 1.0).astype(np.float32)
     return out
+
+
+def global_batch_for(cfg: DataConfig, step: int, grid, spec) -> dict:
+    """The global batch laid out on a device grid by ``spec`` (a partition
+    spec over the grid's axes for (batch, seq), e.g. ``Spec("data", None)``):
+    per-tile ``tokens`` and ``labels`` (``collectives.Sharded``, int32, each
+    on its tile's device), each tile's rows and positions generated from the
+    counter hash for those rows alone -- no tile reads another's, no host
+    holds the whole batch.  The tiles put together are :func:`host_batch`'s
+    arrays, bit for bit."""
+    from repro_torch.core.collectives import Sharded, entry_axes
+    from repro_torch.models.common import sanitize_spec
+    from repro_torch.launch.mesh import as_grid
+
+    g = as_grid(grid)
+    shape = (cfg.global_batch, cfg.seq_len)
+    sp = tuple(sanitize_spec(spec, shape, g))
+    ax = [entry_axes(e) for e in sp]
+    n = [shape[d] // int(np.prod([g.shape[a] for a in ax[d]])) for d in range(2)]
+    toks, labs = [], []
+    for t, dev in enumerate(g.devices):
+        r0, c0 = g.position(t, ax[0]) * n[0], g.position(t, ax[1]) * n[1]
+        tok = _tokens_for(cfg, step, np.arange(r0, r0 + n[0]))
+        lab = np.concatenate([tok[:, 1:], tok[:, :1]], axis=1)
+        toks.append(torch.from_numpy(tok[:, c0:c0 + n[1]].copy()).to(dev))
+        labs.append(torch.from_numpy(lab[:, c0:c0 + n[1]].copy()).to(dev))
+    return {"tokens": Sharded(toks, sp, shape), "labels": Sharded(labs, sp, shape)}
 
 
 class Prefetcher:

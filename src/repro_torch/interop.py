@@ -150,3 +150,30 @@ def opt_state_from_numpy(state: dict, device="cuda") -> dict:
     same state in both.
     """
     return tree_from_numpy(state, device)
+
+
+def grid_tree_from_numpy(tree, specs, grid, *, requires_grad: bool = False) -> list:
+    """A tree of numpy arrays (the JAX package's layout: a parameter tree or
+    an optimizer state) cut onto a device grid by its sanitized ``specs``:
+    per-tile trees (``models.common.shard_tree``), each leaf on its tile's
+    device; with ``requires_grad`` the leaves require grad (the training
+    step's parameters)."""
+    from repro_torch.models.common import device_grid, shard_tree
+
+    g = device_grid(grid)
+    whole = tree_from_numpy(tree, "cpu")
+    if requires_grad:
+        whole = tree_map(lambda t: t.requires_grad_(True), whole)
+    return shard_tree(whole, specs, g)
+
+
+def lm_grid_params_from_numpy(spec: LMSpec, tree: dict, specs, grid) -> list:
+    """The serving path's per-tile parameters on a device grid from the JAX
+    package's ``lm.init_params`` tree: :func:`lm_params_from_numpy`'s layers,
+    in ``lm.param_dict``'s layout, cut by ``specs`` (the sanitized
+    ``lm.param_specs``); ``lm.grid_view(..., stacked=False)`` reads them."""
+    from repro_torch.models.common import device_grid, shard_tree
+    from repro_torch.models.lm import param_dict
+
+    params = lm_params_from_numpy(spec, tree, "cpu")
+    return shard_tree(param_dict(params), specs, device_grid(grid))

@@ -48,8 +48,8 @@ SIGNATURES = {
     "rt_fused_panel_matvec": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _L, _P),
     "rt_panel_topk_step": (_P, _P, _I, _I, _I),
     "rt_wkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
-    "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
-    "rt_flash_attention_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "rt_flash_attention_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 # entry points that return a size (long long): the scratch a launch takes
 SIZES = {

@@ -3,7 +3,9 @@
 // Replaces: src/repro/kernels/flash_attention.py `flash_attention` (Pallas
 // `_flash_kernel` :28, pallas_call at :90).  Same function: q (BHq, S, D),
 // k/v (BHkv, T, D), q scaled by 1/sqrt(D) before the product, causal mask
-// q_pos >= k_pos counted from 0, fp32 statistics, fully masked KV tiles
+// q_pos + q_offset >= k_pos (both counted from 0; q_offset > 0 for a tile
+// that holds the queries [q_offset, q_offset + S) of a sequence-sharded
+// prompt against all T keys, 0 for a whole sequence), fp32 statistics, fully masked KV tiles
 // skipped, the output normalised once by max(l, 1e-30) and stored in q's
 // type.  GQA is one integer: q head h reads KV head h / groups, which is
 // the TPU kernel applied to K/V repeated per group, i.e. what the model's
@@ -67,7 +69,7 @@ template <typename T, int DC>  // DC > 0: the head dim at compile time; 0: d_rt
 __global__ void __launch_bounds__(FA_THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              T* __restrict__ o, int s_len, int t_len, int d_rt, int groups, int causal,
-             float scale) {
+             int q_offset, float scale) {
   const int D = DC > 0 ? DC : d_rt;
   constexpr int CM = DC > 0 ? (DC + 15) / 16 : FA_CMAX;  // output columns per thread
   const int ldk = D + 1;
@@ -101,7 +103,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     for (int c = 0; c < CM; ++c) acc[a][c] = 0.0f;
   }
 
-  const int kv_end = causal ? min(t_len, q0 + FA_BQ) : t_len;
+  const int kv_end = causal ? min(t_len, q0 + q_offset + FA_BQ) : t_len;
   for (int k0 = 0; k0 < kv_end; k0 += FA_BK) {
     __syncthreads();  // the previous tile's K, V and P are consumed (and Q is staged)
     for (int e = tid; e < FA_BK * D; e += FA_THREADS) {
@@ -133,7 +135,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
-      const int qpos = q0 + 4 * ti + a;
+      const int qpos = q0 + q_offset + 4 * ti + a;
       float mx = FA_NEG_INF;
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
@@ -195,7 +197,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
 template <typename T, int DC>
 int launch(const void* q, const void* k, const void* v, void* o, int bhq, int s_len, int t_len,
-           int d, int groups, int causal, float scale, void* stream) {
+           int d, int groups, int causal, int q_offset, float scale, void* stream) {
   const size_t smem = fa_smem_bytes(d);
   const cudaError_t attr = cudaFuncSetAttribute(
       flash_kernel<T, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -203,20 +205,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int bhq, int s_
   const dim3 grid((s_len + FA_BQ - 1) / FA_BQ, bhq);
   flash_kernel<T, DC><<<grid, FA_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), s_len, t_len, d, groups, causal, scale);
+      static_cast<T*>(o), s_len, t_len, d, groups, causal, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int bhq, int s_len,
-             int t_len, int d, int groups, int causal, float scale, void* stream) {
+             int t_len, int d, int groups, int causal, int q_offset, float scale, void* stream) {
   if (d == 128)
-    return launch<T, 128>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, scale, stream);
+    return launch<T, 128>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, q_offset, scale,
+                          stream);
   if (d == 64)
-    return launch<T, 64>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, scale, stream);
+    return launch<T, 64>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, q_offset, scale,
+                         stream);
   if (d == 224)
-    return launch<T, 224>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, scale, stream);
-  return launch<T, 0>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, scale, stream);
+    return launch<T, 224>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, q_offset, scale,
+                          stream);
+  return launch<T, 0>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, q_offset, scale, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -260,13 +265,13 @@ template <int D>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                   int s_len, int t_len, int groups, int causal, float scale) {
+                   int s_len, int t_len, int groups, int causal, int q_offset, float scale) {
   extern __shared__ uint8_t smem_raw[];
   TcSmem<D>& sm = *reinterpret_cast<TcSmem<D>*>(rt_smem_align1024(smem_raw));
   const int h = blockIdx.x;
   const int hk = h / groups;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_BQ;  // heavy causal tiles of every head first
-  const int kv_end = causal ? min(t_len, q0 + TC_BQ) : t_len;
+  const int kv_end = causal ? min(t_len, q0 + q_offset + TC_BQ) : t_len;
   const int n_tiles = (kv_end + TC_BK - 1) / TC_BK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -301,7 +306,8 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
 
   const int wg = warp / 4;
   const int wq0 = q0 + TC_WG_ROWS * wg;  // the warpgroup's first q row
-  const int wkv_end = causal ? min(t_len, wq0 + TC_WG_ROWS) : t_len;
+  const int wqp = wq0 + q_offset;         // and its position among the keys
+  const int wkv_end = causal ? min(t_len, wqp + TC_WG_ROWS) : t_len;
   const int row_in = 16 * (warp % 4) + lane / 4;  // + 8 hh: this thread's two rows
   const int col_in = 2 * (lane % 4);              // + 8 j + e: its columns
   const float sl2 = scale * TC_LOG2E;
@@ -335,11 +341,11 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
       rt_wgmma_wait<0>();
       rt_fence_regs(s);
 
-      if (k0 + TC_BK > t_len || (causal && k0 + TC_BK - 1 > wq0)) {  // a straddling tile
+      if (k0 + TC_BK > t_len || (causal && k0 + TC_BK - 1 > wqp)) {  // a straddling tile
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
           const int key = k0 + 8 * (i / 4) + col_in + (i % 2);
-          const int qpos = wq0 + row_in + 8 * ((i / 2) % 2);
+          const int qpos = wqp + row_in + 8 * ((i / 2) % 2);
           if (key >= t_len || (causal && qpos < key)) s[i] = -INFINITY;
         }
       }
@@ -419,7 +425,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int bhq, int s_len,
-                 int t_len, int groups, int causal, float scale, void* stream) {
+                 int t_len, int groups, int causal, int q_offset, float scale, void* stream) {
   const cuuint64_t row = D * sizeof(__nv_bfloat16);
   const cuuint64_t q_dims[3] = {D, (cuuint64_t)s_len, (cuuint64_t)bhq};
   const cuuint64_t kv_dims[3] = {D, (cuuint64_t)t_len, (cuuint64_t)(bhq / groups)};
@@ -441,31 +447,34 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int bhq, 
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(bhq, (s_len + TC_BQ - 1) / TC_BQ);
   flash_kernel_wgmma<D><<<grid, TC_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), s_len, t_len, groups, causal, scale);
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), s_len, t_len, groups, causal, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Grid (ceil(S / 64), BHq).  The wrapper bounds d <= 256, checks that BHq =
-// BHkv x groups, and checks every shape and type.
+// BHkv x groups and q_offset >= 0, and checks every shape and type.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o, int bhq,
                                   int s_len, int t_len, int d, int groups, int causal,
-                                  float scale, int bf16, void* stream) {
+                                  int q_offset, float scale, int bf16, void* stream) {
   if (bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, scale,
-                                   stream);
-  return dispatch<float>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, scale, stream);
+    return dispatch<__nv_bfloat16>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, q_offset,
+                                   scale, stream);
+  return dispatch<float>(q, k, v, o, bhq, s_len, t_len, d, groups, causal, q_offset, scale,
+                         stream);
 }
 
 // Grid (BHq, ceil(S / 128)).  bf16 q/k/v with d in {64, 128}, each base
 // 16-byte aligned; the wrapper checks every shape and type.
 extern "C" int rt_flash_attention_wgmma(const void* q, const void* k, const void* v, void* o,
                                         int bhq, int s_len, int t_len, int d, int groups,
-                                        int causal, float scale, void* stream) {
+                                        int causal, int q_offset, float scale, void* stream) {
   if (d == 128)
-    return launch_wgmma<128>(q, k, v, o, bhq, s_len, t_len, groups, causal, scale, stream);
+    return launch_wgmma<128>(q, k, v, o, bhq, s_len, t_len, groups, causal, q_offset, scale,
+                             stream);
   if (d == 64)
-    return launch_wgmma<64>(q, k, v, o, bhq, s_len, t_len, groups, causal, scale, stream);
+    return launch_wgmma<64>(q, k, v, o, bhq, s_len, t_len, groups, causal, q_offset, scale,
+                            stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

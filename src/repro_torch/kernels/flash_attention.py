@@ -18,7 +18,10 @@ fallback:
   FFMA in fp32): zamba2's shared block attends at D = 224.  A wider head
   raises.
 
-``launches`` counts both routes; ``wgmma_launches`` the tensor-core route alone.
+``launches`` counts both routes; ``wgmma_launches`` the tensor-core route
+alone, ``offset_launches`` the launches with ``q_offset > 0`` (a sequence
+slice of a tile of the seqshard preset; not among
+``kernels.launch_counts()``: a caller resets it).
 
 The kernel has no backward, nor has the JAX package's.  A gradient goes
 through :class:`FlashAttentionFn`: the kernel forward, and a backward that
@@ -33,19 +36,23 @@ from repro_torch.kernels import _build, ref
 
 launches = 0  # kernel launches since the last reset (see kernels.reset_launch_counts)
 wgmma_launches = 0  # of which on the tensor-core route
+offset_launches = 0  # of which with q_offset > 0
 
 D_MAX = 256  # widest head the SIMT kernel takes (register accumulators per thread)
 WGMMA_DIMS = (64, 128)  # head dims of the tensor-core route (bf16 only)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, groups: int = 1) -> torch.Tensor:
+def flash_attention(q, k, v, *, causal: bool = True, groups: int = 1,
+                    q_offset: int = 0) -> torch.Tensor:
     """(BHq, S, D) x (BHkv, T, D) x (BHkv, T, D) -> (BHq, S, D) in q's dtype.
 
     BHq = BHkv x ``groups``; q is scaled by 1/sqrt(D); under ``causal`` key
-    ``j`` is visible to query ``i`` when ``i >= j``.
+    ``j`` is visible to query ``i`` when ``i + q_offset >= j``: a tile that
+    holds the queries at positions ``[q_offset, q_offset + S)`` of a
+    sequence-sharded prompt against all T keys (0 for a whole sequence).
     """
-    global launches, wgmma_launches
+    global launches, wgmma_launches, offset_launches
     _build.refuse_grad("flash_attention", q, k, v)
     if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
         raise ValueError(f"flash_attention: want q (BHq,S,D), k = v (BHkv,T,D), got "
@@ -61,8 +68,10 @@ def flash_attention(q, k, v, *, causal: bool = True, groups: int = 1) -> torch.T
                         f"{k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: operands on different devices")
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset={q_offset} < 0")
     if _build.plain(q):
-        return ref.flash_attention(q, k, v, causal=causal, groups=groups)
+        return ref.flash_attention(q, k, v, causal=causal, groups=groups, q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -82,16 +91,18 @@ def flash_attention(q, k, v, *, causal: bool = True, groups: int = 1) -> torch.T
             raise ValueError("flash_attention: the tensor-core route needs 16-byte aligned "
                              "q, k, v")
         with _build.on_device(q):
-            err = lib.rt_flash_attention_wgmma(*ptrs, bhq, s, t, d, groups, int(causal), scale,
-                                               _build.stream_handle(q))
+            err = lib.rt_flash_attention_wgmma(*ptrs, bhq, s, t, d, groups, int(causal),
+                                               q_offset, scale, _build.stream_handle(q))
         _build.check(err, "flash_attention (wgmma)")
         wgmma_launches += 1
     else:
         with _build.on_device(q):
-            err = lib.rt_flash_attention(*ptrs, bhq, s, t, d, groups, int(causal), scale,
-                                         int(q.dtype == torch.bfloat16), _build.stream_handle(q))
+            err = lib.rt_flash_attention(*ptrs, bhq, s, t, d, groups, int(causal), q_offset,
+                                         scale, int(q.dtype == torch.bfloat16),
+                                         _build.stream_handle(q))
         _build.check(err, "flash_attention")
     launches += 1
+    offset_launches += q_offset > 0
     return out
 
 
@@ -107,20 +118,21 @@ class FlashAttentionFn(torch.autograd.Function):
     route the forward rounds P to bf16 for P V, so the gradient is the fp32
     form's, of a slightly different function.
 
-    ``FlashAttentionFn.apply(q, k, v, causal, groups, recompute)``.
+    ``FlashAttentionFn.apply(q, k, v, causal, groups, recompute, q_offset=0)``;
+    the recompute takes the same ``q_offset``.
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, groups: int, recompute):
+    def forward(ctx, q, k, v, causal: bool, groups: int, recompute, q_offset: int = 0):
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.groups, ctx.recompute = causal, groups, recompute
-        return flash_attention(q, k, v, causal=causal, groups=groups)
+        ctx.causal, ctx.groups, ctx.recompute, ctx.q_offset = causal, groups, recompute, q_offset
+        return flash_attention(q, k, v, causal=causal, groups=groups, q_offset=q_offset)
 
     @staticmethod
     def backward(ctx, grad):
         q, k, v = ctx.saved_tensors
         with torch.enable_grad():
             ins = [t.detach().to(torch.float32).requires_grad_(True) for t in (q, k, v)]
-            out = ctx.recompute(*ins, causal=ctx.causal, groups=ctx.groups)
+            out = ctx.recompute(*ins, causal=ctx.causal, groups=ctx.groups, q_offset=ctx.q_offset)
             gq, gk, gv = torch.autograd.grad(out, ins, grad.to(torch.float32))
-        return gq.to(q.dtype), gk.to(k.dtype), gv.to(v.dtype), None, None, None
+        return gq.to(q.dtype), gk.to(k.dtype), gv.to(v.dtype), None, None, None, None

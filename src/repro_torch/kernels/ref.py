@@ -154,12 +154,14 @@ def panel_topk_update(run_vals, run_idx, zq, z_panel, inv_deg_q, inv_deg_panel, 
     return torch.gather(vals, 1, order), torch.gather(idx, 1, order)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, groups: int = 1) -> torch.Tensor:
+def flash_attention(q, k, v, *, causal: bool = True, groups: int = 1,
+                    q_offset: int = 0) -> torch.Tensor:
     """Materialized-softmax attention; q (BHq, S, D), k/v (BHkv, T, D), BHq = BHkv x groups.
 
     q head ``h`` attends with KV head ``h // groups`` (K/V repeated per group).
     fp32 inside, the output in q's dtype; q scaled by 1/sqrt(D); causal
-    masks ``q_pos < k_pos`` counted from 0 with -1e30.
+    masks ``q_pos + q_offset < k_pos`` (both counted from 0) with -1e30:
+    query row ``i`` sits at position ``q_offset + i`` of the keys.
     """
     s, d = q.shape[1], q.shape[2]
     t = k.shape[1]
@@ -168,7 +170,8 @@ def flash_attention(q, k, v, *, causal: bool = True, groups: int = 1) -> torch.T
     vf = v.to(torch.float32).repeat_interleave(groups, dim=0)
     logits = torch.einsum("hsd,htd->hst", q.to(torch.float32) * scale, kf)
     if causal:
-        mask = torch.arange(s, device=q.device)[:, None] >= torch.arange(t, device=q.device)[None, :]
+        q_pos = torch.arange(s, device=q.device)[:, None] + q_offset
+        mask = q_pos >= torch.arange(t, device=q.device)[None, :]
         logits = torch.where(mask[None], logits, torch.full_like(logits, -1e30))
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("hst,htd->hsd", p, vf).to(q.dtype)

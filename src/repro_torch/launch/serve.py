@@ -8,10 +8,14 @@ encoder-decoder (``input_mode == "frames"``) the encoder's frames
 JAX launcher draws them.  A model that
 does not fit the card at its full depth (deepseek-67b, llama4) is served at
 a reduced depth from code, with ``cfg.replace(n_layers=...)``.
+``--data R --model C`` serves on an R x C device grid
+(``launch.mesh.make_device_grid``: one card a tile, so ``--device cuda``
+needs R x C cards; on the CPU every tile is on the CPU) under the JAX
+engine's serve rules: the dense family.
 
   python -m repro_torch.launch.serve --arch rwkv6-3b --batch 4 --prompt-len 1024 \\
       --max-new 32                                                  # on the card
-  python -m repro_torch.launch.serve --arch qwen2-1.5b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch qwen2-1.5b --smoke --device cpu [--data 2 --model 2]
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.core.collectives import lm_moves
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_device_grid
 from repro_torch.models import lm
 from repro_torch.serving import ServeConfig, ServeEngine
 
@@ -36,12 +42,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--data", type=int, default=1, help="device grid data-axis size")
+    ap.add_argument("--model", type=int, default=1, help="device grid model-axis size")
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
     dev = resolve_device(args.device)
+    grid = make_device_grid(args.data, args.model, args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
     spec = lm.build_spec(cfg)
     params = lm.init_params(spec, seed=0, device=dev)
@@ -52,20 +61,26 @@ def main(argv=None) -> None:
         frames = rng.normal(size=(args.batch, args.prompt_len, cfg.d_model)).astype(np.float32)
     eng = ServeEngine(spec, params, s_max=args.prompt_len + args.max_new, batch=args.batch,
                       cfg=ServeConfig(max_new_tokens=args.max_new, temperature=args.temperature),
-                      device=dev)
+                      device=dev, grid=grid)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    moved0 = lm_moves()["lm.serve"]
     out = eng.generate(prompts, frames=frames)
+    moved = {k: v - moved0[k] for k, v in lm_moves()["lm.serve"].items() if k.endswith("_bytes")}
     st = eng.stats
     tput = args.batch * st.decode_steps / st.decode_s if st.decode_steps else float("nan")
     peak = (f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB" if dev.type == "cuda"
             else "not measured (CPU)")
-    print(f"[serve] {cfg.name}{' (smoke)' if args.smoke else ''} on {dev}: "
+    print(f"[serve] {cfg.name}{' (smoke)' if args.smoke else ''} on {dev}, grid "
+          f"{args.data}x{args.model}: "
           f"{lm.param_count(params):,} parameters, batch {args.batch}, prompt "
           f"{args.prompt_len}, {args.max_new} new tokens")
     print(f"[serve] time to first token {st.ttft_s * 1e3:.1f} ms; decode "
           f"{st.decode_s / max(st.decode_steps, 1) * 1e3:.2f} ms/step, {tput:.1f} tok/s; "
           f"peak device memory {peak}")
+    if not grid.is_trivial:
+        print("[serve] moved between grid positions (bytes): "
+              + ", ".join(f"{k.removesuffix('_bytes')} {v:.0f}" for k, v in moved.items()))
     print("[serve] first sequence:", out[0].tolist())
 
 

@@ -10,15 +10,30 @@ attends one token over the (B, S_max, nkv, hd) cache (or, across, over the
 encoder's K/V) in plain PyTorch on either device, as the JAX package does
 in plain XLA.  Cross-attention rotates q by RoPE and leaves the encoder's
 keys unrotated.  Tensors keep the JAX layout (B, S, H, D).
+
+On a device grid (``*_grid``, the dense family) the same per-tile code
+runs in lockstep over the tiles, laid out by the rules
+(:class:`~repro_torch.models.common.GridRun`): with ``heads`` over
+``model`` each tile projects and attends over its own q heads (and the KV
+heads they read; ``flash_attention`` launches once a tile) and the
+tensor-parallel partial outputs of ``wo`` are summed over ``model``; with
+``seq`` over ``model`` (the seqshard preset) each tile projects its slice
+of the sequence, K/V are gathered over ``model`` and each tile attends
+with its positional offset (``q_offset``).  Decode over a cache whose
+positions are split over ``model`` (flash-decode) gathers the step's q
+heads, computes each tile's partial softmax statistics over its positions
+and merges them in tile order.
 """
 
 from __future__ import annotations
 
 import math
 from functools import partial
+from types import SimpleNamespace
 
 import torch
 
+from repro_torch.core import collectives as coll
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.models import common as cm
 from repro_torch.models.common import ArchConfig, Params
@@ -114,12 +129,13 @@ def project_kv(cfg: ArchConfig, p: Params, x_enc):
     return k, v
 
 
-def _chunked_flash(cfg: ArchConfig, q, k, v, *, causal: bool) -> torch.Tensor:
+def _chunked_flash(cfg: ArchConfig, q, k, v, *, causal: bool, q_offset: int = 0) -> torch.Tensor:
     """(B,S,nh,hd) x (B,T,nkv,hd) -> (B,S,nh,hd): online softmax over KV chunks.
 
     The plain version.  GQA reshapes q to (B,S,nkv,g,hd) so the kv head axis
     contracts without repeating K/V; the chunk is ``min(attn_chunk, T)``
-    halved until it divides T, as in the JAX package.
+    halved until it divides T, as in the JAX package.  Query ``i`` sits at
+    position ``i + q_offset`` for the causal mask.
     """
     b, s, nh, hd = q.shape
     t, nkv = k.shape[1], k.shape[2]
@@ -131,7 +147,7 @@ def _chunked_flash(cfg: ArchConfig, q, k, v, *, causal: bool) -> torch.Tensor:
     f32 = torch.float32
     qf = q.to(f32).reshape(b, s, nkv, g, hd) * scale
     kf, vf = k.to(f32), v.to(f32)
-    q_pos = torch.arange(s, device=q.device)
+    q_pos = torch.arange(s, device=q.device) + q_offset
     m = torch.full((b, s, nkv, g), _NEG_INF, dtype=f32, device=q.device)
     l = torch.zeros((b, s, nkv, g), dtype=f32, device=q.device)
     acc = torch.zeros((b, s, nkv, g, hd), dtype=f32, device=q.device)
@@ -153,7 +169,7 @@ def _chunked_flash(cfg: ArchConfig, q, k, v, *, causal: bool) -> torch.Tensor:
 
 
 def _chunked_flash_heads_first(cfg: ArchConfig, batch: int, q, k, v, *, causal: bool,
-                               groups: int) -> torch.Tensor:
+                               groups: int, q_offset: int = 0) -> torch.Tensor:
     """:func:`_chunked_flash` on the kernel's layout: (B*nh, S, hd) x (B*nkv, T, hd)
     -> (B*nh, S, hd); ``FlashAttentionFn``'s backward differentiates it."""
     bhq, s, hd = q.shape
@@ -163,16 +179,16 @@ def _chunked_flash_heads_first(cfg: ArchConfig, batch: int, q, k, v, *, causal: 
         return x.reshape(batch, heads, n, hd).transpose(1, 2)
 
     out = _chunked_flash(cfg, model_layout(q, nh, s), model_layout(k, nh // groups, t),
-                         model_layout(v, nh // groups, t), causal=causal)
+                         model_layout(v, nh // groups, t), causal=causal, q_offset=q_offset)
     return out.transpose(1, 2).reshape(bhq, s, hd)
 
 
-def _flash(cfg: ArchConfig, q, k, v, *, causal: bool = True) -> torch.Tensor:
+def _flash(cfg: ArchConfig, q, k, v, *, causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """(B,S,nh,hd) x (B,T,nkv,hd) -> (B,S,nh,hd): the ``flash_attention`` kernel
     on the card (through ``FlashAttentionFn`` when a gradient is wanted), else
-    :func:`_chunked_flash`."""
+    :func:`_chunked_flash`; queries at positions ``q_offset + i``."""
     if q.device.type != "cuda":
-        return _chunked_flash(cfg, q, k, v, causal=causal)
+        return _chunked_flash(cfg, q, k, v, causal=causal, q_offset=q_offset)
     b, s, nh, hd = q.shape
     groups = nh // k.shape[2]
 
@@ -182,9 +198,10 @@ def _flash(cfg: ArchConfig, q, k, v, *, causal: bool = True) -> torch.Tensor:
     qh, kh, vh = heads_first(q), heads_first(k), heads_first(v)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         recompute = partial(_chunked_flash_heads_first, cfg.replace(compute_dtype="float32"), b)
-        out = flash_kernel.FlashAttentionFn.apply(qh, kh, vh, causal, groups, recompute)
+        out = flash_kernel.FlashAttentionFn.apply(qh, kh, vh, causal, groups, recompute, q_offset)
     else:
-        out = flash_kernel.flash_attention(qh, kh, vh, causal=causal, groups=groups)
+        out = flash_kernel.flash_attention(qh, kh, vh, causal=causal, groups=groups,
+                                           q_offset=q_offset)
     return out.reshape(b, nh, s, hd).transpose(1, 2).to(cfg.cdtype)
 
 
@@ -258,3 +275,142 @@ def cross_attend_decode(cfg: ArchConfig, p: Params, x, enc_kv, pos: int):
     w = torch.softmax(sc, dim=-1)
     out = torch.einsum("bsngt,btnh->bsngh", w, v.to(torch.float32))
     return out.reshape(b, one, nh * hd).to(dt) @ p.wo.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# on a device grid (the dense family)
+# ---------------------------------------------------------------------------
+
+
+def _kv_slice(nh: int, nkv: int, n_loc: int, h0: int) -> tuple[int, int, int]:
+    """(first KV head, KV heads, groups) that the q heads ``[h0, h0 + n_loc)``
+    read, with q head ``h`` on KV head ``h // (nh // nkv)``."""
+    g = nh // nkv
+    if n_loc % g == 0 and h0 % g == 0:
+        return h0 // g, n_loc // g, g
+    if g % n_loc == 0:
+        return h0 // g, 1, n_loc
+    raise NotImplementedError(f"{n_loc} q heads a tile do not map onto whole KV heads "
+                              f"({nh} q heads over {nkv} KV heads)")
+
+
+def _grid_params(cfg: ArchConfig, run, p, th: tuple, varying: tuple) -> list:
+    """Each tile's attention parameters for a computation tensor-parallel over
+    ``th``: ``wq``/``bq`` by their heads, ``wo`` by its rows, the rest whole
+    (every tile projects all KV heads and keeps those its q heads read)."""
+    ents = {"wq": ((), th), "wk": ((), ()), "wv": ((), ()), "wo": (th, ())}
+    if cfg.qkv_bias:
+        ents.update(bq=(th,), bk=((),), bv=((),))
+    if cfg.qk_norm:
+        ents.update(q_norm=((),), k_norm=((),))
+    laid = {k: run.param(getattr(p, k), e, varying) for k, e in ents.items()}
+    return [SimpleNamespace(**{k: v[t] for k, v in laid.items()})
+            for t in range(run.grid.n_tiles)]
+
+
+def _axes_of(x: coll.Sharded, dim: int) -> tuple:
+    return coll.entry_axes(x.spec[dim])
+
+
+def _project_grid(cfg: ArchConfig, run, p, x: coll.Sharded, base: int = 0):
+    """Every tile's q (its heads), k and v (all KV heads) over its batch rows
+    and sequence slice (positions from ``base``); returns (q, k, v, th, per-tile (first q head, KV
+    slice), per-tile sequence offset)."""
+    grid = run.grid
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    th = run.entry("heads", nh)
+    sa = _axes_of(x, 1)
+    varying = _axes_of(x, 0) + sa + th
+    n_loc = nh // math.prod(grid.shape[a] for a in th)
+    lcfg = cfg.replace(n_heads=n_loc, head_dim=hd)
+    xt = coll.pvary(x, grid, th, run.path)
+    params = _grid_params(cfg, run, p, th, varying)
+    s_loc = x[0].shape[1]
+    qs, ks, vs, heads, offs = [], [], [], [], []
+    for t in range(grid.n_tiles):
+        h0 = grid.position(t, th) * n_loc
+        off = grid.position(t, sa) * s_loc
+        positions = torch.arange(s_loc, device=x[t].device) + (base + off)
+        q, k, v = _project_qkv(lcfg, params[t], xt[t], positions)
+        qs.append(q)
+        ks.append(k)
+        vs.append(v)
+        heads.append((h0, _kv_slice(nh, nkv, n_loc, h0)))
+        offs.append(off)
+    return qs, ks, vs, th, heads, offs, params
+
+
+def _attend_grid(cfg: ArchConfig, run, p, x: coll.Sharded, *, causal: bool):
+    grid = run.grid
+    qs, ks, vs, th, heads, offs, params = _project_grid(cfg, run, p, x)
+    sa = _axes_of(x, 1)
+    kvs = (coll.all_gather([k[:, :, kv0:kv0 + n] for k, (_, (kv0, n, _g)) in zip(ks, heads)],
+                           grid, sa, 1, run.path),
+           coll.all_gather([v[:, :, kv0:kv0 + n] for v, (_, (kv0, n, _g)) in zip(vs, heads)],
+                           grid, sa, 1, run.path))
+    b, s_loc = x[0].shape[:2]
+    ys = []
+    for t in range(grid.n_tiles):
+        out = _flash(cfg, qs[t], kvs[0][t], kvs[1][t], causal=causal, q_offset=offs[t])
+        ys.append(out.reshape(b, s_loc, -1) @ params[t].wo.to(cfg.cdtype))
+    y = coll.all_reduce(ys, grid, th, run.path)
+    return coll.Sharded(y, x.spec, x.shape), ks, vs
+
+
+def attend_train_grid(cfg: ArchConfig, run, p, x: coll.Sharded, *, causal: bool = True):
+    """:func:`attend_train` (self-attention) on a grid: ``x`` (B, S, d) as
+    per-tile :class:`~repro_torch.core.collectives.Sharded`, laid out by
+    ``(batch, seq, embed)``; returns y laid out as ``x``."""
+    return _attend_grid(cfg, run, p, x, causal=causal)[0]
+
+
+def attend_prefill_grid(cfg: ArchConfig, run, p, x: coll.Sharded):
+    """:func:`attend_prefill` on a grid: (y, k, v), k and v (B, S, nkv, hd)
+    with every KV head on every tile, laid out as ``x`` by batch and sequence."""
+    y, ks, vs = _attend_grid(cfg, run, p, x, causal=True)
+    spec = (x.spec[0], x.spec[1], None, None)
+    shape = (x.shape[0], x.shape[1], cfg.n_kv_heads, cfg.hd)
+    return y, coll.Sharded(ks, spec, shape), coll.Sharded(vs, spec, shape)
+
+
+def attend_decode_grid(cfg: ArchConfig, run, p, x: coll.Sharded, cache: tuple, pos: int):
+    """:func:`attend_decode` on a grid, flash-decode style: the cache's
+    positions split over its ``kv_seq`` axes, every KV head on every tile.
+    The new token's k/v are written (in place) on the tile that holds
+    position ``pos``; the step's q heads are gathered over ``heads``' axes;
+    each tile computes the partial softmax statistics (m, l, o) over its
+    positions, merged in tile order; each tile keeps its own heads for
+    ``wo``, whose partials are summed over ``heads``' axes."""
+    grid = run.grid
+    k_cache, v_cache = cache
+    qs, ks, vs, th, heads, _, params = _project_grid(cfg, run, p, x, base=pos)
+    kva = _axes_of(k_cache, 1)
+    s_loc = k_cache[0].shape[1]
+    for t in range(grid.n_tiles):
+        lo = grid.position(t, kva) * s_loc
+        if lo <= pos < lo + s_loc:
+            k_cache[t][:, pos - lo] = ks[t][:, 0].to(k_cache[t].dtype)
+            v_cache[t][:, pos - lo] = vs[t][:, 0].to(v_cache[t].dtype)
+    q_all = coll.all_gather(qs, grid, th, 2, run.path)
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    b = x[0].shape[0]
+    parts = []
+    for t in range(grid.n_tiles):
+        lo = grid.position(t, kva) * s_loc
+        qf = q_all[t].to(torch.float32).reshape(b, 1, nkv, nh // nkv, hd) * (1.0 / math.sqrt(hd))
+        sc = torch.einsum("bsngh,btnh->bsngt", qf, k_cache[t].to(torch.float32))
+        valid = lo + torch.arange(s_loc, device=sc.device) <= pos
+        sc = torch.where(valid[None, None, None, None, :], sc, torch.full_like(sc, _NEG_INF))
+        m = sc.amax(-1)
+        pexp = torch.exp(sc - m[..., None])
+        o = torch.einsum("bsngt,btnh->bsngh", pexp, v_cache[t].to(torch.float32))
+        parts.append((m, pexp.sum(-1), o))
+    outs = coll.lse_merge(parts, grid, kva, run.path)
+    n_loc = nh // math.prod(grid.shape[a] for a in th)
+    ys = []
+    for t in range(grid.n_tiles):
+        h0 = heads[t][0]
+        out = outs[t].reshape(b, 1, nh, hd)[:, :, h0:h0 + n_loc]
+        ys.append(out.reshape(b, 1, n_loc * hd).to(cfg.cdtype) @ params[t].wo.to(cfg.cdtype))
+    y = coll.all_reduce(ys, grid, th, run.path)
+    return coll.Sharded(y, x.spec, x.shape)

@@ -6,10 +6,18 @@ input carries a tuple of *logical* axis names; :func:`logical_to_spec`
 maps them to grid axes by a rules table, as the JAX package maps them to
 mesh axes.  The port's spec type is :class:`Spec`, a tuple whose entries
 are ``None``, an axis name or a tuple of names (``PartitionSpec``'s form).
-The rules are data here: the dry run (:mod:`repro_torch.launch.dryrun`)
-turns them into per-tile shapes and bytes on a logical grid
-(:func:`repro_torch.launch.mesh.make_production_mesh`).  The model
-itself runs on one device and reads no rule; ``constrain`` is not ported.
+The dry run (:mod:`repro_torch.launch.dryrun`) turns the rules into
+per-tile shapes and bytes on a logical grid
+(:func:`repro_torch.launch.mesh.make_production_mesh`).  On a device grid
+(:class:`repro_torch.launch.mesh.DeviceGrid`, attached to the rules with
+:func:`attach_axis_sizes`) the rules lay the tensors out: :func:`shard_tree`
+cuts a tree of whole tensors into per-tile trees by their sanitized specs
+(:func:`unshard_tree` puts them back together), and :func:`constrain`
+re-lays a per-tile value (:class:`~repro_torch.core.collectives.Sharded`)
+to the spec its logical axes give, gathering and splitting as it must.
+:class:`GridRun` is what the models' grid paths read: the grid, the rules
+and the helpers that sanitize an activation's spec and lay a parameter out
+for a computation.
 
 Parameters live in ``nn.Module`` containers (one per block) whose attribute
 names are the JAX package's dictionary keys, so a JAX parameter tree maps
@@ -27,6 +35,8 @@ from typing import Any, Callable, Iterator, Sequence
 
 import torch
 from torch import nn
+
+from repro_torch.core.collectives import Sharded, entry_axes, relayout
 
 
 @dataclass(frozen=True)
@@ -204,15 +214,34 @@ def tree_specs(logical_tree, rules: dict[str, Any]):
     return map_axes(lambda axes: logical_to_spec(axes, rules), logical_tree)
 
 
+def device_grid(grid):
+    """``grid`` as a :class:`~repro_torch.launch.mesh.DeviceGrid` when it
+    holds devices (a ``DeviceGrid`` or a ``DistContext``), else None."""
+    from repro_torch.core.distmatrix import DistContext
+    from repro_torch.launch.mesh import DeviceGrid, as_grid
+
+    return as_grid(grid) if isinstance(grid, (DeviceGrid, DistContext)) else None
+
+
 def axis_sizes(grid) -> dict[str, int]:
     """Axis name -> size of a grid: a :class:`repro_torch.launch.mesh.LogicalGrid`
-    (anything with a ``shape`` mapping), or a mapping itself."""
-    return dict(grid) if isinstance(grid, dict) else {k: int(v) for k, v in grid.shape.items()}
+    or ``DeviceGrid`` (anything with a ``shape`` mapping), a ``DistContext``,
+    or a mapping itself."""
+    if isinstance(grid, dict):
+        return dict(grid)
+    grid = device_grid(grid) or grid
+    return {k: int(v) for k, v in grid.shape.items()}
 
 
 def attach_axis_sizes(rules: dict[str, Any], grid) -> dict[str, Any]:
-    """A copy of ``rules`` carrying the grid's axis sizes (``_axis_sizes``)."""
-    return {**rules, "_axis_sizes": axis_sizes(grid)}
+    """A copy of ``rules`` carrying the grid's axis sizes (``_axis_sizes``)
+    and, for a grid of devices, the grid itself (``_grid``): the models'
+    grid paths and :func:`constrain` run on it."""
+    out = {**rules, "_axis_sizes": axis_sizes(grid)}
+    dg = device_grid(grid)
+    if dg is not None:
+        out["_grid"] = dg
+    return out
 
 
 def _entry_size(entry, sizes: dict[str, int]) -> int:
@@ -266,6 +295,174 @@ def tile_shape(spec: Sequence, shape: Sequence[int], grid) -> tuple[int, ...]:
 def tile_bytes(spec: Sequence, x, grid) -> int:
     """Bytes of one tile of the tensor ``x`` (a real or meta tensor) under ``spec``."""
     return math.prod(tile_shape(spec, tuple(x.shape), grid)) * x.element_size()
+
+
+# ---------------------------------------------------------------------------
+# executing the rules on a device grid
+# ---------------------------------------------------------------------------
+
+
+def constrain(x, axes: Sequence[str | None], rules: dict[str, Any], *, varying=()):
+    """The JAX package's ``constrain``: ``x`` laid out by its logical ``axes``.
+
+    Without a grid in ``rules`` (or for a plain tensor) ``x`` comes back
+    unchanged.  With one (:func:`attach_axis_sizes`), ``x`` is a per-tile
+    :class:`~repro_torch.core.collectives.Sharded` value, re-laid to the
+    sanitized spec of ``axes`` (an entry that does not divide its dim is
+    dropped, as the JAX ``constrain`` drops it): gathered where a dim becomes
+    whole, split where it becomes sharded, both counted under ``rules``'
+    ``_path``.  ``varying`` names the axes along which the computation that
+    reads the result differs (their gathers sum the gradients back).
+    """
+    grid = rules.get("_grid")
+    if grid is None or not isinstance(x, Sharded):
+        return x
+    dst = sanitize_spec(logical_to_spec(axes, rules), x.shape, grid)
+    return relayout(x, dst, grid, rules.get("_path", "lm.serve"), varying=varying)
+
+
+def _shard_leaf(x, spec, grid) -> list:
+    from repro_torch.launch.mesh import as_grid
+
+    g = as_grid(grid)
+    out = []
+    for t, dev in enumerate(g.devices):
+        y = x.detach() if isinstance(x, torch.Tensor) else x
+        if isinstance(y, torch.Tensor):
+            for d, e in enumerate(tuple(spec)):
+                ax = entry_axes(e)
+                if ax:
+                    w = y.shape[d] // math.prod(g.shape[a] for a in ax)
+                    y = y.narrow(d, g.position(t, ax) * w, w)
+            y = y.to(dev, copy=True)
+            if x.requires_grad:
+                y.requires_grad_(True)
+        out.append(y)
+    return out
+
+
+def _pick(tree, t: int):
+    """Tile ``t``'s tree from a tree whose leaves are per-tile lists (tagged ``_TileList``)."""
+    if isinstance(tree, dict):
+        return {k: _pick(v, t) for k, v in tree.items()}
+    if isinstance(tree, _TileList):
+        return tree[t]
+    if isinstance(tree, list):
+        return [_pick(v, t) for v in tree]
+    return tree
+
+
+class _TileList(list):
+    pass
+
+
+def shard_tree(tree, specs, grid) -> list:
+    """A tree of whole tensors (dicts and lists; host ints pass through) cut
+    into one tree per tile, in tile order: each leaf's tile by its (sanitized)
+    spec in ``specs`` (a tree of the same structure), copied to its tile's
+    device; a leaf that requires grad gives tiles that do."""
+    from repro_torch.launch.mesh import as_grid
+
+    g = as_grid(grid)
+    lists = map_axes(lambda s, x: _TileList(_shard_leaf(x, s, g)), specs, tree)
+    return [_pick(lists, t) for t in range(g.n_tiles)]
+
+
+def _unshard_leaf(parts: list, spec, grid, device):
+    first = parts[0]
+    if not isinstance(first, torch.Tensor):
+        return first
+    ent = tuple(spec) + (None,) * (first.ndim - len(tuple(spec)))
+    sharded = {a for e in ent for a in entry_axes(e)}
+    shape = [n * math.prod(grid.shape[a] for a in entry_axes(e))
+             for n, e in zip(first.shape, ent)]
+    dev = first.device if device is None else torch.device(device)
+    out = torch.empty(shape, dtype=first.dtype, device=dev)
+    for t, part in enumerate(parts):
+        c = grid.coords(t)
+        if any(c[a] for a in grid.axis_names if a not in sharded):
+            continue  # a copy of a tile already placed
+        idx = tuple(slice(grid.position(t, entry_axes(e)) * n,
+                          (grid.position(t, entry_axes(e)) + 1) * n) if e else slice(None)
+                    for n, e in zip(first.shape, ent))
+        out[idx] = part.detach().to(dev)
+    return out
+
+
+def unshard_tree(tiles: list, specs, grid, device=None):
+    """The inverse of :func:`shard_tree`: per-tile trees (tile order) put back
+    into one tree of whole tensors on ``device`` (by default the first tile's
+    device); a replicated leaf is read from its first copy."""
+    from repro_torch.launch.mesh import as_grid
+
+    g = as_grid(grid)
+
+    def leaf(s, *parts):
+        return _unshard_leaf(list(parts), s, g, device)
+
+    return map_axes(leaf, specs, *tiles)
+
+
+def sharded_tree(tiles: list, specs, grid):
+    """Per-tile trees (tile order) as one tree of
+    :class:`~repro_torch.core.collectives.Sharded` leaves (each the tiles of
+    one leaf with its spec and whole shape): the form the models' grid paths
+    read.  The tiles are the trees' own tensors, not copies."""
+    from repro_torch.launch.mesh import as_grid
+
+    g = as_grid(grid)
+
+    def leaf(s, *parts):
+        if not isinstance(parts[0], torch.Tensor):
+            return parts[0]
+        ent = tuple(s) + (None,) * (parts[0].ndim - len(tuple(s)))
+        shape = [n * math.prod(g.shape[a] for a in entry_axes(e))
+                 for n, e in zip(parts[0].shape, ent)]
+        return Sharded(parts, ent, shape)
+
+    return map_axes(leaf, specs, *tiles)
+
+
+class GridRun:
+    """What a model's grid path reads: the grid, the rules (sizes attached),
+    the path its moves count under, and helpers for layouts.
+
+    ``entry(axis, n)`` is the sanitized grid entry of a logical activation
+    axis on a dim of size ``n`` (a tuple of axis names, ``()`` when whole);
+    ``place(x, axes)`` cuts a whole host or device tensor into its tiles by
+    its logical axes (an input's placement: no move is counted);
+    ``param(w, entries, varying)`` lays a stored parameter out for a
+    computation that differs along ``varying``: gathered or split to
+    ``entries``, and made to sum its gradient over every axis along which it
+    is the same on every tile but the computation differs.
+    """
+
+    def __init__(self, rules: dict[str, Any]):
+        self.rules = rules
+        self.grid = rules["_grid"]
+        self.path = rules.get("_path", "lm.serve")
+
+    def entry(self, axis: str | None, n: int) -> tuple:
+        e = entry_axes(self.rules.get(axis) if axis is not None else None)
+        size = math.prod(self.grid.shape[a] for a in e)
+        return e if e and n % size == 0 else ()
+
+    def place(self, x: torch.Tensor, axes: Sequence[str | None]):
+        spec = tuple(self.entry(a, n) or None for a, n in zip(axes, x.shape))
+        spec = spec + (None,) * (x.ndim - len(spec))
+        return Sharded(_shard_leaf(x, spec, self.grid), spec, x.shape)
+
+    def param(self, w, entries: Sequence[tuple], varying) -> list:
+        from repro_torch.core import collectives as coll
+
+        nd = len(w.shape)
+        src = {a for e in w.spec for a in entry_axes(e)}
+        ent = tuple(entries) + ((),) * (nd - len(tuple(entries)))
+        dst = {a for e in ent for a in e}
+        w = coll.pvary(w, self.grid, tuple(a for a in self.grid.axis_names
+                                           if a in (set(varying) | dst) - src), self.path)
+        return coll.relayout(w, tuple(e or None for e in ent), self.grid, self.path,
+                             varying=tuple(varying))
 
 
 # ---------------------------------------------------------------------------
@@ -403,6 +600,21 @@ def make_norm(cfg: ArchConfig, d: int):
         return y.to(x.dtype)
 
     return init, apply
+
+
+def apply_norm_grid(cfg: ArchConfig, run: GridRun, p, x, d: int | None = None):
+    """The configured norm over the last dim of a per-tile value laid out
+    with that dim whole: each tile applies it to its rows; the (replicated)
+    scale and bias sum their gradients over the axes the rows vary on."""
+    from types import SimpleNamespace
+
+    _, napply = make_norm(cfg, d or cfg.d_model)
+    varying = tuple(a for e in x.spec for a in entry_axes(e))
+    names = ("scale", "bias") if cfg.norm == "ln" else ("scale",)
+    laid = {k: run.param(getattr(p, k), ((),), varying) for k in names}
+    out = [napply(SimpleNamespace(**{k: v[t] for k, v in laid.items()}), x[t])
+           for t in range(run.grid.n_tiles)]
+    return Sharded(out, x.spec, x.shape)
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):

@@ -27,6 +27,19 @@ aux losses are dropped on the serve path, as the JAX prefill and decode
 drop them.  Training holds the parameters as the JAX package's tree, each
 group's layers stacked (:func:`params_tree`); :func:`params_view` gives the
 forward per-layer views of the stacks, so one gradient reaches each stack.
+
+On a device grid -- ``rules`` carrying one (``cm.attach_axis_sizes``) --
+``loss_fn``, ``init_cache``, ``prefill`` and ``decode_step`` run the dense
+family in lockstep over the tiles: parameters, batch, cache and outputs are
+per-tile values (:class:`~repro_torch.core.collectives.Sharded`, parameters
+as :func:`grid_view` gives them) laid out by the rules, the blocks' per-tile
+code is the single-device code, and the collectives between them are
+counted.  The embedding and the loss work over vocab shards: each tile
+looks up the ids in its range and the tiles' rows are summed in order; the
+loss is a distributed log-sum-exp (the max, then the sum over the vocab
+shards).  A 1x1 grid in ``rules`` is no grid: every family runs the
+single-device code on single-device values; on a larger grid any family
+but dense raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -40,6 +53,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import collectives as coll
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import mamba2 as mb
@@ -378,7 +392,30 @@ def _unstack(tree, count: int) -> list:
 def _namespace(tree):
     if isinstance(tree, dict):
         return SimpleNamespace(**{k: _namespace(v) for k, v in tree.items()})
+    if isinstance(tree, list) and not isinstance(tree, coll.Sharded):
+        return [_namespace(v) for v in tree]
     return tree
+
+
+def _per_layer(spec: LMSpec, tree: dict, unstack=_unstack) -> dict:
+    """A :func:`params_tree` (or a tree of its layout) in :func:`param_axes`'
+    layout: the top entries as they are, ``blocks`` (and ``enc_blocks``) one
+    dict a layer; ``unstack(stacked subtree, count)`` gives the per-layer
+    subtrees."""
+    def blocks(gspecs, gtrees):
+        out = []
+        for g, gp in zip(gspecs, gtrees, strict=True):
+            per = {bi: unstack(gp[str(bi)], g.count) for bi, bt in enumerate(g.block_types)
+                   if bt != "shared_attn"}
+            out += [per[bi][layer] for layer in range(g.count) for bi in per]
+        return out
+
+    out = {k: tree[k] for k in ("embed", "lm_head", "final_norm", "enc_final_norm",
+                                "shared_attn") if k in tree}
+    out["blocks"] = blocks(spec.groups, tree["groups"])
+    if spec.is_encdec:
+        out["enc_blocks"] = blocks(spec.enc_groups, tree["enc_groups"])
+    return out
 
 
 def params_view(spec: LMSpec, tree: dict) -> SimpleNamespace:
@@ -386,21 +423,33 @@ def params_view(spec: LMSpec, tree: dict) -> SimpleNamespace:
     views of a :func:`params_tree`: every layer's tensors are ``unbind``
     views of its group's stacks, so a gradient through the view reaches the
     stacks, one stacked gradient per leaf."""
-    def blocks(gspecs, gtrees):
-        out = []
-        for g, gp in zip(gspecs, gtrees, strict=True):
-            per = {bi: _unstack(gp[str(bi)], g.count) for bi, bt in enumerate(g.block_types)
-                   if bt != "shared_attn"}
-            out += [_namespace(per[bi][layer]) for layer in range(g.count) for bi in per]
-        return out
+    return _namespace(_per_layer(spec, tree))
 
-    view = {k: tree[k] for k in ("embed", "lm_head", "final_norm", "enc_final_norm",
-                                 "shared_attn") if k in tree}
-    ns = _namespace(view)
-    ns.blocks = blocks(spec.groups, tree["groups"])
-    if spec.is_encdec:
-        ns.enc_blocks = blocks(spec.enc_groups, tree["enc_groups"])
-    return ns
+
+def _unstack_specs(tree, count: int) -> list:
+    return [cm.map_axes(lambda s: cm.Spec(*tuple(s)[1:]), tree)] * count
+
+
+def param_dict(params: Params) -> dict:
+    """A :class:`Params` module as nested dicts in :func:`param_axes`' layout
+    (``blocks`` a list), its own tensors."""
+    out = _module_tree(params)
+    for k in ("blocks", "enc_blocks"):
+        if k in out:
+            out[k] = [out[k][str(i)] for i in range(len(out[k]))]
+    return out
+
+
+def grid_view(spec: LMSpec, tiles: list, specs, grid, *, stacked: bool = True):
+    """The grid forward's parameters: per-tile trees (tile order) and their
+    sanitized specs as one namespace tree (``params.blocks``, ...) whose
+    leaves are :class:`~repro_torch.core.collectives.Sharded`.  With
+    ``stacked`` the trees are :func:`params_tree`'s layout (the training
+    state; each layer a view of its tile's stacks), else :func:`param_dict`'s."""
+    if stacked:
+        tiles = [_per_layer(spec, t) for t in tiles]
+        specs = _per_layer(spec, specs, _unstack_specs)
+    return _namespace(cm.sharded_tree(tiles, specs, grid))
 
 
 # ---------------------------------------------------------------------------
@@ -509,14 +558,21 @@ def _chunked_xent(cfg: ArchConfig, params, h, labels):
     return total / (b * s)
 
 
-def loss_fn(spec: LMSpec, params, batch: dict):
+def loss_fn(spec: LMSpec, params, batch: dict, *, rules=None):
     """(loss, metrics) of a batch: tokens (B, S) and labels (B, S) int64 tensors
     [+ frames (B, T, d_model) for an encoder-decoder].
 
     ``params`` is a :class:`Params` module or a :func:`params_view`.  The loss
     is ``xent + 0.01 * lb_loss + 0.001 * z_loss`` (the MoE aux losses, 0
     without MoE layers); metrics hold ``xent``, ``lb_loss`` and ``z_loss``.
+
+    With a grid in ``rules``: ``params`` from :func:`grid_view`, the batch's
+    tokens and labels per-tile values laid out by ``(batch, seq)``; the loss
+    and metrics come back as per-tile lists, the same value on every tile.
     """
+    run = _grid_run(spec, rules)
+    if run is not None:
+        return _loss_grid(spec, params, batch, run)
     cfg = spec.cfg
     enc_out = encode(spec, params, batch["frames"]) if spec.is_encdec else None
     h = _embed_tokens(cfg, params, batch["tokens"])
@@ -533,10 +589,18 @@ def loss_fn(spec: LMSpec, params, batch: dict):
 # ---------------------------------------------------------------------------
 
 
-def init_cache(spec: LMSpec, batch: int, s_max: int, device="cuda", *, enc_len: int = 0) -> dict:
+def init_cache(spec: LMSpec, batch: int, s_max: int, device="cuda", *, enc_len: int = 0,
+               rules=None) -> dict:
     """Decode caches, one dict per block (each shared-block invocation its
     own), and the next position.  A decoder block of an encoder-decoder also
-    holds the cross-attention's K/V over ``enc_len`` encoder positions."""
+    holds the cross-attention's K/V over ``enc_len`` encoder positions.
+
+    With a grid in ``rules`` each K/V cache is a per-tile value laid out by
+    :func:`cache_axes` (sanitized): its tiles are allocated on their devices
+    at exactly those shapes."""
+    run = _grid_run(spec, rules)
+    if run is not None:
+        return _init_cache_grid(spec, batch, s_max, run)
     cfg = spec.cfg
     dt = cfg.cdtype
     layers = []
@@ -599,10 +663,19 @@ def _apply_block_prefill(cfg: ArchConfig, bt: str, bp: Params, h, c: dict, emb0,
     raise ValueError(bt)
 
 
-def prefill(spec: LMSpec, params: Params, tokens: torch.Tensor, s_max: int, *, frames=None):
+def prefill(spec: LMSpec, params: Params, tokens: torch.Tensor, s_max: int, *, frames=None,
+            rules=None):
     """Run the prompt (B, S) [and, for an encoder-decoder, the encoder over
     ``frames`` (B, T, d_model)]; return (last-position logits (B, V_padded),
-    cache)."""
+    cache).
+
+    With a grid in ``rules``: ``params`` from :func:`grid_view` (unstacked),
+    ``tokens`` a per-tile value laid out by ``(batch, seq)``; the logits come
+    back per tile, laid out by ``(batch,)`` with the whole vocab on every
+    tile (gathered over the vocab shards)."""
+    run = _grid_run(spec, rules)
+    if run is not None:
+        return _prefill_grid(spec, params, tokens, s_max, run)
     cfg = spec.cfg
     _, napply = cm.make_norm(cfg, cfg.d_model)
     s = tokens.shape[1]
@@ -654,8 +727,14 @@ def _apply_block_decode(cfg: ArchConfig, bt: str, bp: Params, h, c: dict, pos: i
     raise ValueError(bt)
 
 
-def decode_step(spec: LMSpec, params: Params, token: torch.Tensor, cache: dict):
-    """One decode step.  token (B,) int -> (logits (B, V_padded), cache)."""
+def decode_step(spec: LMSpec, params: Params, token: torch.Tensor, cache: dict, *,
+                rules=None):
+    """One decode step.  token (B,) int -> (logits (B, V_padded), cache).
+    With a grid in ``rules`` the token, the cache and the logits are per-tile
+    values, as :func:`prefill` gives them."""
+    run = _grid_run(spec, rules)
+    if run is not None:
+        return _decode_grid(spec, params, token, cache, run)
     cfg = spec.cfg
     _, napply = cm.make_norm(cfg, cfg.d_model)
     pos = cache["pos"]
@@ -679,3 +758,229 @@ def _kv_len(cache: dict) -> int | None:
         if "k" in c:
             return c["k"].shape[1]
     return None
+
+
+# ---------------------------------------------------------------------------
+# on a device grid (the dense family; every family on a 1x1 grid)
+# ---------------------------------------------------------------------------
+
+# The ROADMAP.md Queue 1 item that brings each family onto a grid.
+GRID_ITEMS = {"moe": "item 9d (MoE on a grid)",
+              "hybrid": "item 9e (Mamba2 / zamba2 and RWKV6 on a grid)",
+              "ssm": "item 9e (Mamba2 / zamba2 and RWKV6 on a grid)",
+              "vlm": "item 9f (chameleon on a grid)",
+              "encdec": "item 9g (the encoder-decoder on a grid)"}
+
+
+def require_grid_family(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` unless ``cfg``'s family runs on a grid
+    larger than 1x1 (the dense family does)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) does not run on a device grid yet: ROADMAP.md Queue 1 "
+            f"{GRID_ITEMS.get(cfg.family, 'item 9')}; only the dense family does (a 1x1 grid "
+            f"runs every family)")
+
+
+def _grid_run(spec: LMSpec, rules) -> cm.GridRun | None:
+    """The grid in ``rules``, or None: no grid, or a 1x1 one (the
+    single-device code, on single-device values, for every family)."""
+    if not rules or rules.get("_grid") is None or rules["_grid"].is_trivial:
+        return None
+    require_grid_family(spec.cfg)
+    return cm.GridRun(rules)
+
+
+def _add(a: coll.Sharded, b) -> coll.Sharded:
+    return coll.Sharded([x + y for x, y in zip(a, b)], a.spec, a.shape)
+
+
+def _embed_grid(cfg: ArchConfig, params, tokens: coll.Sharded, run) -> coll.Sharded:
+    """The embedding of per-tile ids over a vocab-sharded table: each tile
+    looks up the ids in its vocab range (zero elsewhere), the tiles' rows
+    summed over the vocab axes in order; laid out as ``tokens`` by batch and
+    sequence, d_model whole."""
+    grid, table = run.grid, params.embed
+    ev = coll.entry_axes(table.spec[0])
+    varying = tuple(a for e in tokens.spec for a in coll.entry_axes(e)) + ev
+    tab = run.param(table, (ev, ()), varying)
+    v_loc = tab[0].shape[0]
+    rows = []
+    for t in range(grid.n_tiles):
+        local = tokens[t] - grid.position(t, ev) * v_loc
+        inr = (local >= 0) & (local < v_loc)
+        e = tab[t][local.clamp(0, v_loc - 1)] * inr[..., None].to(tab[t].dtype)
+        rows.append(e.to(cfg.cdtype))
+    h = coll.all_reduce(rows, grid, ev, run.path)
+    return coll.Sharded(h, (*tokens.spec, None), (*tokens.shape, cfg.d_model))
+
+
+def _head_grid(cfg: ArchConfig, params, run, ev: tuple, varying: tuple) -> list:
+    """Each tile's (d_model, vocab slice) unembedding, laid out for the
+    vocab axes ``ev``."""
+    if cfg.tie_embeddings:
+        tab = run.param(params.embed, (ev, ()), varying)
+        return [w.T for w in tab]
+    return run.param(params.lm_head, ((), ev), varying)
+
+
+def _logits_grid(cfg: ArchConfig, run, x: list, head: list, ev: tuple) -> list:
+    """Per-tile logits over each tile's vocab slice; padding columns -1e30."""
+    out = []
+    for t, (xx, w) in enumerate(zip(x, head)):
+        logits = xx @ w.to(cfg.cdtype)
+        if cfg.vocab_padded != cfg.vocab:
+            col = run.grid.position(t, ev) * w.shape[1] + torch.arange(w.shape[1],
+                                                                     device=logits.device)
+            logits = torch.where(col >= cfg.vocab, torch.full_like(logits, -1e30), logits)
+        out.append(logits)
+    return out
+
+
+def _xent_grid(cfg: ArchConfig, params, h: coll.Sharded, labels: coll.Sharded, run) -> list:
+    """:func:`_chunked_xent` over vocab shards: per sequence chunk each tile's
+    logits over its vocab slice, the log-sum-exp from the max over the
+    shards (no gradient) and the sum of exp over them, the gold logit from
+    the shard that holds the label; the tiles' sums then added over the
+    batch and sequence axes, divided by B * S.  The same value on every tile."""
+    grid = run.grid
+    ev = run.entry("vocab", cfg.vocab_padded)
+    bs = coll.entry_axes(h.spec[0]) + coll.entry_axes(h.spec[1])
+    head = _head_grid(cfg, params, run, ev, bs + ev)
+    x = coll.pvary(h, grid, ev, run.path)
+    s_loc = h[0].shape[1]
+    ck = min(cfg.vocab_chunk, s_loc)
+    while s_loc % ck:
+        ck //= 2
+    v_loc = head[0].shape[1]
+    offs = [grid.position(t, ev) * v_loc for t in range(grid.n_tiles)]
+    n = grid.n_tiles
+
+    def chunk(*xs_ls):
+        xs, ls = xs_ls[:n], xs_ls[n:]
+        logits = [lg.to(torch.float32) for lg in _logits_grid(cfg, run, list(xs), head, ev)]
+        big = coll.all_max([lg.detach().amax(-1) for lg in logits], grid, ev, run.path)
+        sums = coll.all_reduce([torch.exp(lg - m[..., None]).sum(-1)
+                                for lg, m in zip(logits, big)], grid, ev, run.path)
+        gold = []
+        for t, (lg, ll) in enumerate(zip(logits, ls)):
+            local = ll - offs[t]
+            inr = (local >= 0) & (local < v_loc)
+            g = lg.gather(-1, local.clamp(0, v_loc - 1)[..., None])[..., 0]
+            gold.append(torch.where(inr, g, torch.zeros_like(g)))
+        gold = coll.all_reduce(gold, grid, ev, run.path)
+        return tuple(torch.sum(m + torch.log(sm) - g) for m, sm, g in zip(big, sums, gold))
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    totals = [torch.zeros((), dtype=torch.float32, device=d) for d in grid.devices]
+    for c0 in range(0, s_loc, ck):
+        args = [xx[:, c0:c0 + ck] for xx in x] + [ll[:, c0:c0 + ck] for ll in labels]
+        part = checkpoint(chunk, *args, use_reentrant=False) if remat else chunk(*args)
+        totals = [a + b for a, b in zip(totals, part)]
+    totals = coll.all_reduce(totals, grid, bs, run.path)
+    b, s = h.shape[:2]
+    return [tot / (b * s) for tot in totals]
+
+
+def _block_grid(cfg: ArchConfig, bt: str, bp, h: coll.Sharded, run) -> coll.Sharded:
+    """One dense block over a per-tile sequence (training)."""
+    x = cm.apply_norm_grid(cfg, run, bp.ln1, h)
+    h = _add(h, attn.attend_train_grid(cfg, run, bp.attn, x))
+    x = cm.apply_norm_grid(cfg, run, bp.ln2, h)
+    return _add(h, mlp_mod.apply_mlp_grid(cfg, run, bp.mlp, x))
+
+
+def _loss_grid(spec: LMSpec, params, batch: dict, run):
+    cfg = spec.cfg
+    h = _embed_grid(cfg, params, batch["tokens"], run)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for bt, bp in _walk(spec, params):
+        def fn(*tiles, bt=bt, bp=bp, spec_=h.spec, shape=h.shape):
+            return tuple(_block_grid(cfg, bt, bp, coll.Sharded(tiles, spec_, shape), run))
+
+        out = checkpoint(fn, *h, use_reentrant=False) if remat else fn(*h)
+        h = coll.Sharded(out, h.spec, h.shape)
+    x = cm.apply_norm_grid(cfg, run, params.final_norm, h)
+    xent = _xent_grid(cfg, params, x, batch["labels"], run)
+    zeros = [torch.zeros((), dtype=torch.float32, device=d) for d in run.grid.devices]
+    loss = [xe + 0.01 * z + 0.001 * z for xe, z in zip(xent, zeros)]
+    return loss, {"xent": xent, "lb_loss": zeros, "z_loss": list(zeros)}
+
+
+def _init_cache_grid(spec: LMSpec, batch: int, s_max: int, run) -> dict:
+    cfg = spec.cfg
+    grid = run.grid
+    shape = (batch, s_max, cfg.n_kv_heads, cfg.hd)
+    kv = cm.sanitize_spec(cm.logical_to_spec(("batch", "kv_seq", "kv_heads", "head_dim"),
+                                             run.rules), shape, grid)
+    tile = cm.tile_shape(kv, shape, grid)
+
+    def zeros():
+        return coll.Sharded([torch.zeros(tile, dtype=cfg.cdtype, device=d) for d in grid.devices],
+                            kv, shape)
+
+    return {"layers": [{"k": zeros(), "v": zeros()} for _ in spec.layers()], "pos": 0}
+
+
+def _write_prefill_grid(c: dict, k: coll.Sharded, v: coll.Sharded, run) -> None:
+    """Each tile's slice of the cache's positions from the prompt's K/V
+    (gathered whole over the sequence first, where it was split)."""
+    grid = run.grid
+    for name, x in (("k", k), ("v", v)):
+        whole = coll.relayout(x, (x.spec[0], None, None, None), grid, run.path)
+        buf = c[name]
+        kva = coll.entry_axes(buf.spec[1])
+        s_loc, s = buf[0].shape[1], x.shape[1]
+        for t in range(grid.n_tiles):
+            lo = grid.position(t, kva) * s_loc
+            hi = min(lo + s_loc, s)
+            if hi > lo:
+                buf[t][:, : hi - lo] = whole[t][:, lo:hi].to(buf[t].dtype)
+
+
+def _last_logits_grid(cfg: ArchConfig, params, h: coll.Sharded, run) -> coll.Sharded:
+    """The final norm and the unembedding of the last position, the logits
+    gathered over the vocab shards: (B, V_padded) laid out by batch."""
+    grid = run.grid
+    h = coll.relayout(h, (h.spec[0], None, None), grid, run.path)
+    last = coll.Sharded([x[:, -1:, :] for x in h], h.spec, (h.shape[0], 1, h.shape[2]))
+    x = cm.apply_norm_grid(cfg, run, params.final_norm, last)
+    ev = run.entry("vocab", cfg.vocab_padded)
+    head = _head_grid(cfg, params, run, ev, coll.entry_axes(x.spec[0]) + ev)
+    logits = coll.all_gather(_logits_grid(cfg, run, list(x), head, ev), grid, ev, -1, run.path)
+    return coll.Sharded([lg[:, 0] for lg in logits], (x.spec[0], None),
+                        (x.shape[0], cfg.vocab_padded))
+
+
+def _prefill_grid(spec: LMSpec, params, tokens: coll.Sharded, s_max: int, run):
+    cfg = spec.cfg
+    s = tokens.shape[1]
+    if s > s_max:
+        raise ValueError(f"prompt of {s} tokens does not fit s_max={s_max}")
+    cache = _init_cache_grid(spec, tokens.shape[0], s_max, run)
+    h = _embed_grid(cfg, params, tokens, run)
+    for (bt, bp), c in zip(_walk(spec, params), cache["layers"], strict=True):
+        x = cm.apply_norm_grid(cfg, run, bp.ln1, h)
+        y, k, v = attn.attend_prefill_grid(cfg, run, bp.attn, x)
+        h = _add(h, y)
+        x = cm.apply_norm_grid(cfg, run, bp.ln2, h)
+        h = _add(h, mlp_mod.apply_mlp_grid(cfg, run, bp.mlp, x))
+        _write_prefill_grid(c, k, v, run)
+    cache["pos"] = s
+    return _last_logits_grid(cfg, params, h, run), cache
+
+
+def _decode_grid(spec: LMSpec, params, token: coll.Sharded, cache: dict, run):
+    cfg = spec.cfg
+    pos = cache["pos"]
+    s_max = cache["layers"][0]["k"].shape[1]
+    if pos >= s_max:
+        raise ValueError(f"decode position {pos} is past the KV cache (s_max={s_max})")
+    tok = coll.Sharded([t[:, None] for t in token], (token.spec[0], None), (token.shape[0], 1))
+    h = _embed_grid(cfg, params, tok, run)
+    for (bt, bp), c in zip(_walk(spec, params), cache["layers"], strict=True):
+        x = cm.apply_norm_grid(cfg, run, bp.ln1, h)
+        h = _add(h, attn.attend_decode_grid(cfg, run, bp.attn, x, (c["k"], c["v"]), pos))
+        x = cm.apply_norm_grid(cfg, run, bp.ln2, h)
+        h = _add(h, mlp_mod.apply_mlp_grid(cfg, run, bp.mlp, x))
+    return _last_logits_grid(cfg, params, h, run), {**cache, "pos": pos + 1}

@@ -7,6 +7,17 @@ encoder-decoder, frame embeddings (B, T, d_model)] in, the generated tokens
 Temperature sampling is the Gumbel-max draw ``jax.random.categorical``
 makes, from a ``torch.Generator`` seeded with ``ServeConfig.seed``: the same
 distribution, not the same bits.
+
+On a device grid (``grid=``, the dense family) the engine holds the weights
+as per-tile trees laid out by the JAX engine's serve rules: the rules with
+``moe_gathered`` and ``embed_p`` / ``embed_d`` whole, so decode moves tokens
+and never weights (heads, d_ff and the vocab over ``model``, the cache's
+positions over ``model``).  Prompts and sampled tokens are laid out by
+``("batch",)``, as the JAX engine's ``_token_sharding``; each step's logits
+are gathered whole on the home device and sampled there with the one
+generator in the single-device order, so a grid samples the tokens a
+single device samples from the same logits.  Moves count under
+``lm.serve``.
 """
 
 from __future__ import annotations
@@ -17,6 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.core import collectives as coll
 from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
 from repro_torch.models import lm
@@ -38,22 +50,54 @@ class ServeStats:
     decode_steps: int = 0
 
 
+def serve_rules(spec: lm.LMSpec, grid, rules=None) -> dict:
+    """The JAX engine's serve rules on ``grid``: ``rules`` (by default
+    ``multipod_rules`` on a pod grid, else ``DEFAULT_RULES``) with the arch's
+    overrides, ``moe_gathered`` and every weight's d_model dim whole, the
+    grid attached and moves counted under ``lm.serve``."""
+    g = cm.device_grid(grid)
+    rules = rules or (cm.multipod_rules() if "pod" in g.axis_names else dict(cm.DEFAULT_RULES))
+    rules = {**cm.arch_rules(spec.cfg, rules), "moe_gathered": True, "embed_p": None,
+             "embed_d": None}
+    return {**cm.attach_axis_sizes(rules, g), "_path": "lm.serve"}
+
+
 class ServeEngine:
-    """Batched request engine (greedy / temperature sampling) on one device.
+    """Batched request engine (greedy / temperature sampling) on one device
+    or on a device grid.
 
     ``params`` are the model's weights (``lm.init_params`` or
     ``interop.lm_params_from_numpy``), on any device: the engine keeps a copy
     on its own device with the matrices cast to the compute dtype once (the
     model casts them at every call otherwise; the values are the same).  ``s_max`` bounds prompt plus new
     tokens; ``batch`` is accepted for parity with the JAX engine (any batch
-    size runs).
+    size runs).  With a ``grid`` larger than 1x1 (a ``DeviceGrid`` or a
+    ``DistContext``) the copy is per-tile trees laid out by
+    :func:`serve_rules` (``rules`` replaces their base); ``device`` is then
+    the grid's home device.  A 1x1 grid is the single-device engine on its
+    device.
     """
 
     def __init__(self, spec: lm.LMSpec, params, s_max: int, batch: int = 0,
-                 cfg: ServeConfig = ServeConfig(), device="cuda"):
+                 cfg: ServeConfig = ServeConfig(), device="cuda", *, grid=None, rules=None):
         self.spec, self.cfg, self.s_max, self.batch = spec, cfg, s_max, batch
+        self.grid = self.rules = None
+        g = cm.device_grid(grid) if grid is not None else None
+        if g is not None:
+            device = g.home
+            if not g.is_trivial:
+                lm.require_grid_family(spec.cfg)
+                self.grid, self.rules = g, serve_rules(spec, g, rules)
         self.device = resolve_device(device)
-        self.params = cm.cast_for_compute(params, spec.cfg.cdtype, self.device)
+        cast = cm.cast_for_compute(params, spec.cfg.cdtype, self.device)
+        if self.grid is None:
+            self.params = cast
+        else:
+            tree = lm.param_dict(cast)
+            self.specs = cm.sanitize_specs(lm.param_specs(spec, self.rules), tree, self.grid)
+            self.tiles = cm.shard_tree(tree, self.specs, self.grid)
+            del cast, tree
+            self.params = lm.grid_view(spec, self.tiles, self.specs, self.grid, stacked=False)
         self.stats = ServeStats()
 
     def _sync(self) -> None:
@@ -72,21 +116,43 @@ class ServeEngine:
         gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64, device=self.device)
         fr = None if frames is None else torch.as_tensor(np.asarray(frames), device=self.device)
+        if self.grid is not None and fr is not None:
+            raise ValueError("frames: the encoder-decoder family does not run on a grid")
         t0 = time.perf_counter()
-        logits, cache = lm.prefill(self.spec, self.params, tokens, self.s_max, frames=fr)
-        tok = self._sample(logits, gen)
+        logits, cache = lm.prefill(self.spec, self.params, self._place(tokens, ("batch", "seq")),
+                                   self.s_max, frames=fr, rules=self.rules)
+        tok = self._sample(self._whole(logits), gen)
         out = [tok]
         self._sync()
         t1 = time.perf_counter()
         # the JAX engine runs one more decode step whose logits it never samples
         for _ in range(n_new - 1):
-            logits, cache = lm.decode_step(self.spec, self.params, tok, cache)
-            tok = self._sample(logits, gen)
+            logits, cache = lm.decode_step(self.spec, self.params, self._place(tok, ("batch",)),
+                                           cache, rules=self.rules)
+            tok = self._sample(self._whole(logits), gen)
             out.append(tok)
         result = torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
         t2 = time.perf_counter()
         self.stats = ServeStats(ttft_s=t1 - t0, decode_s=t2 - t1, decode_steps=n_new - 1)
         return result
+
+    def _place(self, tokens: torch.Tensor, axes: tuple):
+        """Tokens as the model takes them: whole without a grid, else cut
+        into their tiles by ``axes`` (an input's placement: not counted)."""
+        return tokens if self.grid is None else cm.GridRun(self.rules).place(tokens, axes)
+
+    def _whole(self, logits) -> torch.Tensor:
+        """The logits whole: as they are without a grid, else the per-tile
+        (batch rows, whole vocab) logits gathered on the home device (the
+        other rows' tiles move there: counted)."""
+        g = self.grid
+        if g is None:
+            return logits
+        ax = coll.entry_axes(logits.spec[0])
+        rows = [logits[t] for t in range(g.n_tiles)
+                if all(g.coords(t)[a] == 0 for a in g.axis_names if a not in ax)]
+        coll._count("lm.serve", "gather", sum(coll._nbytes(r) for r in rows[1:]))
+        return torch.cat([r.to(self.device) for r in rows], dim=0)
 
     def _sample(self, logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
         logits = logits.to(torch.float32)

@@ -21,8 +21,13 @@ caller's thread (the optimizer updates the tensors in place right after)
 and writes the files on a daemon thread.
 
 Restore loads the leaves on the host and places them on ``device``: a
-checkpoint written on the CPU resumes on the card and the other way round,
-the port's counterpart of the JAX package's elastic re-mesh.
+checkpoint written on the CPU resumes on the card and the other way round.
+A state on a device grid (per-tile trees, ``models.common.shard_tree``) is
+saved whole (``save(..., specs=, grid=)`` puts the tiles back together), so
+a grid checkpoint, a one-device one and the JAX package's are one format;
+``restore(..., grid=, specs=)`` cuts each leaf onto a grid by its sanitized
+spec, which may be another grid than the one that wrote it: the JAX
+package's elastic re-mesh.
 """
 
 from __future__ import annotations
@@ -50,9 +55,22 @@ def _host(leaf) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def save(ckpt_dir: str, step: int, tree, *, extra: dict | None = None) -> str:
+def _whole(tree, specs, grid):
+    """``tree`` itself, or with ``grid`` its per-tile trees put back together
+    on the host."""
+    if grid is None:
+        return tree
+    from repro_torch.models.common import unshard_tree
+
+    return unshard_tree(tree, specs, grid, device="cpu")
+
+
+def save(ckpt_dir: str, step: int, tree, *, extra: dict | None = None, specs=None,
+         grid=None) -> str:
     """Synchronous atomic save of ``tree`` (tensors or numpy arrays); returns
-    the committed directory."""
+    the committed directory.  With ``grid``, ``tree`` is per-tile trees laid
+    out by ``specs``, written whole."""
+    tree = _whole(tree, specs, grid)
     return _write(ckpt_dir, step, [_host(x) for x in tree_leaves(tree)], extra)
 
 
@@ -82,10 +100,11 @@ class AsyncCheckpointer:
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
 
-    def save(self, ckpt_dir: str, step: int, tree, *, extra: dict | None = None) -> None:
+    def save(self, ckpt_dir: str, step: int, tree, *, extra: dict | None = None, specs=None,
+             grid=None) -> None:
         self.wait()
         # the host copy on the caller's thread: the tensors change right after
-        leaves = [_host(x) for x in tree_leaves(tree)]
+        leaves = [_host(x) for x in tree_leaves(_whole(tree, specs, grid))]
 
         def work():
             try:
@@ -125,13 +144,16 @@ def _load(path: str, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(ckpt_dir: str, step: int, template, *, device=None):
+def restore(ckpt_dir: str, step: int, template, *, device=None, grid=None, specs=None):
     """Load a checkpoint into the structure of ``template``.
 
-    ``template`` (e.g. a freshly initialized state) fixes the tree's
-    structure and each leaf's dtype; leaves are placed on ``device`` (by
-    default the template leaf's own device) as new tensors, floating ones
-    requiring grad where the template's do.  Returns (tree, extra, step).
+    ``template`` (e.g. a freshly initialized state, or one on ``meta``) fixes
+    the tree's structure and each leaf's whole shape and dtype; leaves are
+    placed on ``device`` (by default the template leaf's own device) as new
+    tensors, floating ones requiring grad where the template's do.  With
+    ``grid`` and ``specs`` (the state's sanitized specs on that grid) the
+    leaves are cut onto the grid instead: the tree comes back as per-tile
+    trees.  Returns (tree, extra, step).
     """
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
@@ -146,6 +168,12 @@ def restore(ckpt_dir: str, step: int, template, *, device=None):
             raise ValueError(f"{entry['path']}: shape {entry['shape']} in the checkpoint, "
                              f"{list(tl.shape)} in the template")
         t = _load(os.path.join(d, entry["path"]), entry["dtype"])
-        t = t.to(device=device if device is not None else tl.device, dtype=tl.dtype)
+        dev = "cpu" if grid is not None else device if device is not None else tl.device
+        t = t.to(device=dev, dtype=tl.dtype)
         leaves.append(t.requires_grad_(True) if tl.requires_grad else t)
-    return tree_unflatten(template, leaves), manifest["extra"], manifest["step"]
+    tree = tree_unflatten(template, leaves)
+    if grid is not None:
+        from repro_torch.models.common import shard_tree
+
+        tree = shard_tree(tree, specs, grid)
+    return tree, manifest["extra"], manifest["step"]

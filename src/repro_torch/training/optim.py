@@ -12,6 +12,16 @@ The JAX updates are pure functions.  Here ``*_update`` writes the new
 parameters and moments into the given tensors, in place, and returns them:
 at granite-3-2b's size (2.53 B parameters) a second copy of parameters and
 moments would be 30 GB more of the card's 80.
+
+On a device grid (:func:`grid_global_norm`, :func:`grid_clip`,
+:func:`grid_update`) parameters, gradients and states are per-tile trees
+laid out by their sanitized specs.  AdamW is elementwise, so each tile runs
+:func:`adamw_update` on its own tiles.  The global norm sums every tile's
+squares of the leaves it owns -- a leaf replicated over an axis counts at
+coordinate 0 of that axis only -- then the tiles' sums in tile order.
+Adafactor's row and column statistics, its denominator and its update RMS
+are means over whole dims: a dim split over grid axes sums its tiles'
+partial sums over those axes before dividing.
 """
 
 from __future__ import annotations
@@ -23,6 +33,8 @@ from functools import partial
 import torch
 
 from repro_torch.tree import tree_get, tree_leaves, tree_map, tree_paths
+
+GRID_PATH = "lm.train"
 
 
 @dataclass(frozen=True)
@@ -177,6 +189,131 @@ def adafactor_state_specs(param_specs, params_shape) -> dict:
         return {"v": Spec(*ps_t)}
 
     return {"v": map_axes(spec_for, param_specs, params_shape), "count": Spec()}
+
+
+# ---------------------------------------------------------------------------
+# on a device grid
+# ---------------------------------------------------------------------------
+
+
+def _spec_axes(spec) -> set:
+    from repro_torch.core.collectives import entry_axes
+
+    return {a for e in tuple(spec) for a in entry_axes(e)}
+
+
+def grid_global_norm(grads: list, specs, grid, path: str = GRID_PATH) -> list:
+    """The global norm of per-tile gradient trees (tile order) on every tile:
+    each tile sums the squares of the leaves it owns (coordinate 0 on every
+    axis the leaf is replicated over), the tiles' sums added in tile order."""
+    from repro_torch.core import collectives as coll
+
+    spec_leaves = [s for _, s in sorted_spec_paths(specs)]
+    parts = []
+    for t, tree in enumerate(grads):
+        c = grid.coords(t)
+        sq = torch.zeros((), dtype=torch.float32, device=grid.devices[t])
+        for g, s in zip(tree_leaves(tree), spec_leaves, strict=True):
+            if all(c[a] == 0 for a in grid.axis_names if a not in _spec_axes(s)):
+                sq = sq + torch.sum(torch.square(g.to(torch.float32)))
+        parts.append(sq)
+    return [torch.sqrt(x) for x in coll.all_reduce(parts, grid, grid.axis_names, path)]
+
+
+def sorted_spec_paths(specs) -> list:
+    """(path, spec) of a spec tree's leaves in :func:`repro_torch.tree.tree_leaves`'
+    order (dict keys sorted, lists by index)."""
+    from repro_torch.models.common import _is_axes
+
+    out = []
+
+    def walk(tree, prefix):
+        if _is_axes(tree):
+            out.append((prefix, tree))
+        elif isinstance(tree, dict):
+            for k in sorted(tree):
+                walk(tree[k], prefix + (k,))
+        else:
+            for i, x in enumerate(tree):
+                walk(x, prefix + (i,))
+
+    walk(specs, ())
+    return out
+
+
+def grid_clip(grads: list, specs, grid, max_norm: float, path: str = GRID_PATH):
+    """:func:`clip_by_global_norm` on per-tile gradient trees, in place;
+    returns (grads, the norm on every tile)."""
+    norms = grid_global_norm(grads, specs, grid, path)
+    for tree, norm in zip(grads, norms):
+        scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+        for g in tree_leaves(tree):
+            if g.dtype == torch.float32:
+                g.mul_(scale)
+            else:
+                g.copy_(g.to(torch.float32) * scale)
+    return grads, norms
+
+
+@torch.no_grad()
+def grid_update(cfg: OptConfig, grads: list, states: list, params: list, specs, grid,
+                path: str = GRID_PATH):
+    """One optimizer step on per-tile trees (tile order), in place; ``specs``
+    are the parameters' sanitized specs.  Returns (params, states)."""
+    if cfg.name == "adamw":
+        for g, s, p in zip(grads, states, params, strict=True):
+            adamw_update(cfg, g, s, p)
+        return params, states
+    if cfg.name != "adafactor":
+        raise ValueError(f"unknown optimizer {cfg.name!r}")
+    from repro_torch.core.collectives import all_reduce, entry_axes
+
+    def psum(parts: list, axes) -> list:  # per-tile partials summed over a dim's grid axes
+        return all_reduce(parts, grid, tuple(axes), path)
+
+    n = grid.n_tiles
+    c = _count(states[0])
+    lr = [lr_schedule(cfg, _count(s)).to(grid.devices[t]) for t, s in enumerate(states)]
+    decay = 1.0 - (c.to(torch.float32) + 1.0) ** -0.8
+    spec_list = [s for _, s in sorted_spec_paths(specs)]
+    paths = [path_ for path_, _ in tree_paths(params[0])]
+    gl = [tree_leaves(g) for g in grads]
+    for i, (lp, spec) in enumerate(zip(paths, spec_list, strict=True)):
+        p0 = tree_get(params[0], lp)
+        ent = tuple(spec) + (None,) * (p0.ndim - len(tuple(spec)))
+        ax = [entry_axes(e) for e in ent]
+        whole = [p0.shape[d] * math.prod(grid.shape[a] for a in ax[d]) for d in range(p0.ndim)]
+        g = [gl[t][i].to(torch.float32) for t in range(n)]
+        v = [tree_get(states[t]["v"], lp) for t in range(n)]
+        p = [tree_get(params[t], lp) for t in range(n)]
+        dev = [x.device for x in p]
+        dec = [decay.to(d) for d in dev]
+        g2 = [x * x + 1e-30 for x in g]
+        if p0.ndim >= 2:
+            rows = psum([x.sum(dim=-1) for x in g2], ax[-1])
+            cols = psum([x.sum(dim=-2) for x in g2], ax[-2])
+            for t in range(n):
+                v[t]["vr"].copy_(dec[t] * v[t]["vr"] + (1 - dec[t]) * (rows[t] / whole[-1]))
+                v[t]["vc"].copy_(dec[t] * v[t]["vc"] + (1 - dec[t]) * (cols[t] / whole[-2]))
+            den = psum([x["vr"].sum(dim=-1, keepdim=True) for x in v], ax[-2])
+            vhat = [x["vr"][..., None] * x["vc"][..., None, :]
+                    / torch.clamp(d_ / whole[-2], min=1e-30)[..., None] for x, d_ in zip(v, den)]
+        else:
+            for t in range(n):
+                v[t]["v"].copy_(dec[t] * v[t]["v"] + (1 - dec[t]) * g2[t])
+            vhat = [x["v"] for x in v]
+        upd = [x * torch.rsqrt(vh + 1e-30) for x, vh in zip(g, vhat)]
+        split = tuple(a for e in ax for a in e)
+        ms = psum([torch.sum(u * u) for u in upd], split)
+        for t in range(n):
+            rms = torch.sqrt(ms[t] / p0.numel() / math.prod(
+                grid.shape[a] for a in split) + 1e-30)
+            u = upd[t] / torch.clamp(rms, min=1.0)
+            step = u + cfg.weight_decay * p[t].to(torch.float32)
+            p[t].copy_(p[t].to(torch.float32) - lr[t] * step)
+    for s in states:
+        s["count"] = _count(s)
+    return params, states
 
 
 # ---------------------------------------------------------------------------

@@ -1119,8 +1119,9 @@ def test_kernel_wrappers_refuse_grad_on_the_card(dev):
     with pytest.raises(RuntimeError, match="requires grad"):
         bm.block_matmul(a, a)
     out = flash.FlashAttentionFn.apply(q, q.detach(), q.detach(), True, 1,
-                                       lambda q, k, v, causal, groups: ref.flash_attention(
-                                           q, k, v, causal=causal, groups=groups))
+                                       lambda q, k, v, causal, groups, q_offset: (
+                                           ref.flash_attention(q, k, v, causal=causal,
+                                                               groups=groups, q_offset=q_offset)))
     (g,) = torch.autograd.grad(out.sum(), (q,))
     assert g.shape == q.shape and kernels.launch_counts()["flash_attention"] == 1
     with torch.no_grad():
@@ -1168,3 +1169,99 @@ def test_train_step_on_card_matches_cpu(dev, arch, kernel, per_layer):
     calls = len(spec.layers()) + len(spec.enc_layers()) + (len(spec.layers()) if spec.is_encdec
                                                            else 0)
     assert cc[kernel] == 2 * per_layer * calls
+
+
+# ---------------------------------------------------------------------------
+# flash_attention's q_offset and the LM substrate on a grid of one card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128), (torch.bfloat16, 64),
+                                     (torch.float32, 64), (torch.bfloat16, 224)])
+@pytest.mark.parametrize("off,s,t,groups", [(256, 256, 512, 2), (100, 60, 300, 1),
+                                            (64, 130, 194, 3)])
+def test_flash_attention_q_offset(dev, dtype, d, off, s, t, groups):
+    """A tile of queries at positions [off, off + S) against all T keys: the
+    kernel (either route) against the plain version, and against the rows of
+    the whole sequence's attention where S + off = T."""
+    rng = np.random.default_rng(off + s + t + d)
+    q = _arr(rng, (2 * groups, s, d), dev).to(dtype)
+    k, v = _arr(rng, (2, t, d), dev).to(dtype), _arr(rng, (2, t, d), dev).to(dtype)
+    got = flash.flash_attention(q, k, v, causal=True, groups=groups, q_offset=off)
+    want = ref.flash_attention(q, k, v, causal=True, groups=groups, q_offset=off)
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-4
+    scale = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol * scale
+    assert torch.equal(got, flash.flash_attention(q, k, v, causal=True, groups=groups,
+                                                  q_offset=off))
+    if s + off == t:
+        qq = torch.cat([_arr(rng, (2 * groups, off, d), dev).to(dtype), q], dim=1)
+        whole = flash.flash_attention(qq, k, v, causal=True, groups=groups)
+        assert float((whole[:, off:].float() - got.float()).abs().max()) <= tol * scale
+
+
+def test_flash_attention_q_offset_zero_is_the_default(dev):
+    rng = np.random.default_rng(5)
+    q = _arr(rng, (4, 200, 128), dev).to(torch.bfloat16)
+    k, v = _arr(rng, (2, 200, 128), dev).to(torch.bfloat16), _arr(rng, (2, 200, 128), dev).to(
+        torch.bfloat16)
+    assert torch.equal(flash.flash_attention(q, k, v, groups=2),
+                       flash.flash_attention(q, k, v, groups=2, q_offset=0))
+
+
+def _tiny_grid_setup():
+    from repro_torch.models import lm
+    from repro_torch.models.common import ArchConfig
+
+    cfg = ArchConfig(name="tiny", family="dense", n_layers=2, d_model=256, n_heads=4,
+                     n_kv_heads=2, d_ff=512, vocab=512, remat=True, compute_dtype="float32")
+    return cfg, lm.build_spec(cfg)
+
+
+@pytest.mark.parametrize("preset", ["baseline", "fsdp", "seqshard"])
+def test_grid_train_step_on_one_card(dev, preset):
+    """The train step on a 2x2 grid of one card against the 1x1 step on the
+    card (fp32): loss and grad norm within 1e-5; flash_attention launched by
+    each tile twice a layer under remat (seqshard: with q_offset > 0 on the
+    second column)."""
+    from repro_torch.core.distmatrix import make_context
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import as_grid
+    from repro_torch.training import OptConfig, init_state, make_train_step
+
+    cfg, spec = _tiny_grid_setup()
+    ocfg = OptConfig(lr=1e-3)
+    grid = make_context([dev] * 4, 2)
+    rules = None if preset == "baseline" else dryrun.RULE_PRESETS[preset](as_grid(grid))
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, cfg.vocab, size=(4, 256)).astype(np.int32)
+    batch = {"tokens": tok, "labels": np.roll(tok, -1, axis=1)}
+    p1, o1 = init_state(spec, ocfg, seed=4, device=dev)
+    pg, og = init_state(spec, ocfg, seed=4, grid=grid, rules=rules)
+    _, _, m1 = make_train_step(spec, ocfg, device=dev)(p1, o1, batch)
+    kernels.reset_launch_counts()
+    _, _, mg = make_train_step(spec, ocfg, grid=grid, rules=rules)(pg, og, batch)
+    for key in ("loss", "grad_norm"):
+        assert float(mg[key]) == pytest.approx(float(m1[key]), rel=1e-5)
+    assert kernels.launch_counts()["flash_attention"] == 4 * 2 * cfg.n_layers
+
+
+def test_grid_serve_on_one_card_matches_1x1(dev):
+    """Greedy tokens of a 2x2 grid of one card equal the 1x1 engine's on the
+    card (fp32); prefill launches flash_attention once a tile a layer."""
+    from repro_torch.core.distmatrix import make_context
+    from repro_torch.models import lm
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    cfg, spec = _tiny_grid_setup()
+    params = lm.init_params(spec, seed=2, device=dev)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, size=(4, 64)).astype(np.int32)
+    outs = []
+    for grid in (None, make_context([dev] * 4, 2)):
+        kernels.reset_launch_counts()
+        eng = ServeEngine(spec, params, s_max=80, batch=4, device=dev, grid=grid,
+                          cfg=ServeConfig(max_new_tokens=8))
+        outs.append(eng.generate(prompts))
+        want = cfg.n_layers * (1 if grid is None else 4)
+        assert kernels.launch_counts()["flash_attention"] == want
+    np.testing.assert_array_equal(outs[0], outs[1])
