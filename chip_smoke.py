@@ -226,17 +226,34 @@ Phases, in order; any failure exits non-zero:
    ``q_offset > 0``); one int8 compressed step on a 2x2x2 grid of the card
    (finite; synced gradients within the int8 bound of the pods' mean); a
    2x2 checkpoint resumed on 1x1 under deterministic algorithms (losses
-   within 1e-5 of the grid run's); its seconds (aim: under 90).
+   within 1e-5 of the grid run's); its seconds (aim: under 90);
+18. the MoE and vlm families on device grids of the one card (``[moegrid]``
+   lines): granite-moe-3b at full width and depth served on 2x2 (phase 13's
+   requests, 8 greedy tokens), llama4 at full width (2 of its 48 layers, as
+   phase 13) on 1x4 and chameleon-34b at full width (16 of its 48 layers)
+   on 2x2 (exact launches, time to first token, decode ms a step, peak <= 76
+   GB while the engine cuts its tiles and while it serves, the bytes a
+   prefill and a decode step move by kind, each tile's bytes equal to the
+   dry run's decode_32k ``argument_bytes`` where the parameter and compute
+   dtypes are one, each prefill tile routing its batch shard and each
+   decode tile all tokens where the experts divide their axis, the dropped
+   slots per MoE layer against granite-moe's 1x1 prefill);
+   granite-moe at full width trained 2 steps on 2x2 (AdamW, bf16, remat;
+   every layer; its tiles' state equal to the dry run's); the card's 2x2
+   grid against the CPU's in fp32 for granite-moe at full width and depth 2
+   and llama4 at SMOKE (tokens equal, logits within 1e-3 of the largest,
+   expert ids and kept masks, one train step's loss and grad norm within
+   1e-5); llama4 SMOKE's gathered decode step on 2x2 and 1x4 against 1x1
+   from one cache (logits within 1e-3); its seconds (aim: under 150).
 
 A copy of the script beside another tree's ``src/`` (a parent commit's
 ``git archive``) runs the same phases on that tree's package, so both trees
 are measured by the same code in one call.
 
 The line before the last is the JSON ``kernels`` table (``launches`` sums
-the main paths of phases 3, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 17; ``launches_by_path`` splits
-them); the
-last line is ``{"ok": true, "device": {...}}``.  It imports neither JAX nor
-the JAX package.  Long logs go to ``OUT``, a gitignored directory beside
+the main paths of phases 3, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 17 and 18;
+``launches_by_path`` splits them); the last line is ``{"ok": true,
+"device": {...}}``.  It imports neither JAX nor the JAX package.  Long logs go to ``OUT``, a gitignored directory beside
 the script; the on-disk stores of phases 5, 7, 8, 10 and 12 and phase 15's
 checkpoints live under ``build/`` and are removed at the end of their phase.
 """
@@ -2351,37 +2368,23 @@ def _flash_route(spec, fa) -> str:
 
 
 def _routing_card_vs_cpu(tag: str, card: list, cpu: list) -> list:
-    """Each MoE layer's expert ids and kept masks, card against CPU.  A flip is
-    allowed where the two probabilities lie within ROUTE_FLIP_MARGIN (the
-    CPU's); it is counted, and as positions are cumsums in token order the
-    kept masks are compared up to the first flipped token; the layers after
-    a flip see other inputs and are not compared (the logits and token gates
-    still hold)."""
-    if len(card) != len(cpu):
-        fail(f"{tag}: {len(card)} MoE calls on the card, {len(cpu)} on the CPU")
-    out = []
-    for li, (rc, rh) in enumerate(zip(card, cpu)):
-        ic, ih = rc.expert_ids.cpu(), rh.expert_ids.cpu()
-        kc, kh = rc.keep.cpu(), rh.keep.cpu()
-        if bool((ic == ih).all()):
-            if not bool((kc == kh).all()):
-                fail(f"{tag} MoE layer {li}: expert ids equal, kept masks differ")
-            out.append({"layer": li, "flips": 0, "dropped": int((~kh).sum())})
-            continue
-        rows, cols = (ic != ih).nonzero(as_tuple=True)
-        probs = rh.probs.cpu()
-        margin = (probs[rows, ic[rows, cols]] - probs[rows, ih[rows, cols]]).abs()
-        if float(margin.max()) > ROUTE_FLIP_MARGIN:
-            fail(f"{tag} MoE layer {li}: {len(rows)} routing flips, the widest between "
-                 f"probabilities {float(margin.max()):.3e} apart (> {ROUTE_FLIP_MARGIN:g})")
-        first = int(rows.min())
-        if not bool((kc[:first] == kh[:first]).all()):
-            fail(f"{tag} MoE layer {li}: kept masks differ before the first flipped token")
-        out.append({"layer": li, "flips": len(rows), "max_margin": float(margin.max()),
-                    "first_flipped_token": first, "later_layers_not_compared": True})
-        log(f"[serve2] {tag} MoE layer {li}: {len(rows)} routing flips between probabilities "
-            f"within {float(margin.max()):.3e} (allowed: {ROUTE_FLIP_MARGIN:g})")
-        break
+    """Each MoE layer's expert ids and kept masks (each tile's, on a grid),
+    card against CPU, by ``moe.compare_routings``: a flip is allowed where
+    the two probabilities lie within ROUTE_FLIP_MARGIN (the CPU's) and is
+    counted; from a tile's first flipped token on, that tile's later tokens
+    see other inputs and are not compared (the logits and token gates still
+    hold)."""
+    from repro_torch.models import moe
+
+    try:
+        out = moe.compare_routings(card, cpu, ROUTE_FLIP_MARGIN)
+    except ValueError as e:
+        fail(f"{tag}: {e}")
+    for r in out:
+        if r["flips"]:
+            log(f"[serve2] {tag} MoE layer {r['layer']} tile {r['tile']}: {r['flips']} routing "
+                f"flips between probabilities within {r['max_margin']:.3e} (allowed: "
+                f"{ROUTE_FLIP_MARGIN:g}); tokens from {r['first_flipped_token']} on not compared")
     return out
 
 
@@ -2557,16 +2560,19 @@ SEAMLESS_SHORT = 256  # a second request's prompt against the same frames: S != 
 
 class _FlashShapes:
     """Records (q rows S, k rows T, causal) of every ``flash_attention`` call
-    while installed; the wrapper itself still counts its launches."""
+    while installed, and how many calls each form (q and k shapes, groups,
+    causal, dtype) took; the wrapper itself still counts its launches."""
 
     def __init__(self, fa):
-        self.fa, self.calls = fa, []
+        self.fa, self.calls, self.forms = fa, [], {}
 
     def __enter__(self):
         self.orig = self.fa.flash_attention
 
         def spy(q, k, v, *, causal=True, groups=1, q_offset=0):
             self.calls.append((q.shape[1], k.shape[1], bool(causal)))
+            key = (tuple(q.shape), tuple(k.shape), int(groups), bool(causal), q.dtype)
+            self.forms[key] = self.forms.get(key, 0) + 1
             return self.orig(q, k, v, causal=causal, groups=groups, q_offset=q_offset)
 
         self.fa.flash_attention = spy
@@ -2597,10 +2603,15 @@ def _seamless_calls(n_enc: int, n_dec: int, s: int, t: int) -> dict:
 
 
 def _flash_form(torch, fa, ref, name: str, q, k, v, causal: bool, groups: int, tol: float,
-                sdpa) -> dict:
+                sdpa, route: str | None = None) -> dict:
     """The kernel at one of the path's shapes against its plain version, twice
-    bitwise, timed beside the plain version, SDPA and the bound."""
+    bitwise, timed beside the plain version, SDPA and the bound; with
+    ``route``, the route the call must take ("wgmma" or "simt")."""
+    before = fa.wgmma_launches
     got = fa.flash_attention(q, k, v, causal=causal, groups=groups)
+    took = "wgmma" if fa.wgmma_launches > before else "simt"
+    if route is not None and took != route:
+        fail(f"flash_attention {name}: took the {took} route, want {route}")
     err, scale = check_close(name, got, ref.flash_attention(q, k, v, causal=causal,
                                                             groups=groups), tol)
     check_bitwise(torch, name, lambda: fa.flash_attention(q, k, v, causal=causal, groups=groups))
@@ -2613,11 +2624,11 @@ def _flash_form(torch, fa, ref, name: str, q, k, v, causal: bool, groups: int, t
     t = k.shape[1]
     pairs = bhq * (s * (s + 1) / 2 if causal else s * t)
     bms, by = bound_ms(4.0 * d * pairs, nbytes(q, k, v, q), PEAK_BF16_OPS)
-    log(f"[kernels] flash_attention {name}: max_abs_err {err:.3e} (tol {tol:g} x max|plain| "
-        f"{scale:.3e}), bitwise repeatable; {ms:.4f} ms, plain {plain:.3f} ms, SDPA {lib:.4f} ms, "
-        f"bound {bms:.4f} ms ({by})")
-    return {"max_abs_err": err, "max_abs_plain": scale, "tol": tol, "ms": ms, "plain_ms": plain,
-            "library_ms": lib, "bound_ms": bms, "bound_by": by}
+    log(f"[kernels] flash_attention {name}: {took} route; max_abs_err {err:.3e} (tol {tol:g} x "
+        f"max|plain| {scale:.3e}), bitwise repeatable; {ms:.4f} ms, plain {plain:.3f} ms, SDPA "
+        f"{lib:.4f} ms, bound {bms:.4f} ms ({by})")
+    return {"route": took, "max_abs_err": err, "max_abs_plain": scale, "tol": tol, "ms": ms,
+            "plain_ms": plain, "library_ms": lib, "bound_ms": bms, "bound_by": by}
 
 
 def _wkv_form(torch, name: str, bh: int, s: int, dh: int) -> dict:
@@ -4757,6 +4768,446 @@ def phase_lmgrid(torch, serve: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: MoE and chameleon on a device grid of the card
+# ---------------------------------------------------------------------------
+
+# (arch, depth served at full width (None: the config's own), grid rows x
+# cols).  The engine cuts its tiles from the weights drawn on the card, so
+# both are held at once before the weights are dropped: llama4's 37.36 GB
+# and its 37.49 GB of tiles, 74.85 GB.  Its one MoE layer is 32.2 GB of bf16
+# experts: on 2x2 the prefill's branch would gather each tile's 64 experts
+# whole over data (16.1 GB a tile), so it is served on 1x4, where data is 1
+# and nothing is gathered.  chameleon's serve layout holds its dense weights
+# once a data row (2.76 GB a layer on 2x2, 4.29 GB of embedding and head):
+# 16 of its 48 layers are 48.5 GB of tiles beside 24.2 GB of weights.
+MOEGRID_SERVE = (("granite-moe-3b-a800m", None, (2, 2)),
+                 ("llama4-maverick-400b-a17b", 2, (1, 4)),
+                 ("chameleon-34b", 16, (2, 2)))
+MOEGRID_NEW = 8  # greedy tokens a request on the grid (phase 13 serves 32 on one card)
+MOEGRID_TRAIN = "granite-moe-3b-a800m"
+MOEGRID_TRAIN_BATCH, MOEGRID_TRAIN_SEQ, MOEGRID_TRAIN_STEPS = 8, 512, 2
+MOEGRID_PEAK_GB = 76.0
+MOEGRID_CHECK_DEPTH = 2  # granite-moe's card-grid-against-CPU-grid depth at full width
+MOEGRID_RTOL = 1e-5  # card grid against CPU grid, fp32: train loss and grad norm, relative
+MOEGRID_BUDGET_S = 150.0  # the phase's aim (printed; not a gate)
+
+
+def _grid_of(torch, rows: int, cols: int, device: str = "cuda"):
+    from repro_torch.core.distmatrix import make_context
+
+    return make_context([torch.device(device, 0) if device == "cuda" else torch.device("cpu")]
+                        * (rows * cols), rows)
+
+
+def _dropped(routes: list, grid) -> list:
+    """Dropped (token, choice) slots per MoE layer: over the whole batch at
+    1x1 (one Routing a layer), over the batch shards on a grid (one Routing
+    a tile; the tiles of a shard route alike, so the first model column)."""
+    out = []
+    for rs in routes:
+        if not isinstance(rs, list):
+            out.append(int((~rs.keep).sum()))
+            continue
+        out.append(sum(int((~r.keep).sum()) for t, r in enumerate(rs)
+                       if grid.coords(t)["model"] == 0))
+    return out
+
+
+def _moegrid_serve(torch, arch: str, depth, shape: tuple) -> dict:
+    """One model at full width on a grid of the card, phase 13's requests
+    (MOEGRID_NEW greedy tokens): time to first token, decode ms a step,
+    peak memory while the engine is made and while it serves (each <=
+    MOEGRID_PEAK_GB), exact flash_attention launches (every tile once a
+    block in prefill), moved bytes of a prefill and of one decode step by
+    kind, the tiles' bytes against the dry run's decode cell in the dtypes
+    the engine stores, the dropped slots of each MoE layer (granite-moe:
+    against the same weights on 1x1), and the kernel at each form a
+    prefill tile gave it, against its plain version (_flash_form)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch import configs, kernels
+    from repro_torch.core.collectives import lm_moves
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import as_grid
+    from repro_torch.models import common as cm
+    from repro_torch.models import lm, moe
+    from repro_torch.serving import ServeConfig, ServeEngine
+    from repro_torch.tree import tree_leaves
+
+    t_model = time.perf_counter()
+    full = configs.get_config(arch)
+    cfg = full if depth is None else full.replace(n_layers=depth)
+    spec = lm.build_spec(cfg)
+    grid = _grid_of(torch, *shape)
+    g = as_grid(grid)
+    route_name, hd = _flash_route(spec, fa)
+    n_attn = _attention_blocks(spec)
+    s_max = SERVE_PROMPT + MOEGRID_NEW
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(spec, seed=0, device="cuda")
+    eng = ServeEngine(spec, params, s_max=s_max, batch=SERVE_BATCH, device="cuda", grid=grid,
+                      cfg=ServeConfig(max_new_tokens=MOEGRID_NEW))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    if init_peak > MOEGRID_PEAK_GB:
+        fail(f"moegrid serve {arch}: peak {init_peak:.2f} GB > {MOEGRID_PEAK_GB:g} GB while the "
+             f"engine cuts its tiles")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    dropped_1x1 = None
+    if arch == MOEGRID_TRAIN:  # granite-moe: the same weights on one device, its routing
+        one = ServeEngine(spec, params, s_max=s_max, device="cuda")
+        with torch.inference_mode(), moe.record_routing() as r1:
+            lm.prefill(spec, one.params, torch.from_numpy(prompts).long().cuda(), s_max)
+        dropped_1x1 = _dropped(r1, g)
+        del one, r1
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the engine holds the matrices in the compute dtype (granite-moe's
+    # parameters are fp32, its matrices served in bf16): the dry run counts so
+    tile_bytes = [sum(x.numel() * x.element_size() for x in tree_leaves(t)) for t in eng.tiles]
+    cell = dryrun.argument_bytes(spec, configs.SHAPES_BY_NAME["decode_32k"], g,
+                                 dict(cm.DEFAULT_RULES), "adamw",
+                                 compute_cast=True)["param_bytes_per_tile"]
+    if set(tile_bytes) != {cell}:
+        fail(f"moegrid serve {arch}: per-tile parameter bytes {tile_bytes} != the dry run's "
+             f"decode_32k argument bytes {cell} ({cfg.compute_dtype} matrices)")
+    run = cm.GridRun(eng.rules)
+    with torch.inference_mode():  # the one warm-up: a short prefill and one decode step
+        lg, cache = lm.prefill(spec, eng.params, run.place(
+            torch.from_numpy(prompts[:, :64]).long().cuda(), ("batch", "seq")), s_max,
+            rules=eng.prefill_rules)
+        lm.decode_step(spec, eng.params, run.place(eng._whole(lg).argmax(-1), ("batch",)),
+                       cache, rules=eng.rules)
+        del lg, cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    m0 = lm_moves()
+    toks = eng.generate(prompts)
+    counts = kernels.launch_counts()
+    moved = _moved(torch, m0, "lm.serve")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    st = eng.stats
+    want = {name: 0 for name in counts} | {"flash_attention": g.n_tiles * n_attn}
+    if route_name == "wgmma":
+        want["flash_attention_wgmma"] = g.n_tiles * n_attn
+    if counts != want:
+        fail(f"moegrid serve {arch}: launch counts {counts} != {want} ({g.n_tiles} tiles x "
+             f"{n_attn} attention blocks, the {route_name} route at D={hd})")
+    if toks.shape != (SERVE_BATCH, MOEGRID_NEW) or toks.min() < 0 or toks.max() >= cfg.vocab:
+        fail(f"moegrid serve {arch}: tokens of shape {toks.shape} in [{toks.min()}, "
+             f"{toks.max()}]")
+    if peak > MOEGRID_PEAK_GB:
+        fail(f"moegrid serve {arch}: peak {peak:.2f} GB > {MOEGRID_PEAK_GB:g} GB")
+    with torch.inference_mode(), moe.record_routing() as routes, _FlashShapes(fa) as shapes:
+        tiles = run.place(torch.from_numpy(prompts).long().cuda(), ("batch", "seq"))
+        m0 = lm_moves()
+        logits, cache = lm.prefill(spec, eng.params, tiles, s_max, rules=eng.prefill_rules)
+        pre_moved = _moved(torch, m0, "lm.serve")
+        n_pre = len(routes)
+        m0 = lm_moves()
+        lg, cache = lm.decode_step(spec, eng.params,
+                                   run.place(eng._whole(logits).float().argmax(-1), ("batch",)),
+                                   cache, rules=eng.rules)
+        dec_moved = _moved(torch, m0, "lm.serve")
+        if not bool(torch.isfinite(eng._whole(lg)[:, :cfg.vocab].float()).all()):
+            fail(f"moegrid serve {arch}: decode logits not finite")
+    n_moe = spec.layers().count("attn_moe")
+    if n_pre != n_moe or len(routes) != 2 * n_moe:
+        fail(f"moegrid serve {arch}: {n_pre} / {len(routes) - n_pre} MoE calls in a prefill / "
+             f"decode step, want {n_moe}")
+    t_pf = {r.expert_ids.shape[0] for rs in routes[:n_pre] for r in rs}
+    t_dec = {r.expert_ids.shape[0] for rs in routes[n_pre:] for r in rs}
+    # decode gathers the tokens where the experts divide their axis (llama4);
+    # granite-moe's override falls back to its batch shards, as in the JAX package
+    n_batch = g.shape["data"]
+    e_ax = eng.rules.get("experts")
+    t_dec_want = (SERVE_BATCH if e_ax in g.axis_names and cfg.n_experts % g.shape[e_ax] == 0
+                  else SERVE_BATCH // n_batch)
+    if n_moe and (t_pf != {SERVE_BATCH * SERVE_PROMPT // n_batch} or t_dec != {t_dec_want}):
+        fail(f"moegrid serve {arch}: a prefill tile routed {t_pf} tokens, a decode tile {t_dec} "
+             f"(want the batch shard's {SERVE_BATCH * SERVE_PROMPT // n_batch} and "
+             f"{t_dec_want})")
+    dropped = _dropped(routes[:n_pre], g)
+    del logits, cache, lg, tiles, routes
+    step_ms = st.decode_s / st.decode_steps * 1e3
+    one_card = f"; 1x1 dropped {dropped_1x1}" if dropped_1x1 is not None else ""
+    log(f"[moegrid] serve {arch} ({cfg.n_layers} layers"
+        + ("" if depth is None else f", reduced from {full.n_layers}")
+        + f", bf16) on a {shape[0]}x{shape[1]} grid of the card (init {init_s:.1f} s, peak "
+        f"{init_peak:.2f} GB with the weights and the tiles): batch {SERVE_BATCH} x prompt "
+        f"{SERVE_PROMPT}, {MOEGRID_NEW} greedy tokens: time to first token "
+        f"{st.ttft_s * 1e3:.1f} ms; decode {step_ms:.2f} ms/step; peak {peak:.2f} GB; "
+        f"flash_attention {counts['flash_attention']} launches ({g.n_tiles} tiles x {n_attn} "
+        f"blocks, {route_name}); tiles {tile_bytes[0]} B each"
+        + f" = the dry run's decode_32k argument bytes ({cfg.compute_dtype} matrices)"
+        + (f"; prefill dropped slots per MoE layer (batch shards) {dropped}{one_card}"
+           if n_moe else ""))
+    log(f"[moegrid] serve {arch} moved between grid positions: prefill {_fmt_moved(pre_moved)}; "
+        f"one decode step {_fmt_moved(dec_moved)}; the whole generate {_fmt_moved(moved)}")
+    out = {"n_layers": cfg.n_layers, "full_n_layers": full.n_layers, "grid": list(shape),
+           "counts": counts, "init_s": init_s, "init_peak_gb": init_peak,
+           "ttft_ms": st.ttft_s * 1e3,
+           "decode_ms_per_step": step_ms, "peak_gb": peak, "tile_param_bytes": tile_bytes[0],
+           "dryrun_param_bytes_per_tile": cell,
+           "moved_prefill": pre_moved, "moved_decode_step": dec_moved, "moved_generate": moved,
+           "dropped_grid": dropped, "dropped_1x1": dropped_1x1, "first_tokens": toks[0].tolist()}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the kernel at each form a prefill tile gave it (random bf16 inputs of
+    # those shapes), on the route the launch counts above saw
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out["kernel_forms"] = {}
+    for (qs, ks, grp, causal, dt), n in shapes.forms.items():
+        name = (f"{arch} {shape[0]}x{shape[1]} tile q {qs} k/v {ks} "
+                f"{str(dt).removeprefix('torch.')} {'causal' if causal else 'non-causal'}, "
+                f"groups {grp}")
+        q, k, v = (torch.randn(x, generator=gen, device="cuda").to(dt) for x in (qs, ks, ks))
+        out["kernel_forms"][name] = _flash_form(
+            torch, fa, ref, name, q, k, v, causal, grp,
+            2.0**-7 if dt == torch.bfloat16 else 1e-4, sdpa, route=route_name) | {
+                "calls_per_prefill": n}
+        del q, k, v
+    out["seconds"] = time.perf_counter() - t_model
+    return out
+
+
+def _moegrid_train(torch) -> dict:
+    """granite-moe at full width and all 32 layers on the 2x2 grid (AdamW,
+    bf16 compute, remat) through ``train_loop(grid=)``: loss, grad norm, ms
+    a step, peak memory (<= MOEGRID_PEAK_GB), moved bytes a step, exact
+    launches (four tiles, twice a layer a step), each tile's state against
+    the dry run's train_4k argument bytes."""
+    import gc
+
+    from repro_torch import configs, kernels
+    from repro_torch.core.collectives import lm_moves
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import as_grid
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import common as cm
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+
+    cfg = configs.get_config(MOEGRID_TRAIN)
+    spec = lm.build_spec(cfg)
+    grid = _grid_of(torch, 2, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    m0 = lm_moves()
+    hist: list = []
+    params, opt, _ = train_loop(cfg, steps=MOEGRID_TRAIN_STEPS, batch=MOEGRID_TRAIN_BATCH,
+                                seq=MOEGRID_TRAIN_SEQ, device="cuda", grid=grid, history=hist,
+                                log_every=100)
+    counts = kernels.launch_counts()
+    moved = _moved(torch, m0, "lm.train")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    calls = 4 * 2 * cfg.n_layers * MOEGRID_TRAIN_STEPS
+    want = {name: 0 for name in counts} | {"flash_attention": calls,
+                                           "flash_attention_wgmma": calls}
+    if counts != want:
+        fail(f"moegrid train {MOEGRID_TRAIN}: launch counts {counts} != {want}")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist):
+        fail(f"moegrid train: non-finite loss or grad norm {hist}")
+    if not all(h["lb_loss"] > 0 for h in hist):
+        fail(f"moegrid train: no load-balancing loss {hist}")
+    if peak > MOEGRID_PEAK_GB:
+        fail(f"moegrid train: peak {peak:.2f} GB > {MOEGRID_PEAK_GB} GB at {cfg.n_layers} layers")
+    cell = dryrun.argument_bytes(spec, configs.SHAPES_BY_NAME["train_4k"], as_grid(grid),
+                                 dict(cm.DEFAULT_RULES), cfg.optimizer)
+    pb = [sum(x.numel() * x.element_size() for x in tree_leaves(p)) for p in params]
+    ob = [sum(x.numel() * x.element_size() for x in tree_leaves(o)) for o in opt]
+    if set(pb) != {cell["param_bytes_per_tile"]} or set(ob) != {cell["opt_state_bytes_per_tile"]}:
+        fail(f"moegrid train: per-tile bytes {pb} / {ob} != the dry run's "
+             f"{cell['param_bytes_per_tile']} / {cell['opt_state_bytes_per_tile']}")
+    ms = hist[-1]["seconds"] * 1e3
+    tokens = MOEGRID_TRAIN_BATCH * MOEGRID_TRAIN_SEQ
+    log(f"[moegrid] train {MOEGRID_TRAIN} at full width, {cfg.n_layers} layers, on a 2x2 grid of "
+        f"the card (AdamW, bf16 compute, remat; batch {MOEGRID_TRAIN_BATCH} x "
+        f"{MOEGRID_TRAIN_SEQ}): "
+        + "; ".join(f"step {i} loss {h['loss']:.4f} (lb {h['lb_loss']:.4f}, z {h['z_loss']:.3f})"
+                    f" grad norm {h['grad_norm']:.4f} {h['seconds'] * 1e3:.1f} ms"
+                    for i, h in enumerate(hist))
+        + f"; {tokens / ms * 1e3:.0f} tokens/s after the first; peak {peak:.2f} GB; "
+        f"flash_attention {counts['flash_attention']} launches (4 tiles x 2 x {cfg.n_layers} x "
+        f"{MOEGRID_TRAIN_STEPS}); moved a step: {_fmt_moved(moved, MOEGRID_TRAIN_STEPS)}; "
+        f"per tile {pb[0]} B of parameters and {ob[0]} B of AdamW state = the dry run's")
+    out = {"counts": counts, "depth": cfg.n_layers, "history": hist, "peak_gb": peak,
+           "ms_per_step": ms, "moved": moved, "param_bytes_per_tile": pb[0],
+           "opt_bytes_per_tile": ob[0]}
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moegrid_card_vs_cpu(torch, arch: str) -> dict:
+    """The card's 2x2 grid against the CPU's, fp32, the same weights (drawn on
+    the card, seed 0) and inputs: granite-moe at full width and depth
+    MOEGRID_CHECK_DEPTH, llama4 at its SMOKE config.  Serving batch 2 x a
+    ragged prompt of 100, 8 greedy tokens: tokens equal, last-position
+    logits within 1e-3 of the largest, each tile's expert ids and kept
+    masks (_routing_card_vs_cpu), flash_attention launched once a tile an
+    attention block by the card's prefill and never by the CPU's; one
+    train step (the config's optimizer) at batch 4 x 64: loss and grad
+    norm within MOEGRID_RTOL."""
+    import numpy as np
+
+    from repro_torch import configs, kernels
+    from repro_torch.data import DataConfig, host_batch
+    from repro_torch.models import common as cm
+    from repro_torch.models import lm, moe
+    from repro_torch.serving import ServeConfig, ServeEngine
+    from repro_torch.training import OptConfig, make_train_step
+    from repro_torch.training import optim
+    from repro_torch.training import train_step as ts
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    if arch == MOEGRID_TRAIN:
+        cfg = configs.get_config(arch).replace(n_layers=MOEGRID_CHECK_DEPTH,
+                                               compute_dtype="float32")
+        setup = f"full width, depth {MOEGRID_CHECK_DEPTH}"
+    else:
+        cfg, setup = configs.get_smoke(arch), "SMOKE config"
+    spec = lm.build_spec(cfg)
+    params = lm.init_params(spec, seed=0, device="cuda")
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, size=(2, 100)).astype(np.int32)
+    ocfg = OptConfig(name=cfg.optimizer, lr=1e-3, warmup_steps=5, total_steps=10)
+    batch = host_batch(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4, seed=0), 0)
+    whole = lm.params_tree(spec, params)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        grid = _grid_of(torch, 2, 2, dev)
+        eng = ServeEngine(spec, params, s_max=108, cfg=ServeConfig(max_new_tokens=8),
+                          device=dev, grid=grid)
+        kernels.reset_launch_counts()
+        toks = eng.generate(prompts)
+        launches = kernels.launch_counts()["flash_attention"]
+        want = 4 * _attention_blocks(spec) if dev == "cuda" else 0
+        if launches != want:
+            fail(f"moegrid {arch} on the {dev} grid: {launches} flash_attention launches, "
+                 f"want {want}")
+        run = cm.GridRun(eng.rules)
+        with torch.inference_mode(), moe.record_routing() as routes:
+            lg, _ = lm.prefill(spec, eng.params, run.place(torch.from_numpy(prompts).long()
+                                                           .to(dev), ("batch", "seq")), 108,
+                               rules=eng.prefill_rules)
+        lg = eng._whole(lg)[:, :cfg.vocab].float().cpu()
+        del eng
+        pspecs, _ = ts.grid_specs(spec, ocfg, grid)
+        tiles = cm.shard_tree(tree_map(lambda t: t.detach().requires_grad_(True), whole),
+                              pspecs, grid)
+        opt = [optim.make_optimizer(ocfg)[0](p) for p in tiles]
+        _, _, m = make_train_step(spec, ocfg, grid=grid)(tiles, opt, batch)
+        res[dev] = (toks, lg, routes, {k: float(m[k]) for k in ("loss", "grad_norm")})
+        del tiles, opt
+    del params, whole
+    card, cpu = res["cuda"], res["cpu"]
+    if not np.array_equal(card[0], cpu[0]):
+        fail(f"moegrid {arch} card vs CPU grid: greedy tokens differ: {card[0].tolist()} vs "
+             f"{cpu[0].tolist()}")
+    err, scale = check_close(f"moegrid {arch} card vs CPU grid prefill logits", card[1], cpu[1],
+                             1e-3)
+    routing = _routing_card_vs_cpu(f"moegrid {arch} card vs CPU grid", card[2], cpu[2])
+    rel = {k: abs(card[3][k] - cpu[3][k]) / abs(cpu[3][k]) for k in card[3]}
+    if not all(v <= MOEGRID_RTOL for v in rel.values()):
+        fail(f"moegrid {arch} card vs CPU grid: train step {card[3]} against {cpu[3]}: relative "
+             f"{rel} > {MOEGRID_RTOL:g}")
+    log(f"[moegrid] {arch} card 2x2 grid vs CPU 2x2 grid ({setup}, fp32, "
+        f"{time.perf_counter() - t0:.1f} s): batch 2 x prompt 100, 8 greedy tokens equal, "
+        f"flash_attention launched 4 x {_attention_blocks(spec)} times on the card; "
+        f"prefill logits max |diff| {err:.3e} (tol 1e-3 x max|logit| {scale:.3e}); routing of "
+        f"{len(routing)} tile-layers, flips {sum(r['flips'] for r in routing)}; one "
+        f"{cfg.optimizer} step at batch 4 x 64: loss {card[3]['loss']:.6f} (rel "
+        f"{rel['loss']:.2e}), grad norm {card[3]['grad_norm']:.6f} (rel {rel['grad_norm']:.2e}; "
+        f"tol {MOEGRID_RTOL:g})")
+    return {"setup": setup, "tokens_equal": True, "logits_err": err, "max_logit": scale,
+            "routing_flips": sum(r["flips"] for r in routing), "train": card[3],
+            "train_cpu": cpu[3], "train_rel": rel, "seconds": time.perf_counter() - t0}
+
+
+def _moegrid_decode_vs_1x1(torch) -> dict:
+    """llama4 SMOKE in fp32 on the card: from one 1x1 prefill's cache, the
+    gathered decode step on a 2x2 and a 1x4 grid against the 1x1 decode
+    step (one capacity over the batch on both): logits within 1e-3 of the
+    largest."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import common as cm
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import serve_rules
+
+    cfg = configs.get_smoke("llama4-maverick-400b-a17b")
+    spec = lm.build_spec(cfg)
+    params = lm.init_params(spec, seed=0, device="cuda")
+    prompts = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, size=(4, 24)).astype(np.int64)).cuda()
+    nxt = torch.tensor([3, 17, 250, 9], device="cuda")
+    out = {}
+    with torch.inference_mode():
+        _, cache = lm.prefill(spec, params, prompts, 32)
+        want, _ = lm.decode_step(spec, params, nxt, cache)
+        tree = lm.param_dict(params)
+        for shape in ((2, 2), (1, 4)):
+            grid = _grid_of(torch, *shape)
+            rules = serve_rules(spec, grid)
+            specs = cm.sanitize_specs(lm.param_specs(spec, rules), tree, grid)
+            view = lm.grid_view(spec, cm.shard_tree(tree, specs, grid), specs, grid,
+                                stacked=False)
+            got, _ = lm.decode_step(spec, view, cm.GridRun(rules).place(nxt, ("batch",)),
+                                    lm.cache_to_grid(spec, cache, rules), rules=rules)
+            whole = torch.cat([got[t] for t in range(len(got))
+                               if cm.device_grid(grid).coords(t)["model"] == 0])
+            err, scale = check_close(f"moegrid llama4 decode {shape[0]}x{shape[1]} vs 1x1",
+                                     whole[:, :cfg.vocab], want[:, :cfg.vocab], 1e-3)
+            out[f"{shape[0]}x{shape[1]}"] = {"err": err, "max_logit": scale}
+    log("[moegrid] llama4 SMOKE fp32 gathered decode step on the card from one 1x1 prefill's "
+        "cache: " + "; ".join(f"{k} vs 1x1 logits max |diff| {v['err']:.3e} (tol 1e-3 x "
+                              f"{v['max_logit']:.3e})" for k, v in out.items()))
+    return out
+
+
+def phase_moegrid(torch, rows: list) -> dict:
+    """Phase 18: the MoE and vlm families on device grids of the one card --
+    granite-moe served on 2x2 at full size and trained at full width,
+    llama4 served at full width on 1x4, chameleon served at full width on
+    2x2, with flash_attention at each of their tile forms; the card's grid
+    against the CPU's, and llama4's gathered decode step against 1x1."""
+    import gc
+
+    t_phase = time.perf_counter()
+    log(f"[moegrid] phase 18 starts with {torch.cuda.memory_allocated() / 1e9:.2f} GB in use")
+    out = {"serve": {}}
+    for arch, depth, shape in MOEGRID_SERVE:
+        out["serve"][arch] = _moegrid_serve(torch, arch, depth, shape)
+        gc.collect()
+        torch.cuda.empty_cache()
+    next(r for r in rows if r["name"] == "flash_attention")["moegrid_forms"] = {
+        k: v for a in out["serve"].values() for k, v in a["kernel_forms"].items()}
+    out["train"] = _moegrid_train(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = {arch: _moegrid_card_vs_cpu(torch, arch)
+                          for arch in (MOEGRID_TRAIN, "llama4-maverick-400b-a17b")}
+    out["decode_vs_1x1"] = _moegrid_decode_vs_1x1(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[moegrid] phase 18 in {out['seconds']:.1f} s (aim: under {MOEGRID_BUDGET_S:g} s; "
+        + ", ".join(f"{a} serve {v['seconds']:.1f}" for a, v in out["serve"].items()) + ")")
+    return out
 
 
 def main() -> int:
@@ -4836,6 +5287,8 @@ def main() -> int:
     dry = phase_dryrun(torch, train, grid)
     torch.cuda.empty_cache()
     lmgrid = phase_lmgrid(torch, serve)
+    torch.cuda.empty_cache()
+    moegrid = phase_moegrid(torch, rows)
     for row in rows:
         by_path = {"resident": resident["counts"][row["name"]],
                    "oocore": oocore["counts"][row["name"]],
@@ -4854,6 +5307,9 @@ def main() -> int:
                     for arch, *_ in TRAIN_MODELS}
         by_path[f"lmgrid serve {LMGRID_SERVE}"] = lmgrid["serve"]["counts"][row["name"]]
         by_path[f"lmgrid train {LMGRID_TRAIN}"] = lmgrid["train"]["counts"][row["name"]]
+        by_path |= {f"moegrid serve {arch}": moegrid["serve"][arch]["counts"][row["name"]]
+                    for arch, *_ in MOEGRID_SERVE}
+        by_path[f"moegrid train {MOEGRID_TRAIN}"] = moegrid["train"]["counts"][row["name"]]
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if row["name"] == "flash_attention":
@@ -4863,7 +5319,10 @@ def main() -> int:
                 + seamless["counts"]["flash_attention_wgmma"]
                 + sum(train[arch]["counts"]["flash_attention_wgmma"] for arch, *_ in TRAIN_MODELS)
                 + lmgrid["serve"]["counts"]["flash_attention_wgmma"]
-                + lmgrid["train"]["counts"]["flash_attention_wgmma"])
+                + lmgrid["train"]["counts"]["flash_attention_wgmma"]
+                + sum(moegrid["serve"][arch]["counts"]["flash_attention_wgmma"]
+                      for arch, *_ in MOEGRID_SERVE)
+                + moegrid["train"]["counts"]["flash_attention_wgmma"])
         if row["name"] == "stream_gemm":
             row["launches_tc"] = (oocore["counts"]["stream_gemm_tc"]
                                   + incremental["oocore"]["counts"]["stream_gemm_tc"]
@@ -4884,6 +5343,8 @@ def main() -> int:
     (OUT / "chip_smoke_paper.json").write_text(json.dumps({"card": smi, **paper}, indent=1))
     (OUT / "chip_smoke_lmgrid.json").write_text(json.dumps({"card": smi, **lmgrid}, indent=1,
                                                            default=str))
+    (OUT / "chip_smoke_moegrid.json").write_text(json.dumps({"card": smi, **moegrid}, indent=1,
+                                                            default=str))
     (OUT / "chip_smoke_grid.json").write_text(json.dumps(
         {"card": smi, **grid, "phase 12 (out of core on the grid)": grid_oocore}, indent=1,
         default=str))

@@ -334,13 +334,15 @@ def split(x, grid, axes, dim: int) -> list:
 
 def relayout(x: Sharded, dst, grid, path: str, *, varying=()) -> Sharded:
     """``x`` re-laid to the spec ``dst``: gathered along every dimension whose
-    axes ``dst`` drops, then split where ``dst`` adds axes.  A gather along an
-    axis of ``varying`` (the axes along which the computation that reads the
-    result differs) takes the reduce-scatter backward, along any other axis
-    the own-slice backward."""
+    axes ``dst`` drops, then split where ``dst`` adds axes (every gather
+    before any split: a split along one dim makes the tiles of a group hold
+    other rows of another).  A gather along an axis of ``varying`` (the axes
+    along which the computation that reads the result differs) takes the
+    reduce-scatter backward, along any other axis the own-slice backward."""
     nd = len(x.shape)
     src = list(x.spec) + [None] * (nd - len(x.spec))
     dst = list(tuple(dst)) + [None] * (nd - len(tuple(dst)))
+    adds = []
     for d in range(nd):
         have, want = entry_axes(src[d]), entry_axes(dst[d])
         if have == want:
@@ -352,7 +354,8 @@ def relayout(x: Sharded, dst, grid, path: str, *, varying=()) -> Sharded:
         # one axis at a time, the minor first: the dim's tiles are row-major
         for a in reversed(have[keep:]):
             x = all_gather(x, grid, (a,), d, path, invariant=a not in varying)
-        add = want[keep:]
-        if add:
-            x = split(x, grid, add, d)
+        if want[keep:]:
+            adds.append((d, want[keep:]))
+    for d, add in adds:
+        x = split(x, grid, add, d)
     return x

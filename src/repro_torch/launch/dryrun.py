@@ -163,11 +163,16 @@ def _serve_rules(cfg, rules: dict, decode: bool) -> dict:
     return r
 
 
-def _stacked_meta_tree(spec: lm.LMSpec) -> dict:
+def _stacked_meta_tree(spec: lm.LMSpec, compute_cast: bool = False) -> dict:
     """``lm.params_tree``'s layout on meta at the spec's full counts, built
-    from a one-layer-a-group tree (stacking meta layers one by one is slow)."""
+    from a one-layer-a-group tree (stacking meta layers one by one is slow);
+    with ``compute_cast`` the :data:`cm.COMPUTE_NAMES` leaves in the compute
+    dtype, as ``ServeEngine`` stores them."""
     one = _with_counts(spec, [1] * len(_counts(spec)))
-    tree = lm.params_tree(one, lm.init_params(one, device="meta"))
+    params = lm.init_params(one, device="meta")
+    if compute_cast:
+        params = cm.cast_for_compute(params, spec.cfg.cdtype, "meta")
+    tree = lm.params_tree(one, params)
 
     def widen(gtrees, gspecs):
         return [tree_map(lambda t, c=g.count: t.new_empty((c, *t.shape[1:])), gt)
@@ -180,9 +185,11 @@ def _stacked_meta_tree(spec: lm.LMSpec) -> dict:
 
 
 def argument_bytes(spec: lm.LMSpec, shape: configs.ShapeSpec, grid, rules: dict,
-                   opt_name: str) -> dict:
+                   opt_name: str, *, compute_cast: bool = False) -> dict:
     """Per-tile bytes of every argument of the cell's step, by kind, and the
-    per-tile batch."""
+    per-tile batch.  The parameters count in the parameter dtype, or with
+    ``compute_cast`` (a serve cell) as ``ServeEngine`` holds them: the
+    matrices (:data:`cm.COMPUTE_NAMES`) in the compute dtype."""
     cfg = spec.cfg
     inputs = configs.input_specs(cfg, shape)
     bspecs = batch_specs(inputs, rules, grid)
@@ -192,7 +199,7 @@ def argument_bytes(spec: lm.LMSpec, shape: configs.ShapeSpec, grid, rules: dict,
     out["per_tile_batch"] = cm.tile_shape(bspecs[first], inputs[first].shape, grid)[0]
     train = shape.kind == "train"
     r = cm.arch_rules(cfg, rules) if train else _serve_rules(cfg, rules, shape.kind == "decode")
-    tree = _stacked_meta_tree(spec)
+    tree = _stacked_meta_tree(spec, compute_cast)
     pspecs = cm.sanitize_specs(cm.tree_specs(lm.params_tree_axes(spec), r), tree, grid)
     out["param_bytes_per_tile"] = tree_tile_bytes(pspecs, tree, grid)
     out["n_params"] = sum(x.numel() for x in tree_leaves(tree))

@@ -11,8 +11,8 @@ encoder's K/V) in plain PyTorch on either device, as the JAX package does
 in plain XLA.  Cross-attention rotates q by RoPE and leaves the encoder's
 keys unrotated.  Tensors keep the JAX layout (B, S, H, D).
 
-On a device grid (``*_grid``, the dense family) the same per-tile code
-runs in lockstep over the tiles, laid out by the rules
+On a device grid (``*_grid``: the dense, MoE and vlm families) the same
+per-tile code runs in lockstep over the tiles, laid out by the rules
 (:class:`~repro_torch.models.common.GridRun`): with ``heads`` over
 ``model`` each tile projects and attends over its own q heads (and the KV
 heads they read; ``flash_attention`` launches once a tile) and the
@@ -278,7 +278,7 @@ def cross_attend_decode(cfg: ArchConfig, p: Params, x, enc_kv, pos: int):
 
 
 # ---------------------------------------------------------------------------
-# on a device grid (the dense family)
+# on a device grid
 # ---------------------------------------------------------------------------
 
 

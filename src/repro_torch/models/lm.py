@@ -29,17 +29,21 @@ group's layers stacked (:func:`params_tree`); :func:`params_view` gives the
 forward per-layer views of the stacks, so one gradient reaches each stack.
 
 On a device grid -- ``rules`` carrying one (``cm.attach_axis_sizes``) --
-``loss_fn``, ``init_cache``, ``prefill`` and ``decode_step`` run the dense
-family in lockstep over the tiles: parameters, batch, cache and outputs are
-per-tile values (:class:`~repro_torch.core.collectives.Sharded`, parameters
-as :func:`grid_view` gives them) laid out by the rules, the blocks' per-tile
+``loss_fn``, ``init_cache``, ``prefill`` and ``decode_step`` run the dense,
+MoE and vlm families in lockstep over the tiles: parameters, batch, cache
+and outputs are per-tile values
+(:class:`~repro_torch.core.collectives.Sharded`, parameters as
+:func:`grid_view` gives them) laid out by the rules, the blocks' per-tile
 code is the single-device code, and the collectives between them are
 counted.  The embedding and the loss work over vocab shards: each tile
 looks up the ids in its range and the tiles' rows are summed in order; the
 loss is a distributed log-sum-exp (the max, then the sum over the vocab
-shards).  A 1x1 grid in ``rules`` is no grid: every family runs the
-single-device code on single-device values; on a larger grid any family
-but dense raises ``NotImplementedError`` naming its ROADMAP.md item.
+shards).  An MoE layer runs the JAX ``apply_moe``'s mesh branches
+(``moe.apply_moe_grid``): its output, and so the model's, depends on the
+grid through the capacity per batch shard.  A 1x1 grid in ``rules`` is no
+grid: every family runs the single-device code on single-device values; on
+a larger grid the ssm, hybrid and encdec families raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -761,25 +765,24 @@ def _kv_len(cache: dict) -> int | None:
 
 
 # ---------------------------------------------------------------------------
-# on a device grid (the dense family; every family on a 1x1 grid)
+# on a device grid (dense, MoE and vlm; every family on a 1x1 grid)
 # ---------------------------------------------------------------------------
 
 # The ROADMAP.md Queue 1 item that brings each family onto a grid.
-GRID_ITEMS = {"moe": "item 9d (MoE on a grid)",
-              "hybrid": "item 9e (Mamba2 / zamba2 and RWKV6 on a grid)",
+GRID_ITEMS = {"hybrid": "item 9e (Mamba2 / zamba2 and RWKV6 on a grid)",
               "ssm": "item 9e (Mamba2 / zamba2 and RWKV6 on a grid)",
-              "vlm": "item 9f (chameleon on a grid)",
               "encdec": "item 9g (the encoder-decoder on a grid)"}
+GRID_FAMILIES = ("dense", "moe", "vlm")
 
 
 def require_grid_family(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` unless ``cfg``'s family runs on a grid
-    larger than 1x1 (the dense family does)."""
-    if cfg.family != "dense":
+    larger than 1x1 (:data:`GRID_FAMILIES` do)."""
+    if cfg.family not in GRID_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) does not run on a device grid yet: ROADMAP.md Queue 1 "
-            f"{GRID_ITEMS.get(cfg.family, 'item 9')}; only the dense family does (a 1x1 grid "
-            f"runs every family)")
+            f"{GRID_ITEMS.get(cfg.family, 'item 9')}; only the {', '.join(GRID_FAMILIES)} "
+            f"families do (a 1x1 grid runs every family)")
 
 
 def _grid_run(spec: LMSpec, rules) -> cm.GridRun | None:
@@ -882,29 +885,42 @@ def _xent_grid(cfg: ArchConfig, params, h: coll.Sharded, labels: coll.Sharded, r
     return [tot / (b * s) for tot in totals]
 
 
-def _block_grid(cfg: ArchConfig, bt: str, bp, h: coll.Sharded, run) -> coll.Sharded:
-    """One dense block over a per-tile sequence (training)."""
+def _ffn_grid(cfg: ArchConfig, bt: str, bp, x: coll.Sharded, run):
+    """The block's second half on a grid: (y, the MoE layer's aux or None)."""
+    if bt == "attn_moe":
+        return moe_mod.apply_moe_grid(cfg, run, bp.moe, x)
+    return mlp_mod.apply_mlp_grid(cfg, run, bp.mlp, x), None
+
+
+def _block_grid(cfg: ArchConfig, bt: str, bp, h: coll.Sharded, run):
+    """One attention block over a per-tile sequence (training): (h, aux or None)."""
     x = cm.apply_norm_grid(cfg, run, bp.ln1, h)
     h = _add(h, attn.attend_train_grid(cfg, run, bp.attn, x))
-    x = cm.apply_norm_grid(cfg, run, bp.ln2, h)
-    return _add(h, mlp_mod.apply_mlp_grid(cfg, run, bp.mlp, x))
+    y, aux = _ffn_grid(cfg, bt, bp, cm.apply_norm_grid(cfg, run, bp.ln2, h), run)
+    return _add(h, y), aux
 
 
 def _loss_grid(spec: LMSpec, params, batch: dict, run):
     cfg = spec.cfg
+    n = run.grid.n_tiles
     h = _embed_grid(cfg, params, batch["tokens"], run)
     remat = cfg.remat and torch.is_grad_enabled()
+    lb = [torch.zeros((), dtype=torch.float32, device=d) for d in run.grid.devices]
+    z = list(lb)
     for bt, bp in _walk(spec, params):
         def fn(*tiles, bt=bt, bp=bp, spec_=h.spec, shape=h.shape):
-            return tuple(_block_grid(cfg, bt, bp, coll.Sharded(tiles, spec_, shape), run))
+            out, aux = _block_grid(cfg, bt, bp, coll.Sharded(tiles, spec_, shape), run)
+            return tuple(out) + (() if aux is None else (*aux["lb_loss"], *aux["z_loss"]))
 
         out = checkpoint(fn, *h, use_reentrant=False) if remat else fn(*h)
-        h = coll.Sharded(out, h.spec, h.shape)
+        h = coll.Sharded(out[:n], h.spec, h.shape)
+        if len(out) > n:
+            lb = [a + c for a, c in zip(lb, out[n:2 * n])]
+            z = [a + c for a, c in zip(z, out[2 * n:])]
     x = cm.apply_norm_grid(cfg, run, params.final_norm, h)
     xent = _xent_grid(cfg, params, x, batch["labels"], run)
-    zeros = [torch.zeros((), dtype=torch.float32, device=d) for d in run.grid.devices]
-    loss = [xe + 0.01 * z + 0.001 * z for xe, z in zip(xent, zeros)]
-    return loss, {"xent": xent, "lb_loss": zeros, "z_loss": list(zeros)}
+    loss = [xe + 0.01 * a + 0.001 * c for xe, a, c in zip(xent, lb, z)]
+    return loss, {"xent": xent, "lb_loss": lb, "z_loss": z}
 
 
 def _init_cache_grid(spec: LMSpec, batch: int, s_max: int, run) -> dict:
@@ -920,6 +936,23 @@ def _init_cache_grid(spec: LMSpec, batch: int, s_max: int, run) -> dict:
                             kv, shape)
 
     return {"layers": [{"k": zeros(), "v": zeros()} for _ in spec.layers()], "pos": 0}
+
+
+def cache_to_grid(spec: LMSpec, cache: dict, rules) -> dict:
+    """A single-device cache (every block's K/V, as a prefill without a grid
+    leaves it) cut onto the grid in ``rules``: :func:`init_cache`'s tiles,
+    each holding its slice, at the same next position (a placement: no move
+    is counted)."""
+    run = _grid_run(spec, rules)
+    k0 = cache["layers"][0]["k"]
+    out = _init_cache_grid(spec, k0.shape[0], k0.shape[1], run)
+    for c, g in zip(cache["layers"], out["layers"], strict=True):
+        for name in ("k", "v"):
+            tiles = cm.shard_tree({"x": c[name]}, {"x": cm.Spec(*g[name].spec)}, run.grid)
+            for t, tile in enumerate(tiles):
+                g[name][t].copy_(tile["x"])
+    out["pos"] = cache["pos"]
+    return out
 
 
 def _write_prefill_grid(c: dict, k: coll.Sharded, v: coll.Sharded, run) -> None:
@@ -963,8 +996,7 @@ def _prefill_grid(spec: LMSpec, params, tokens: coll.Sharded, s_max: int, run):
         x = cm.apply_norm_grid(cfg, run, bp.ln1, h)
         y, k, v = attn.attend_prefill_grid(cfg, run, bp.attn, x)
         h = _add(h, y)
-        x = cm.apply_norm_grid(cfg, run, bp.ln2, h)
-        h = _add(h, mlp_mod.apply_mlp_grid(cfg, run, bp.mlp, x))
+        h = _add(h, _ffn_grid(cfg, bt, bp, cm.apply_norm_grid(cfg, run, bp.ln2, h), run)[0])
         _write_prefill_grid(c, k, v, run)
     cache["pos"] = s
     return _last_logits_grid(cfg, params, h, run), cache
@@ -981,6 +1013,5 @@ def _decode_grid(spec: LMSpec, params, token: coll.Sharded, cache: dict, run):
     for (bt, bp), c in zip(_walk(spec, params), cache["layers"], strict=True):
         x = cm.apply_norm_grid(cfg, run, bp.ln1, h)
         h = _add(h, attn.attend_decode_grid(cfg, run, bp.attn, x, (c["k"], c["v"]), pos))
-        x = cm.apply_norm_grid(cfg, run, bp.ln2, h)
-        h = _add(h, mlp_mod.apply_mlp_grid(cfg, run, bp.mlp, x))
+        h = _add(h, _ffn_grid(cfg, bt, bp, cm.apply_norm_grid(cfg, run, bp.ln2, h), run)[0])
     return _last_logits_grid(cfg, params, h, run), {**cache, "pos": pos + 1}

@@ -8,16 +8,24 @@ Temperature sampling is the Gumbel-max draw ``jax.random.categorical``
 makes, from a ``torch.Generator`` seeded with ``ServeConfig.seed``: the same
 distribution, not the same bits.
 
-On a device grid (``grid=``, the dense family) the engine holds the weights
-as per-tile trees laid out by the JAX engine's serve rules: the rules with
-``moe_gathered`` and ``embed_p`` / ``embed_d`` whole, so decode moves tokens
-and never weights (heads, d_ff and the vocab over ``model``, the cache's
-positions over ``model``).  Prompts and sampled tokens are laid out by
-``("batch",)``, as the JAX engine's ``_token_sharding``; each step's logits
-are gathered whole on the home device and sampled there with the one
-generator in the single-device order, so a grid samples the tokens a
-single device samples from the same logits.  Moves count under
-``lm.serve``.
+On a device grid (``grid=``: the dense, MoE and vlm families) the engine
+holds the weights once, as per-tile trees laid out by the JAX engine's
+decode rules: the arch's rules with ``moe_gathered`` and ``embed_p`` /
+``embed_d`` whole (heads, d_ff and the vocab over ``model``, the cache's
+positions over ``model``, the expert stacks over ``experts``' and
+``expert_embed``'s axes), so decode moves tokens, not weights.  Prefill
+runs under the JAX engine's prefill rules, which lack ``moe_gathered``
+(:func:`prefill_rules`): an MoE layer takes the batch shards' branch with
+its capacity per batch shard, as the JAX prefill does, and its tiles
+gather the slices of the expert stacks that branch reads (counted).  So
+does granite-moe's decode, whose experts are not sharded (the JAX
+gathered path's fallback).  The dense layers keep the decode layout,
+which gives them the same numbers.
+Prompts and sampled tokens are laid out by ``("batch",)``, as the JAX
+engine's ``_token_sharding``; each step's logits are gathered whole on the
+home device and sampled there with the one generator in the single-device
+order, so a grid samples the tokens a single device samples from the same
+logits.  Moves count under ``lm.serve``.
 """
 
 from __future__ import annotations
@@ -51,15 +59,22 @@ class ServeStats:
 
 
 def serve_rules(spec: lm.LMSpec, grid, rules=None) -> dict:
-    """The JAX engine's serve rules on ``grid``: ``rules`` (by default
+    """The JAX engine's decode rules on ``grid``: ``rules`` (by default
     ``multipod_rules`` on a pod grid, else ``DEFAULT_RULES``) with the arch's
     overrides, ``moe_gathered`` and every weight's d_model dim whole, the
-    grid attached and moves counted under ``lm.serve``."""
+    grid attached and moves counted under ``lm.serve``.  The weights are
+    stored by these rules."""
     g = cm.device_grid(grid)
     rules = rules or (cm.multipod_rules() if "pod" in g.axis_names else dict(cm.DEFAULT_RULES))
     rules = {**cm.arch_rules(spec.cfg, rules), "moe_gathered": True, "embed_p": None,
              "embed_d": None}
     return {**cm.attach_axis_sizes(rules, g), "_path": "lm.serve"}
+
+
+def prefill_rules(decode_rules: dict) -> dict:
+    """The JAX engine's prefill rules beside :func:`serve_rules`' decode
+    rules: without ``moe_gathered`` (the JAX ``make_prefill`` never adds it)."""
+    return {k: v for k, v in decode_rules.items() if k != "moe_gathered"}
 
 
 class ServeEngine:
@@ -81,13 +96,14 @@ class ServeEngine:
     def __init__(self, spec: lm.LMSpec, params, s_max: int, batch: int = 0,
                  cfg: ServeConfig = ServeConfig(), device="cuda", *, grid=None, rules=None):
         self.spec, self.cfg, self.s_max, self.batch = spec, cfg, s_max, batch
-        self.grid = self.rules = None
+        self.grid = self.rules = self.prefill_rules = None
         g = cm.device_grid(grid) if grid is not None else None
         if g is not None:
             device = g.home
             if not g.is_trivial:
                 lm.require_grid_family(spec.cfg)
                 self.grid, self.rules = g, serve_rules(spec, g, rules)
+                self.prefill_rules = prefill_rules(self.rules)
         self.device = resolve_device(device)
         cast = cm.cast_for_compute(params, spec.cfg.cdtype, self.device)
         if self.grid is None:
@@ -120,7 +136,7 @@ class ServeEngine:
             raise ValueError("frames: the encoder-decoder family does not run on a grid")
         t0 = time.perf_counter()
         logits, cache = lm.prefill(self.spec, self.params, self._place(tokens, ("batch", "seq")),
-                                   self.s_max, frames=fr, rules=self.rules)
+                                   self.s_max, frames=fr, rules=self.prefill_rules)
         tok = self._sample(self._whole(logits), gen)
         out = [tok]
         self._sync()

@@ -14,9 +14,9 @@ their ``autograd.Function``s, whose backward recomputes the plain chunked
 forms, as the JAX package differentiates its plain scans.  Parameters and
 moments are updated in place.
 
-On a device grid (``make_train_step(..., grid=)``, the dense family) the
-parameters and optimizer state are per-tile trees laid out by the sanitized
-``lm.params_tree_axes`` specs and the optimizer's state specs
+On a device grid (``make_train_step(..., grid=)``: the dense, MoE and vlm
+families) the parameters and optimizer state are per-tile trees laid out
+by the sanitized ``lm.params_tree_axes`` specs and the optimizer's state specs
 (:func:`init_state` makes them, ``models.common.shard_tree`` /
 ``unshard_tree`` convert), the batch is laid out by ``(batch, seq)``, and
 the forward is ``lm.loss_fn`` on the grid: autograd through its

@@ -1265,3 +1265,42 @@ def test_grid_serve_on_one_card_matches_1x1(dev):
         want = cfg.n_layers * (1 if grid is None else 4)
         assert kernels.launch_counts()["flash_attention"] == want
     np.testing.assert_array_equal(outs[0], outs[1])
+
+
+def _chip_smoke():
+    """The repo's ``chip_smoke.py`` as a module: its phase-18 routines hold
+    the card's grid against the CPU's and stop (SystemExit) at the first
+    gate that fails."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "llama4-maverick-400b-a17b"])
+def test_moe_grid_on_card_matches_cpu_grid(dev, arch):
+    """fp32, the card's 2x2 grid against the CPU's (granite-moe at full width
+    and depth 2, llama4 at its SMOKE config): greedy tokens equal, prefill
+    logits within 1e-3 of the largest, expert ids and kept masks equal on
+    every tile and layer (flips only between the CPU's probabilities within
+    1e-5, and each tile compared up to its first flipped token), the train
+    step's loss and grad norm within 1e-5; flash_attention launched once a
+    tile an attention block in prefill, and by no CPU tile."""
+    out = _chip_smoke()._moegrid_card_vs_cpu(torch, arch)
+    assert out["tokens_equal"]
+    assert out["logits_err"] <= 1e-3 * out["max_logit"]
+    assert all(v <= 1e-5 for v in out["train_rel"].values())
+
+
+def test_llama4_gathered_decode_on_card_matches_1x1(dev):
+    """llama4 SMOKE (fp32) on the card: from one 1x1 prefill's cache, the
+    gathered decode step of a 2x2 and a 1x4 grid of the card (one capacity
+    over the batch, as 1x1) gives the 1x1 step's logits within 1e-3 of the
+    largest."""
+    out = _chip_smoke()._moegrid_decode_vs_1x1(torch)
+    assert set(out) == {"2x2", "1x4"}
+    assert all(v["err"] <= 1e-3 * v["max_logit"] for v in out.values())
