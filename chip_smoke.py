@@ -244,14 +244,32 @@ Phases, in order; any failure exits non-zero:
    and llama4 at SMOKE (tokens equal, logits within 1e-3 of the largest,
    expert ids and kept masks, one train step's loss and grad norm within
    1e-5); llama4 SMOKE's gathered decode step on 2x2 and 1x4 against 1x1
-   from one cache (logits within 1e-3); its seconds (aim: under 150).
+   from one cache (logits within 1e-3); its seconds (aim: under 150);
+19. the last LM families on a 2x2 grid of the one card (``[famgrid]``
+   lines): rwkv6-3b, zamba2-7b (81 layers, its 13 shared-block calls) and
+   seamless-m4t-medium (12 + 12 layers, over frames (4, 1024, 1024)) at
+   full width and depth, served with phase 9's requests (8 greedy tokens):
+   exact launches (``wkv`` 4 x 32, ``flash_attention`` 4 x 13 on the SIMT
+   route at D=224 and 4 x 36 on ``wgmma`` by (S, T, causal), none in
+   decode), time to first token, decode ms a step and peak (<= 76 GB, also
+   while the engine cuts its tiles) beside the 1x1 phases 9, 13 and 14, the
+   bytes a prefill and a decode step move by kind, each tile's parameter
+   bytes equal to the dry run's decode_32k ``argument_bytes``, and each
+   tile form of the kernels (``wkv`` (40, 1024, 64)) against its plain
+   version, twice bitwise, timed beside its bound and SDPA; rwkv6-3b at 4
+   of its 32 layers trained 2 steps (AdamW, bf16, remat: ``wkv`` twice a
+   layer a tile, its tiles' state equal to the dry run's); the card's 2x2
+   grid against the CPU's in fp32 (zamba2 at depth 7, rwkv6 at 2, seamless
+   at 2 + 2 over 64 frames: tokens equal, logits within 1e-3 of the
+   largest, one train step's loss and grad norm within 1e-5); its seconds
+   (aim: under 150).
 
 A copy of the script beside another tree's ``src/`` (a parent commit's
 ``git archive``) runs the same phases on that tree's package, so both trees
 are measured by the same code in one call.
 
 The line before the last is the JSON ``kernels`` table (``launches`` sums
-the main paths of phases 3, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 17 and 18;
+the main paths of phases 3, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 17, 18 and 19;
 ``launches_by_path`` splits them); the last line is ``{"ok": true,
 "device": {...}}``.  It imports neither JAX nor the JAX package.  Long logs go to ``OUT``, a gitignored directory beside
 the script; the on-disk stores of phases 5, 7, 8, 10 and 12 and phase 15's
@@ -5210,6 +5228,442 @@ def phase_moegrid(torch, rows: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: RWKV6, zamba2 (Mamba2 + the shared block) and seamless on a grid
+# ---------------------------------------------------------------------------
+
+# (arch, the kernel its prefill launches, the phase it is served at 1x1 in)
+FAMGRID_SERVE = (("rwkv6-3b", "wkv", 9), ("zamba2-7b", "flash_attention", 13),
+                 (SEAMLESS, "flash_attention", 14))
+FAMGRID_NEW = 8  # greedy tokens a request on the grid (phases 9, 13 and 14 serve 32 at 1x1)
+FAMGRID_TRAIN = "rwkv6-3b"  # phase 15's third model at its depth and batch
+FAMGRID_TRAIN_DEPTH, FAMGRID_TRAIN_BATCH, FAMGRID_TRAIN_SEQ, FAMGRID_TRAIN_STEPS = 4, 4, 512, 2
+FAMGRID_PEAK_GB = 76.0
+# the card's 2x2 grid against the CPU's, fp32, full width at these depths
+# (zamba2 7: the shared block runs once; seamless 2 + 2)
+FAMGRID_CHECK_DEPTH = {"zamba2-7b": 7, "rwkv6-3b": 2, SEAMLESS: 2}
+FAMGRID_CHECK_FRAMES = 64  # seamless's encoder positions in that check
+FAMGRID_RTOL = 1e-5  # card grid against CPU grid, fp32: train loss and grad norm, relative
+FAMGRID_BUDGET_S = 150.0  # the phase's aim (printed; not a gate)
+
+
+class _WKVShapes:
+    """Records the (B*H, S, D) form of every ``wkv`` call while installed and
+    how many calls each took; the wrapper still counts its launches."""
+
+    def __init__(self, wk):
+        self.wk, self.forms = wk, {}
+
+    def __enter__(self):
+        self.orig = self.wk.wkv
+
+        def spy(r, k, v, lw, u, **kw):
+            self.forms[tuple(r.shape)] = self.forms.get(tuple(r.shape), 0) + 1
+            return self.orig(r, k, v, lw, u, **kw)
+
+        self.wk.wkv = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.wk.wkv = self.orig
+        return False
+
+
+def _famgrid_want(spec, kernel: str, n_tiles: int, counts: dict) -> dict:
+    """The exact launches of one grid generate: every tile once a recurrent
+    or attention call in prefill (seamless: the encoder, each decoder
+    block's self- and cross-attention), none in decode; flash_attention on
+    the tensor-core route at D=64 (seamless), the SIMT one at D=224 (zamba2)."""
+    want = {name: 0 for name in counts}
+    if kernel == "wkv":
+        want["wkv"] = n_tiles * spec.layers().count("rwkv")
+        return want
+    n = (_attention_blocks(spec) if not spec.is_encdec
+         else len(spec.enc_layers()) + 2 * len(spec.layers()))
+    want["flash_attention"] = n_tiles * n
+    if spec.is_encdec:
+        want["flash_attention_wgmma"] = n_tiles * n
+    return want
+
+
+def _famgrid_serve(torch, arch: str, kernel: str, one: dict) -> dict:
+    """One model at full width and depth on a 2x2 grid of the card, phase 9's
+    requests (seamless over frames (4, 1024, 1024), drawn after the prompts
+    as the launcher draws them), FAMGRID_NEW greedy tokens: exact launches
+    (by (S, T, causal) for seamless), time to first token, decode ms a step,
+    peak memory while the engine cuts its tiles and while it serves (<=
+    FAMGRID_PEAK_GB), the bytes a prefill and a decode step move by kind,
+    each tile's parameter bytes against the dry run's decode_32k cell, and
+    the kernel at each tile form a prefill gave it against its plain
+    version, twice bitwise, timed beside its bound (and SDPA)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch import configs, kernels
+    from repro_torch.core.collectives import lm_moves
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv as wk
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import as_grid
+    from repro_torch.models import common as cm
+    from repro_torch.models import lm
+    from repro_torch.serving import ServeConfig, ServeEngine
+    from repro_torch.tree import tree_leaves
+
+    t_model = time.perf_counter()
+    cfg = configs.get_config(arch)
+    spec = lm.build_spec(cfg)
+    grid = _grid_of(torch, 2, 2)
+    g = as_grid(grid)
+    s_max = SERVE_PROMPT + FAMGRID_NEW
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(spec, seed=0, device="cuda")
+    n_params = lm.param_count(params)
+    eng = ServeEngine(spec, params, s_max=s_max, batch=SERVE_BATCH, device="cuda", grid=grid,
+                      cfg=ServeConfig(max_new_tokens=FAMGRID_NEW))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if init_peak > FAMGRID_PEAK_GB:
+        fail(f"famgrid serve {arch}: peak {init_peak:.2f} GB > {FAMGRID_PEAK_GB:g} GB while the "
+             f"engine cuts its tiles")
+    tile_bytes = [sum(x.numel() * x.element_size() for x in tree_leaves(t)) for t in eng.tiles]
+    cell = dryrun.argument_bytes(spec, configs.SHAPES_BY_NAME["decode_32k"], g,
+                                 dict(cm.DEFAULT_RULES), "adamw",
+                                 compute_cast=True)["param_bytes_per_tile"]
+    if set(tile_bytes) != {cell}:
+        fail(f"famgrid serve {arch}: per-tile parameter bytes {tile_bytes} != the dry run's "
+             f"decode_32k argument bytes {cell} ({cfg.compute_dtype} matrices)")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, size=(SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    frames = (rng.normal(size=(SERVE_BATCH, SEAMLESS_FRAMES, cfg.d_model)).astype(np.float32)
+              if spec.is_encdec else None)
+    run = cm.GridRun(eng.rules)
+
+    def place(p, f):
+        return (run.place(torch.from_numpy(p).long().cuda(), ("batch", "seq")),
+                None if f is None else run.place(torch.from_numpy(f).cuda(),
+                                                 ("batch", "seq", "embed")))
+
+    with torch.inference_mode():  # the one warm-up: a short prefill and one decode step
+        tok0, fr0 = place(prompts[:, :64], None if frames is None else frames[:, :64])
+        lg, cache = lm.prefill(spec, eng.params, tok0, s_max, frames=fr0,
+                               rules=eng.prefill_rules)
+        lm.decode_step(spec, eng.params, run.place(eng._whole(lg).argmax(-1), ("batch",)),
+                       cache, rules=eng.rules)
+        del lg, cache, tok0, fr0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    m0 = lm_moves()
+    with _FlashShapes(fa) as shapes, _WKVShapes(wk) as wshapes:
+        toks = eng.generate(prompts, frames=frames)
+    counts = kernels.launch_counts()
+    moved = _moved(torch, m0, "lm.serve")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    st = eng.stats
+    want = _famgrid_want(spec, kernel, g.n_tiles, counts)
+    if counts != want:
+        fail(f"famgrid serve {arch}: launch counts {counts} != {want}")
+    if spec.is_encdec:
+        per_tile = _seamless_calls(len(spec.enc_layers()), len(spec.layers()), SERVE_PROMPT,
+                                   SEAMLESS_FRAMES)
+        if shapes.summary() != {k: g.n_tiles * v for k, v in per_tile.items()}:
+            fail(f"famgrid serve {arch}: flash_attention calls {shapes.summary()} != "
+                 f"{g.n_tiles} x {per_tile}")
+    if toks.shape != (SERVE_BATCH, FAMGRID_NEW) or toks.min() < 0 or toks.max() >= cfg.vocab:
+        fail(f"famgrid serve {arch}: tokens of shape {toks.shape} in [{toks.min()}, "
+             f"{toks.max()}]")
+    if peak > FAMGRID_PEAK_GB:
+        fail(f"famgrid serve {arch}: peak {peak:.2f} GB > {FAMGRID_PEAK_GB:g} GB")
+    with torch.inference_mode():
+        tiles, fr = place(prompts, frames)
+        m0 = lm_moves()
+        logits, cache = lm.prefill(spec, eng.params, tiles, s_max, frames=fr,
+                                   rules=eng.prefill_rules)
+        pre_moved = _moved(torch, m0, "lm.serve")
+        m0 = lm_moves()
+        lg, cache = lm.decode_step(spec, eng.params,
+                                   run.place(eng._whole(logits).float().argmax(-1), ("batch",)),
+                                   cache, rules=eng.rules)
+        dec_moved = _moved(torch, m0, "lm.serve")
+        if not bool(torch.isfinite(eng._whole(lg)[:, :cfg.vocab].float()).all()):
+            fail(f"famgrid serve {arch}: decode logits not finite")
+    del logits, cache, lg, tiles, fr
+    step_ms = st.decode_s / st.decode_steps * 1e3
+    route, hd = ("wgmma", cfg.hd) if spec.is_encdec else _flash_route(spec, fa)
+    what = (f"wkv {counts['wkv']} launches ({g.n_tiles} tiles x {cfg.n_layers} layers)"
+            if kernel == "wkv" else
+            f"flash_attention {counts['flash_attention']} launches ({g.n_tiles} tiles, the "
+            f"{route} route at D={hd})" + (f": {shapes.summary()}" if spec.is_encdec else ""))
+    log(f"[famgrid] serve {arch} ({n_params / 1e9:.3f} B params, full width and depth, bf16 "
+        f"compute) on a 2x2 grid of the card (init {init_s:.1f} s, peak {init_peak:.2f} GB with "
+        f"the weights and the tiles): batch {SERVE_BATCH} x prompt {SERVE_PROMPT}"
+        + (f" over frames ({SERVE_BATCH}, {SEAMLESS_FRAMES}, {cfg.d_model})" if frames is not None
+           else "")
+        + f", {FAMGRID_NEW} greedy tokens: time to first token {st.ttft_s * 1e3:.1f} ms (1x1, "
+        f"this run's phase {_famgrid_phase(arch)}: {one['ttft_ms']:.1f}); decode {step_ms:.2f} "
+        f"ms/step (1x1: {one['decode_ms_per_step']:.2f}); peak {peak:.2f} GB (1x1: "
+        f"{one['peak_gb']:.2f}); {what}, none in decode; tiles {tile_bytes[0]} B of parameters "
+        f"each = the dry run's decode_32k argument bytes")
+    log(f"[famgrid] serve {arch} moved between grid positions: prefill {_fmt_moved(pre_moved)}; "
+        f"one decode step {_fmt_moved(dec_moved)}; the whole generate {_fmt_moved(moved)}")
+    out = {"n_layers": cfg.n_layers, "grid": [2, 2], "counts": counts, "init_s": init_s,
+           "init_peak_gb": init_peak, "ttft_ms": st.ttft_s * 1e3, "decode_ms_per_step": step_ms,
+           "peak_gb": peak, "tile_param_bytes": tile_bytes[0], "dryrun_param_bytes_per_tile": cell,
+           "moved_prefill": pre_moved, "moved_decode_step": dec_moved, "moved_generate": moved,
+           "first_tokens": toks[0].tolist(), "calls": shapes.summary(),
+           "one_by_one": {k: one[k] for k in ("ttft_ms", "decode_ms_per_step", "peak_gb")}}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the kernel at each tile form a prefill gave it (random inputs of those shapes)
+    out["kernel_forms"] = {}
+    for shape, n in wshapes.forms.items():
+        name = f"{arch} 2x2 tile r/k/v {shape} bf16"
+        out["kernel_forms"][name] = _wkv_form(torch, name, *shape) | {"calls_per_prefill": n}
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for (qs, ks, grp, causal, dt), n in shapes.forms.items():
+        name = (f"{arch} 2x2 tile q {qs} k/v {ks} {str(dt).removeprefix('torch.')} "
+                f"{'causal' if causal else 'non-causal'}, groups {grp}")
+        q, k, v = (torch.randn(x, generator=gen, device="cuda").to(dt) for x in (qs, ks, ks))
+        out["kernel_forms"][name] = _flash_form(
+            torch, fa, ref, name, q, k, v, causal, grp, 2.0**-7 if dt == torch.bfloat16 else 1e-4,
+            sdpa, route=route) | {"calls_per_prefill": n}
+        del q, k, v
+    out["seconds"] = time.perf_counter() - t_model
+    return out
+
+
+def _famgrid_phase(arch: str) -> int:
+    return next(p for a, _, p in FAMGRID_SERVE if a == arch)
+
+
+def _famgrid_train(torch) -> dict:
+    """rwkv6-3b at full width and FAMGRID_TRAIN_DEPTH of its 32 layers on the
+    2x2 grid (AdamW, bf16 compute, remat) through ``train_loop(grid=)``, phase
+    15's batch: loss, grad norm, ms a step, peak memory, moved bytes a step,
+    exact launches (four tiles, wkv twice a layer a step under remat), each
+    tile's state against the dry run's train_4k argument bytes."""
+    import gc
+
+    from repro_torch import configs, kernels
+    from repro_torch.core.collectives import lm_moves
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import as_grid
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import common as cm
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+
+    cfg = configs.get_config(FAMGRID_TRAIN).replace(n_layers=FAMGRID_TRAIN_DEPTH)
+    spec = lm.build_spec(cfg)
+    grid = _grid_of(torch, 2, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    m0 = lm_moves()
+    hist: list = []
+    params, opt, _ = train_loop(cfg, steps=FAMGRID_TRAIN_STEPS, batch=FAMGRID_TRAIN_BATCH,
+                                seq=FAMGRID_TRAIN_SEQ, device="cuda", grid=grid, history=hist,
+                                log_every=100)
+    counts = kernels.launch_counts()
+    moved = _moved(torch, m0, "lm.train")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = {name: 0 for name in counts} | {"wkv": 4 * 2 * cfg.n_layers * FAMGRID_TRAIN_STEPS}
+    if counts != want:
+        fail(f"famgrid train {FAMGRID_TRAIN}: launch counts {counts} != {want}")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist):
+        fail(f"famgrid train: non-finite loss or grad norm {hist}")
+    if peak > FAMGRID_PEAK_GB:
+        fail(f"famgrid train: peak {peak:.2f} GB > {FAMGRID_PEAK_GB} GB")
+    cell = dryrun.argument_bytes(spec, configs.SHAPES_BY_NAME["train_4k"], as_grid(grid),
+                                 dict(cm.DEFAULT_RULES), cfg.optimizer)
+    pb = [sum(x.numel() * x.element_size() for x in tree_leaves(p)) for p in params]
+    ob = [sum(x.numel() * x.element_size() for x in tree_leaves(o)) for o in opt]
+    if set(pb) != {cell["param_bytes_per_tile"]} or set(ob) != {cell["opt_state_bytes_per_tile"]}:
+        fail(f"famgrid train: per-tile bytes {pb} / {ob} != the dry run's "
+             f"{cell['param_bytes_per_tile']} / {cell['opt_state_bytes_per_tile']}")
+    ms = hist[-1]["seconds"] * 1e3
+    tokens = FAMGRID_TRAIN_BATCH * FAMGRID_TRAIN_SEQ
+    log(f"[famgrid] train {FAMGRID_TRAIN} at full width, {cfg.n_layers} of 32 layers, on a 2x2 "
+        f"grid of the card (AdamW, bf16 compute, remat; batch {FAMGRID_TRAIN_BATCH} x "
+        f"{FAMGRID_TRAIN_SEQ}): "
+        + "; ".join(f"step {i} loss {h['loss']:.4f} grad norm {h['grad_norm']:.4f} "
+                    f"{h['seconds'] * 1e3:.1f} ms" for i, h in enumerate(hist))
+        + f"; {tokens / ms * 1e3:.0f} tokens/s after the first; peak {peak:.2f} GB; wkv "
+        f"{counts['wkv']} launches (4 tiles x 2 x {cfg.n_layers} x {FAMGRID_TRAIN_STEPS}); moved "
+        f"a step: {_fmt_moved(moved, FAMGRID_TRAIN_STEPS)}; per tile {pb[0]} B of parameters "
+        f"and {ob[0]} B of AdamW state = the dry run's")
+    out = {"counts": counts, "depth": cfg.n_layers, "history": hist, "peak_gb": peak,
+           "ms_per_step": ms, "moved": moved, "param_bytes_per_tile": pb[0],
+           "opt_bytes_per_tile": ob[0]}
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _famgrid_card_vs_cpu(torch, arch: str) -> dict:
+    """The card's 2x2 grid against the CPU's, fp32, the same weights (drawn on
+    the card, seed 0) and inputs, full width at FAMGRID_CHECK_DEPTH: serving
+    batch 2 x a prompt of 100 (seamless over FAMGRID_CHECK_FRAMES frames), 8
+    greedy tokens equal, last-position logits within 1e-3 of the largest,
+    the card's launches exact (every tile once a call in prefill) and none
+    on the CPU; one AdamW step at batch 2 x 64 on each grid and on each
+    device's 1x1: each grid's loss and grad norm within FAMGRID_RTOL of its
+    1x1 step's, and the card grid's within FAMGRID_RTOL of the CPU grid's
+    (rwkv6's grad norm within phase 15's TRAIN_FP32_RTOL)."""
+    import numpy as np
+
+    from repro_torch import configs, kernels
+    from repro_torch.data import DataConfig, host_batch
+    from repro_torch.models import common as cm
+    from repro_torch.models import lm
+    from repro_torch.serving import ServeConfig, ServeEngine
+    from repro_torch.training import OptConfig, make_train_step
+    from repro_torch.training import optim
+    from repro_torch.training import train_step as ts
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    full = configs.get_config(arch)
+    depth = FAMGRID_CHECK_DEPTH[arch]
+    over = {"n_layers": depth, "compute_dtype": "float32"}
+    if full.family == "encdec":
+        over |= {"enc_layers": depth, "dec_layers": depth, "n_layers": 2 * depth}
+    cfg = full.replace(**over)
+    spec = lm.build_spec(cfg)
+    kernel = "wkv" if cfg.rwkv else "flash_attention"
+    params = lm.init_params(spec, seed=0, device="cuda")
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, cfg.vocab, size=(2, 100)).astype(np.int32)
+    frames = (rng.normal(size=(2, FAMGRID_CHECK_FRAMES, cfg.d_model)).astype(np.float32)
+              if spec.is_encdec else None)
+    ocfg = OptConfig(name=cfg.optimizer, lr=1e-3, warmup_steps=5, total_steps=10)
+    batch = host_batch(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2, seed=0,
+                                  frames_dim=cfg.d_model if spec.is_encdec else 0), 0)
+    whole = lm.params_tree(spec, params)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        grid = _grid_of(torch, 2, 2, dev)
+        eng = ServeEngine(spec, params, s_max=108, cfg=ServeConfig(max_new_tokens=8),
+                          device=dev, grid=grid)
+        kernels.reset_launch_counts()
+        toks = eng.generate(prompts, frames=frames)
+        counts = kernels.launch_counts()
+        want = (_famgrid_want(spec, kernel, 4, counts) if dev == "cuda"
+                else {name: 0 for name in counts})
+        if dev == "cuda":  # fp32 takes the SIMT route at every D
+            want["flash_attention_wgmma"] = 0
+        if counts != want:
+            fail(f"famgrid {arch} on the {dev} grid: launches {counts}, want {want}")
+        run = cm.GridRun(eng.rules)
+        with torch.inference_mode():
+            lg, _ = lm.prefill(spec, eng.params,
+                               run.place(torch.from_numpy(prompts).long().to(dev),
+                                         ("batch", "seq")), 108,
+                               frames=None if frames is None else run.place(
+                                   torch.from_numpy(frames).to(dev), ("batch", "seq", "embed")),
+                               rules=eng.prefill_rules)
+        lg = eng._whole(lg)[:, :cfg.vocab].float().cpu()
+        del eng
+        pspecs, _ = ts.grid_specs(spec, ocfg, grid)
+        tiles = cm.shard_tree(tree_map(lambda t: t.detach().requires_grad_(True), whole),
+                              pspecs, grid)
+        opt = [optim.make_optimizer(ocfg)[0](p) for p in tiles]
+        _, _, m = make_train_step(spec, ocfg, grid=grid)(tiles, opt, batch)
+        del tiles, opt
+        # the 1x1 step's loss and grad norm (its update changes neither)
+        one = tree_map(lambda t: t.detach().to(dev, copy=True).requires_grad_(True), whole)
+        loss1, _, g1 = ts.make_loss_and_grad(spec)(one, ts.batch_to_device(batch, dev))
+        gn1 = optim.global_norm(g1)
+        del one, g1
+        res[dev] = (toks, lg, {k: float(m[k]) for k in ("loss", "grad_norm")}, counts,
+                    {"loss": float(loss1), "grad_norm": float(gn1)})
+    del params, whole
+    card, cpu = res["cuda"], res["cpu"]
+    if not np.array_equal(card[0], cpu[0]):
+        fail(f"famgrid {arch} card vs CPU grid: greedy tokens differ: {card[0].tolist()} vs "
+             f"{cpu[0].tolist()}")
+    err, scale = check_close(f"famgrid {arch} card vs CPU grid prefill logits", card[1], cpu[1],
+                             1e-3)
+
+    def rel_of(a, b):
+        return {k: abs(a[k] - b[k]) / abs(b[k]) for k in a}
+
+    # the grid against its own device's 1x1 step, then the two devices' grids
+    own = {d: rel_of(res[d][2], res[d][4]) for d in res}
+    for d, r in own.items():
+        if not all(v <= FAMGRID_RTOL for v in r.values()):
+            fail(f"famgrid {arch} {d} 2x2 grid vs {d} 1x1: train step {res[d][2]} against "
+                 f"{res[d][4]}: relative {r} > {FAMGRID_RTOL:g}")
+    rel = rel_of(card[2], cpu[2])
+    # rwkv6's gradient at init amplifies the last bits of its position-0 group
+    # norm (TRAIN_GNORM_UNGATED, ROADMAP Queue 3): its grad norm, card against
+    # CPU, is gated as phase 15 gates it, and printed beside the 1x1 steps'
+    tol = {"loss": FAMGRID_RTOL,
+           "grad_norm": TRAIN_FP32_RTOL if arch in TRAIN_GNORM_UNGATED else FAMGRID_RTOL}
+    rel_one = rel_of(card[4], cpu[4])
+    if not all(rel[k] <= tol[k] for k in rel):
+        fail(f"famgrid {arch} card vs CPU grid: train step {card[2]} against {cpu[2]}: relative "
+             f"{rel} > {tol} (1x1 card vs CPU: {rel_one})")
+    setup = (f"full width, {depth} + {depth} layers over {FAMGRID_CHECK_FRAMES} frames"
+             if spec.is_encdec else f"full width, depth {depth}")
+    log(f"[famgrid] {arch} card 2x2 grid vs CPU 2x2 grid ({setup}, fp32, "
+        f"{time.perf_counter() - t0:.1f} s): batch 2 x prompt 100, 8 greedy tokens equal, "
+        f"{kernel} launched {card[3][kernel]} times on the card; prefill logits max |diff| "
+        f"{err:.3e} (tol 1e-3 x max|logit| {scale:.3e}); one {cfg.optimizer} step at batch 2 x 64: "
+        f"loss {card[2]['loss']:.6f} (rel {rel['loss']:.2e}), grad norm "
+        f"{card[2]['grad_norm']:.6f} (rel {rel['grad_norm']:.2e}; tol {tol['grad_norm']:g}); "
+        f"1x1 card vs CPU rel loss {rel_one['loss']:.2e}, grad norm {rel_one['grad_norm']:.2e}; "
+        f"2x2 vs 1x1 on the card {own['cuda']['loss']:.2e} / {own['cuda']['grad_norm']:.2e}, "
+        f"on the CPU {own['cpu']['loss']:.2e} / {own['cpu']['grad_norm']:.2e} (tol "
+        f"{FAMGRID_RTOL:g})")
+    return {"setup": setup, "tokens_equal": True, "logits_err": err, "max_logit": scale,
+            "train": card[2], "train_cpu": cpu[2], "train_rel": rel, "train_tol": tol,
+            "train_1x1": card[4], "train_1x1_cpu": cpu[4], "train_rel_1x1": rel_one,
+            "grid_vs_1x1": own, "card_counts": card[3], "seconds": time.perf_counter() - t0}
+
+
+def phase_famgrid(torch, rows: list, one: dict) -> dict:
+    """Phase 19: the last LM families on a 2x2 grid of the one card --
+    rwkv6-3b, zamba2-7b and seamless-m4t-medium served at full width and
+    depth, rwkv6-3b trained at 4 of its 32 layers, each tile form of their
+    kernels against its plain version, and the card's grid against the
+    CPU's in fp32.  ``one``: each model's 1x1 serve figures (phases 9, 13, 14)."""
+    import gc
+
+    t_phase = time.perf_counter()
+    log(f"[famgrid] phase 19 starts with {torch.cuda.memory_allocated() / 1e9:.2f} GB in use")
+    out = {"serve": {}}
+    for arch, kernel, _ in FAMGRID_SERVE:
+        out["serve"][arch] = _famgrid_serve(torch, arch, kernel, one[arch])
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in ("wkv", "flash_attention"):
+        next(r for r in rows if r["name"] == name)["famgrid_forms"] = {
+            k: v for a in out["serve"].values() for k, v in a["kernel_forms"].items()
+            if k.split(" ")[3] == ("r/k/v" if name == "wkv" else "q")}
+    out["train"] = _famgrid_train(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = {arch: _famgrid_card_vs_cpu(torch, arch) for arch, *_ in FAMGRID_SERVE}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[famgrid] phase 19 in {out['seconds']:.1f} s (aim: under {FAMGRID_BUDGET_S:g} s; "
+        + ", ".join(f"{a} serve {v['seconds']:.1f}" for a, v in out["serve"].items())
+        + ", card vs CPU " + ", ".join(f"{a} {v['seconds']:.1f}"
+                                       for a, v in out["card_vs_cpu"].items()) + ")")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
@@ -5289,6 +5743,9 @@ def main() -> int:
     lmgrid = phase_lmgrid(torch, serve)
     torch.cuda.empty_cache()
     moegrid = phase_moegrid(torch, rows)
+    torch.cuda.empty_cache()
+    famgrid = phase_famgrid(torch, rows, {"rwkv6-3b": serve["rwkv6-3b"],
+                                          "zamba2-7b": serve2["zamba2-7b"], SEAMLESS: seamless})
     for row in rows:
         by_path = {"resident": resident["counts"][row["name"]],
                    "oocore": oocore["counts"][row["name"]],
@@ -5310,6 +5767,9 @@ def main() -> int:
         by_path |= {f"moegrid serve {arch}": moegrid["serve"][arch]["counts"][row["name"]]
                     for arch, *_ in MOEGRID_SERVE}
         by_path[f"moegrid train {MOEGRID_TRAIN}"] = moegrid["train"]["counts"][row["name"]]
+        by_path |= {f"famgrid serve {arch}": famgrid["serve"][arch]["counts"][row["name"]]
+                    for arch, *_ in FAMGRID_SERVE}
+        by_path[f"famgrid train {FAMGRID_TRAIN}"] = famgrid["train"]["counts"][row["name"]]
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if row["name"] == "flash_attention":
@@ -5322,7 +5782,9 @@ def main() -> int:
                 + lmgrid["train"]["counts"]["flash_attention_wgmma"]
                 + sum(moegrid["serve"][arch]["counts"]["flash_attention_wgmma"]
                       for arch, *_ in MOEGRID_SERVE)
-                + moegrid["train"]["counts"]["flash_attention_wgmma"])
+                + moegrid["train"]["counts"]["flash_attention_wgmma"]
+                + sum(famgrid["serve"][arch]["counts"]["flash_attention_wgmma"]
+                      for arch, *_ in FAMGRID_SERVE))
         if row["name"] == "stream_gemm":
             row["launches_tc"] = (oocore["counts"]["stream_gemm_tc"]
                                   + incremental["oocore"]["counts"]["stream_gemm_tc"]
@@ -5344,6 +5806,8 @@ def main() -> int:
     (OUT / "chip_smoke_lmgrid.json").write_text(json.dumps({"card": smi, **lmgrid}, indent=1,
                                                            default=str))
     (OUT / "chip_smoke_moegrid.json").write_text(json.dumps({"card": smi, **moegrid}, indent=1,
+                                                            default=str))
+    (OUT / "chip_smoke_famgrid.json").write_text(json.dumps({"card": smi, **famgrid}, indent=1,
                                                             default=str))
     (OUT / "chip_smoke_grid.json").write_text(json.dumps(
         {"card": smi, **grid, "phase 12 (out of core on the grid)": grid_oocore}, indent=1,

@@ -78,8 +78,10 @@ def global_batch_for(cfg: DataConfig, step: int, grid, spec) -> dict:
     per-tile ``tokens`` and ``labels`` (``collectives.Sharded``, int32, each
     on its tile's device), each tile's rows and positions generated from the
     counter hash for those rows alone -- no tile reads another's, no host
-    holds the whole batch.  The tiles put together are :func:`host_batch`'s
-    arrays, bit for bit."""
+    holds the whole batch.  With ``cfg.frames_dim`` also ``frames`` (B, S,
+    frames_dim) float32, laid out by ``spec`` on (batch, seq), the feature
+    dim whole.  The tiles put together are :func:`host_batch`'s arrays, bit
+    for bit."""
     from repro_torch.core.collectives import Sharded, entry_axes
     from repro_torch.models.common import sanitize_spec
     from repro_torch.launch.mesh import as_grid
@@ -89,14 +91,23 @@ def global_batch_for(cfg: DataConfig, step: int, grid, spec) -> dict:
     sp = tuple(sanitize_spec(spec, shape, g))
     ax = [entry_axes(e) for e in sp]
     n = [shape[d] // int(np.prod([g.shape[a] for a in ax[d]])) for d in range(2)]
-    toks, labs = [], []
+    toks, labs, frames = [], [], []
     for t, dev in enumerate(g.devices):
         r0, c0 = g.position(t, ax[0]) * n[0], g.position(t, ax[1]) * n[1]
         tok = _tokens_for(cfg, step, np.arange(r0, r0 + n[0]))
         lab = np.concatenate([tok[:, 1:], tok[:, :1]], axis=1)
         toks.append(torch.from_numpy(tok[:, c0:c0 + n[1]].copy()).to(dev))
         labs.append(torch.from_numpy(lab[:, c0:c0 + n[1]].copy()).to(dev))
-    return {"tokens": Sharded(toks, sp, shape), "labels": Sharded(labs, sp, shape)}
+        if cfg.frames_dim:
+            h = _hash((cfg.seed + 1) & _MASK, np.arange(r0, r0 + n[0])[:, None, None],
+                      np.arange(c0, c0 + n[1])[None, :, None],
+                      np.arange(cfg.frames_dim)[None, None, :])
+            frames.append(torch.from_numpy(
+                (h.astype(np.float32) / 2**31 - 1.0).astype(np.float32)).to(dev))
+    out = {"tokens": Sharded(toks, sp, shape), "labels": Sharded(labs, sp, shape)}
+    if cfg.frames_dim:
+        out["frames"] = Sharded(frames, (*sp, None), (*shape, cfg.frames_dim))
+    return out
 
 
 class Prefetcher:

@@ -11,7 +11,7 @@ a reduced depth from code, with ``cfg.replace(n_layers=...)``.
 ``--data R --model C`` serves on an R x C device grid
 (``launch.mesh.make_device_grid``: one card a tile, so ``--device cuda``
 needs R x C cards; on the CPU every tile is on the CPU) under the JAX
-engine's serve rules: the dense, MoE and vlm families.
+engine's serve rules, every family (seamless's frames laid out by batch).
 
   python -m repro_torch.launch.serve --arch rwkv6-3b --batch 4 --prompt-len 1024 \\
       --max-new 32                                                  # on the card

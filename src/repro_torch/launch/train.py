@@ -9,7 +9,7 @@ watchdog.  ``--device`` picks the card (the default) or the CPU; a
 checkpoint written on either resumes on the other.  ``--data R --model C``
 trains on an R x C device grid (``launch.mesh.make_device_grid``: one card
 a tile, so ``--device cuda`` needs R x C cards; on the CPU every tile is on
-the CPU) with the JAX step's rules: the dense, MoE and vlm families, the state per tile,
+the CPU) with the JAX step's rules, every family: the state per tile,
 the batch generated per tile (``data.pipeline.global_batch_for``).  A
 checkpoint is written whole, so one written on any grid (or by the JAX
 package) resumes on any other: the elastic re-mesh.

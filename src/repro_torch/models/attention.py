@@ -11,7 +11,7 @@ encoder's K/V) in plain PyTorch on either device, as the JAX package does
 in plain XLA.  Cross-attention rotates q by RoPE and leaves the encoder's
 keys unrotated.  Tensors keep the JAX layout (B, S, H, D).
 
-On a device grid (``*_grid``: the dense, MoE and vlm families) the same
+On a device grid (``*_grid``: every family with attention) the same
 per-tile code runs in lockstep over the tiles, laid out by the rules
 (:class:`~repro_torch.models.common.GridRun`): with ``heads`` over
 ``model`` each tile projects and attends over its own q heads (and the KV
@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import math
 from functools import partial
-from types import SimpleNamespace
 
 import torch
 
@@ -303,9 +302,7 @@ def _grid_params(cfg: ArchConfig, run, p, th: tuple, varying: tuple) -> list:
         ents.update(bq=(th,), bk=((),), bv=((),))
     if cfg.qk_norm:
         ents.update(q_norm=((),), k_norm=((),))
-    laid = {k: run.param(getattr(p, k), e, varying) for k, e in ents.items()}
-    return [SimpleNamespace(**{k: v[t] for k, v in laid.items()})
-            for t in range(run.grid.n_tiles)]
+    return run.tiles(p, ents, varying)
 
 
 def _axes_of(x: coll.Sharded, dim: int) -> tuple:
@@ -354,7 +351,7 @@ def _attend_grid(cfg: ArchConfig, run, p, x: coll.Sharded, *, causal: bool):
         out = _flash(cfg, qs[t], kvs[0][t], kvs[1][t], causal=causal, q_offset=offs[t])
         ys.append(out.reshape(b, s_loc, -1) @ params[t].wo.to(cfg.cdtype))
     y = coll.all_reduce(ys, grid, th, run.path)
-    return coll.Sharded(y, x.spec, x.shape), ks, vs
+    return coll.Sharded(y, x.spec, _out_shape(x, p)), ks, vs
 
 
 def attend_train_grid(cfg: ArchConfig, run, p, x: coll.Sharded, *, causal: bool = True):
@@ -413,4 +410,80 @@ def attend_decode_grid(cfg: ArchConfig, run, p, x: coll.Sharded, cache: tuple, p
         out = outs[t].reshape(b, 1, nh, hd)[:, :, h0:h0 + n_loc]
         ys.append(out.reshape(b, 1, n_loc * hd).to(cfg.cdtype) @ params[t].wo.to(cfg.cdtype))
     y = coll.all_reduce(ys, grid, th, run.path)
-    return coll.Sharded(y, x.spec, x.shape)
+    return coll.Sharded(y, x.spec, _out_shape(x, p))
+
+
+def cross_attend_train_grid(cfg: ArchConfig, run, p, x: coll.Sharded, enc_out: coll.Sharded):
+    """:func:`attend_train` with ``kv_override=project_kv(enc_out)`` (the
+    cross-attention) on a grid: ``x`` (B, S, d) and ``enc_out`` (B, T, d)
+    laid out by ``(batch, seq, embed)``.  Each tile projects every KV head
+    of the encoder's positions (gathered whole where they were split) and
+    its own q heads (RoPE at their positions, from the tile's sequence
+    offset), attends non-causally over the KV heads they read
+    (``flash_attention`` once a tile), and the partials of ``wo`` are
+    summed over ``heads``' axes.  Returns (y laid out as ``x``, the
+    cross-attention's k and v (B, T, nkv, hd), every KV head on every tile,
+    laid out by batch): the decode cache's ``xk`` and ``xv``."""
+    grid = run.grid
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    th = run.entry("heads", nh)
+    sa = _axes_of(x, 1)
+    ew, ea = run.whole_seq(enc_out)
+    varying = _axes_of(x, 0) + sa + ea + th
+    n_loc = nh // run.size(th)
+    lcfg = cfg.replace(n_heads=n_loc, head_dim=hd)
+    xt = coll.pvary(x, grid, th, run.path)
+    et = coll.pvary(ew, grid, th, run.path)
+    params = _grid_params(cfg, run, p, th, varying)
+    s_loc = x[0].shape[1]
+    ys, ks, vs = [], [], []
+    for t in range(grid.n_tiles):
+        h0 = grid.position(t, th) * n_loc
+        kv0, n, _ = _kv_slice(nh, nkv, n_loc, h0)
+        positions = torch.arange(s_loc, device=x[t].device) + grid.position(t, sa) * s_loc
+        q = _project_q(lcfg, params[t], xt[t], *cm.rope_tables(positions, hd, cfg.rope_theta))
+        k, v = project_kv(cfg, params[t], et[t])
+        out = _flash(cfg, q, k[:, :, kv0:kv0 + n], v[:, :, kv0:kv0 + n], causal=False)
+        ys.append(out.reshape(*out.shape[:2], -1) @ params[t].wo.to(cfg.cdtype))
+        ks.append(k)
+        vs.append(v)
+    y = coll.Sharded(coll.all_reduce(ys, grid, th, run.path), x.spec, _out_shape(x, p))
+    spec = (ew.spec[0], None, None, None)
+    shape = (ew.shape[0], ew.shape[1], nkv, hd)
+    return y, coll.Sharded(ks, spec, shape), coll.Sharded(vs, spec, shape)
+
+
+def cross_attend_decode_grid(cfg: ArchConfig, run, p, x: coll.Sharded, enc_kv: tuple,
+                             pos: int) -> coll.Sharded:
+    """:func:`cross_attend_decode` on a grid: ``x`` (B, 1, d) laid out by
+    batch, the cache's ``xk`` / ``xv`` (B, T, nkv, hd) every KV head on
+    every tile; each tile attends with its q heads over the KV heads they
+    read (no mask: every encoder position), and the partials of ``wo`` are
+    summed over ``heads``' axes."""
+    grid = run.grid
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    th = run.entry("heads", nh)
+    n_loc = nh // run.size(th)
+    lcfg = cfg.replace(n_heads=n_loc, head_dim=hd)
+    params = _grid_params(cfg, run, p, th, ())
+    k_all, v_all = (coll.relayout(c, (x.spec[0], None, None, None), grid, run.path)
+                    for c in enc_kv)
+    ys = []
+    for t in range(grid.n_tiles):
+        h0 = grid.position(t, th) * n_loc
+        kv0, n, g = _kv_slice(nh, nkv, n_loc, h0)
+        positions = torch.full((1,), pos, dtype=torch.int32, device=x[t].device)
+        q = _project_q(lcfg, params[t], x[t], *cm.rope_tables(positions, hd, cfg.rope_theta))
+        b = q.shape[0]
+        qf = q.to(torch.float32).reshape(b, 1, n, g, hd) * (1.0 / math.sqrt(hd))
+        sc = torch.einsum("bsngh,btnh->bsngt", qf, k_all[t][:, :, kv0:kv0 + n].to(torch.float32))
+        w = torch.softmax(sc, dim=-1)
+        out = torch.einsum("bsngt,btnh->bsngh", w, v_all[t][:, :, kv0:kv0 + n].to(torch.float32))
+        ys.append(out.reshape(b, 1, n_loc * hd).to(cfg.cdtype) @ params[t].wo.to(cfg.cdtype))
+    return coll.Sharded(coll.all_reduce(ys, grid, th, run.path), x.spec, _out_shape(x, p))
+
+
+def _out_shape(x: coll.Sharded, p) -> tuple:
+    """The attention output's whole shape: ``x``'s with ``wo``'s width
+    (the shared block's input is 2 * d_model wide, its output d_model)."""
+    return (*x.shape[:-1], p.wo.shape[1])

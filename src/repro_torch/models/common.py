@@ -464,6 +464,33 @@ class GridRun:
         return coll.relayout(w, tuple(e or None for e in ent), self.grid, self.path,
                              varying=tuple(varying))
 
+    def tiles(self, p, ents: dict, varying) -> list:
+        """Each tile's parameters of the container ``p`` for one computation:
+        ``param(getattr(p, name), entries, varying)`` for every ``name:
+        entries`` of ``ents``, as one namespace a tile (tile order)."""
+        from types import SimpleNamespace
+
+        laid = {k: self.param(getattr(p, k), e, varying) for k, e in ents.items()}
+        return [SimpleNamespace(**{k: v[t] for k, v in laid.items()})
+                for t in range(self.grid.n_tiles)]
+
+    def size(self, axes) -> int:
+        """The number of tiles along ``axes``."""
+        return math.prod(self.grid.shape[a] for a in axes)
+
+    def whole_seq(self, x: Sharded) -> tuple[Sharded, tuple]:
+        """``x`` (B, S, ...) with its sequence whole on every tile, and the
+        axes it was split over: gathered along them (counted), the gradient
+        summed back over them (the tiles then keep other rows of the result,
+        :func:`~repro_torch.core.collectives.split`).  A token shift, a causal
+        conv or a chunk scan reads the rows before its own, so the recurrent
+        blocks run on the whole sequence, as the JAX package's GSPMD does."""
+        sa = entry_axes(x.spec[1])
+        if not sa:
+            return x, ()
+        return relayout(x, (x.spec[0], None, *x.spec[2:]), self.grid, self.path,
+                        varying=sa), sa
+
 
 # ---------------------------------------------------------------------------
 # parameter containers and initializers

@@ -29,9 +29,9 @@ group's layers stacked (:func:`params_tree`); :func:`params_view` gives the
 forward per-layer views of the stacks, so one gradient reaches each stack.
 
 On a device grid -- ``rules`` carrying one (``cm.attach_axis_sizes``) --
-``loss_fn``, ``init_cache``, ``prefill`` and ``decode_step`` run the dense,
-MoE and vlm families in lockstep over the tiles: parameters, batch, cache
-and outputs are per-tile values
+``loss_fn``, ``init_cache``, ``prefill`` and ``decode_step`` run every
+family in lockstep over the tiles: parameters, batch, cache and outputs
+are per-tile values
 (:class:`~repro_torch.core.collectives.Sharded`, parameters as
 :func:`grid_view` gives them) laid out by the rules, the blocks' per-tile
 code is the single-device code, and the collectives between them are
@@ -40,10 +40,17 @@ looks up the ids in its range and the tiles' rows are summed in order; the
 loss is a distributed log-sum-exp (the max, then the sum over the vocab
 shards).  An MoE layer runs the JAX ``apply_moe``'s mesh branches
 (``moe.apply_moe_grid``): its output, and so the model's, depends on the
-grid through the capacity per batch shard.  A 1x1 grid in ``rules`` is no
-grid: every family runs the single-device code on single-device values; on
-a larger grid the ssm, hybrid and encdec families raise
-``NotImplementedError`` naming their ROADMAP.md item.
+grid through the capacity per batch shard.  RWKV6 and Mamba2 split their
+heads over ``inner``'s axes (``rwkv6.apply_rwkv_timemix_grid``,
+``mamba2.apply_mamba_grid``) and run on the whole sequence of their batch
+rows, gathered where the rules split it; zamba2's shared block runs the
+grid attention at width 2 * d_model, its one parameter set laid out at
+each invocation (so every invocation's gradient reaches it); an
+encoder-decoder encodes its frames laid out by ``(batch, seq, embed)`` and
+cross-attends with each tile's q heads over every KV head
+(``attention.cross_attend_train_grid``).  The caches follow
+:func:`cache_axes`.  A 1x1 grid in ``rules`` is no grid: every family runs
+the single-device code on single-device values.
 """
 
 from __future__ import annotations
@@ -571,7 +578,8 @@ def loss_fn(spec: LMSpec, params, batch: dict, *, rules=None):
     without MoE layers); metrics hold ``xent``, ``lb_loss`` and ``z_loss``.
 
     With a grid in ``rules``: ``params`` from :func:`grid_view`, the batch's
-    tokens and labels per-tile values laid out by ``(batch, seq)``; the loss
+    tokens and labels per-tile values laid out by ``(batch, seq)`` (frames
+    by ``(batch, seq, embed)``); the loss
     and metrics come back as per-tile lists, the same value on every tile.
     """
     run = _grid_run(spec, rules)
@@ -599,12 +607,12 @@ def init_cache(spec: LMSpec, batch: int, s_max: int, device="cuda", *, enc_len: 
     own), and the next position.  A decoder block of an encoder-decoder also
     holds the cross-attention's K/V over ``enc_len`` encoder positions.
 
-    With a grid in ``rules`` each K/V cache is a per-tile value laid out by
+    With a grid in ``rules`` every entry is a per-tile value laid out by
     :func:`cache_axes` (sanitized): its tiles are allocated on their devices
     at exactly those shapes."""
     run = _grid_run(spec, rules)
     if run is not None:
-        return _init_cache_grid(spec, batch, s_max, run)
+        return _init_cache_grid(spec, batch, s_max, run, enc_len)
     cfg = spec.cfg
     dt = cfg.cdtype
     layers = []
@@ -674,12 +682,13 @@ def prefill(spec: LMSpec, params: Params, tokens: torch.Tensor, s_max: int, *, f
     cache).
 
     With a grid in ``rules``: ``params`` from :func:`grid_view` (unstacked),
-    ``tokens`` a per-tile value laid out by ``(batch, seq)``; the logits come
-    back per tile, laid out by ``(batch,)`` with the whole vocab on every
-    tile (gathered over the vocab shards)."""
+    ``tokens`` a per-tile value laid out by ``(batch, seq)`` and ``frames``
+    by ``(batch, seq, embed)``; the logits come back per tile, laid out by
+    ``(batch,)`` with the whole vocab on every tile (gathered over the
+    vocab shards)."""
     run = _grid_run(spec, rules)
     if run is not None:
-        return _prefill_grid(spec, params, tokens, s_max, run)
+        return _prefill_grid(spec, params, tokens, s_max, frames, run)
     cfg = spec.cfg
     _, napply = cm.make_norm(cfg, cfg.d_model)
     s = tokens.shape[1]
@@ -765,32 +774,15 @@ def _kv_len(cache: dict) -> int | None:
 
 
 # ---------------------------------------------------------------------------
-# on a device grid (dense, MoE and vlm; every family on a 1x1 grid)
+# on a device grid
 # ---------------------------------------------------------------------------
-
-# The ROADMAP.md Queue 1 item that brings each family onto a grid.
-GRID_ITEMS = {"hybrid": "item 9e (Mamba2 / zamba2 and RWKV6 on a grid)",
-              "ssm": "item 9e (Mamba2 / zamba2 and RWKV6 on a grid)",
-              "encdec": "item 9g (the encoder-decoder on a grid)"}
-GRID_FAMILIES = ("dense", "moe", "vlm")
-
-
-def require_grid_family(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg``'s family runs on a grid
-    larger than 1x1 (:data:`GRID_FAMILIES` do)."""
-    if cfg.family not in GRID_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) does not run on a device grid yet: ROADMAP.md Queue 1 "
-            f"{GRID_ITEMS.get(cfg.family, 'item 9')}; only the {', '.join(GRID_FAMILIES)} "
-            f"families do (a 1x1 grid runs every family)")
 
 
 def _grid_run(spec: LMSpec, rules) -> cm.GridRun | None:
     """The grid in ``rules``, or None: no grid, or a 1x1 one (the
-    single-device code, on single-device values, for every family)."""
+    single-device code, on single-device values)."""
     if not rules or rules.get("_grid") is None or rules["_grid"].is_trivial:
         return None
-    require_grid_family(spec.cfg)
     return cm.GridRun(rules)
 
 
@@ -892,24 +884,51 @@ def _ffn_grid(cfg: ArchConfig, bt: str, bp, x: coll.Sharded, run):
     return mlp_mod.apply_mlp_grid(cfg, run, bp.mlp, x), None
 
 
-def _block_grid(cfg: ArchConfig, bt: str, bp, h: coll.Sharded, run):
-    """One attention block over a per-tile sequence (training): (h, aux or None)."""
-    x = cm.apply_norm_grid(cfg, run, bp.ln1, h)
-    h = _add(h, attn.attend_train_grid(cfg, run, bp.attn, x))
-    y, aux = _ffn_grid(cfg, bt, bp, cm.apply_norm_grid(cfg, run, bp.ln2, h), run)
+def _shared_in_grid(cfg: ArchConfig, run, bp, h: coll.Sharded, emb0: coll.Sharded):
+    """:func:`_shared_in` on a grid: each tile's concat(h, emb0), normed at
+    2 * d_model."""
+    cat = coll.Sharded([torch.cat([a, b], dim=-1) for a, b in zip(h, emb0)], h.spec,
+                       (*h.shape[:-1], 2 * cfg.d_model))
+    return cm.apply_norm_grid(cfg, run, bp.ln, cat, d=2 * cfg.d_model)
+
+
+def _block_grid(cfg: ArchConfig, bt: str, bp, h: coll.Sharded, run, *, emb0=None,
+                enc_out=None):
+    """One block over a per-tile sequence (training, the encoder): (h, aux or None)."""
+    def norm(p, x):
+        return cm.apply_norm_grid(cfg, run, p, x)
+
+    if bt == "mamba":
+        return _add(h, mb.apply_mamba_grid(cfg, run, bp.mamba, norm(bp.ln, h))), None
+    if bt == "rwkv":
+        h = _add(h, rwkv_mod.apply_rwkv_timemix_grid(cfg, run, bp.rwkv, norm(bp.ln1, h))[0])
+        return _add(h, rwkv_mod.apply_rwkv_channelmix_grid(cfg, run, bp.rwkv,
+                                                           norm(bp.ln2, h))[0]), None
+    if bt == "shared_attn":
+        h = _add(h, attn.attend_train_grid(_shared_attn_cfg(cfg), run, bp.attn,
+                                           _shared_in_grid(cfg, run, bp, h, emb0)))
+        return _add(h, mlp_mod.apply_mlp_grid(cfg, run, bp.mlp, norm(bp.ln2, h))), None
+    h = _add(h, attn.attend_train_grid(cfg, run, bp.attn, norm(bp.ln1, h), causal=bt != "enc"))
+    if bt == "dec":
+        h = _add(h, attn.cross_attend_train_grid(cfg, run, bp.xattn, norm(bp.lnx, h),
+                                                 enc_out)[0])
+    y, aux = _ffn_grid(cfg, bt, bp, norm(bp.ln2, h), run)
     return _add(h, y), aux
 
 
-def _loss_grid(spec: LMSpec, params, batch: dict, run):
-    cfg = spec.cfg
+def _run_blocks_grid(cfg: ArchConfig, blocks, h: coll.Sharded, run, *, emb0=None,
+                     enc_out=None):
+    """:func:`_run_blocks_train` on a grid: every block of ``blocks`` over
+    the per-tile sequence, each checkpointed under remat; returns (h, the
+    per-tile sums of the MoE layers' lb_loss and z_loss)."""
     n = run.grid.n_tiles
-    h = _embed_grid(cfg, params, batch["tokens"], run)
     remat = cfg.remat and torch.is_grad_enabled()
     lb = [torch.zeros((), dtype=torch.float32, device=d) for d in run.grid.devices]
     z = list(lb)
-    for bt, bp in _walk(spec, params):
+    for bt, bp in blocks:
         def fn(*tiles, bt=bt, bp=bp, spec_=h.spec, shape=h.shape):
-            out, aux = _block_grid(cfg, bt, bp, coll.Sharded(tiles, spec_, shape), run)
+            out, aux = _block_grid(cfg, bt, bp, coll.Sharded(tiles, spec_, shape), run,
+                                   emb0=emb0, enc_out=enc_out)
             return tuple(out) + (() if aux is None else (*aux["lb_loss"], *aux["z_loss"]))
 
         out = checkpoint(fn, *h, use_reentrant=False) if remat else fn(*h)
@@ -917,41 +936,72 @@ def _loss_grid(spec: LMSpec, params, batch: dict, run):
         if len(out) > n:
             lb = [a + c for a, c in zip(lb, out[n:2 * n])]
             z = [a + c for a, c in zip(z, out[2 * n:])]
+    return h, lb, z
+
+
+def _encode_grid(spec: LMSpec, params, frames: coll.Sharded, run) -> coll.Sharded:
+    """:func:`encode` on a grid: the frames (B, T, d_model) laid out by
+    ``(batch, seq, embed)`` (re-laid if they are not), the encoder's blocks
+    non-causal, its final norm."""
+    cfg = spec.cfg
+    h = coll.Sharded([f.to(cfg.cdtype) for f in frames], frames.spec, frames.shape)
+    h = cm.constrain(h, ("batch", "seq", "embed"), run.rules)
+    h, _, _ = _run_blocks_grid(cfg, _walk_enc(spec, params), h, run)
+    return cm.apply_norm_grid(cfg, run, params.enc_final_norm, h)
+
+
+def _loss_grid(spec: LMSpec, params, batch: dict, run):
+    cfg = spec.cfg
+    enc_out = _encode_grid(spec, params, batch["frames"], run) if spec.is_encdec else None
+    h = _embed_grid(cfg, params, batch["tokens"], run)
+    emb0 = h if spec.has_shared_attn else None
+    h, lb, z = _run_blocks_grid(cfg, _walk(spec, params), h, run, emb0=emb0, enc_out=enc_out)
     x = cm.apply_norm_grid(cfg, run, params.final_norm, h)
     xent = _xent_grid(cfg, params, x, batch["labels"], run)
     loss = [xe + 0.01 * a + 0.001 * c for xe, a, c in zip(xent, lb, z)]
     return loss, {"xent": xent, "lb_loss": lb, "z_loss": z}
 
 
-def _init_cache_grid(spec: LMSpec, batch: int, s_max: int, run) -> dict:
-    cfg = spec.cfg
+def _cache_specs(spec: LMSpec, batch: int, s_max: int, enc_len: int, run):
+    """(the single-device cache's shapes and dtypes on meta, its layers'
+    sanitized specs under the rules)."""
+    meta = init_cache(spec, batch, s_max, device="meta", enc_len=enc_len)
+    specs = cm.sanitize_specs(cm.tree_specs(cache_axes(spec)["layers"], run.rules),
+                              meta["layers"], run.grid)
+    return meta["layers"], specs
+
+
+def _init_cache_grid(spec: LMSpec, batch: int, s_max: int, run, enc_len: int = 0) -> dict:
+    """:func:`init_cache` on a grid: every entry's tiles zeros of its
+    ``tile_shape`` under :func:`cache_axes`' sanitized spec, on their devices."""
     grid = run.grid
-    shape = (batch, s_max, cfg.n_kv_heads, cfg.hd)
-    kv = cm.sanitize_spec(cm.logical_to_spec(("batch", "kv_seq", "kv_heads", "head_dim"),
-                                             run.rules), shape, grid)
-    tile = cm.tile_shape(kv, shape, grid)
+    meta, specs = _cache_specs(spec, batch, s_max, enc_len, run)
 
-    def zeros():
-        return coll.Sharded([torch.zeros(tile, dtype=cfg.cdtype, device=d) for d in grid.devices],
-                            kv, shape)
+    def zeros(x, sp):
+        tile = cm.tile_shape(sp, x.shape, grid)
+        return coll.Sharded([torch.zeros(tile, dtype=x.dtype, device=d) for d in grid.devices],
+                            sp, x.shape)
 
-    return {"layers": [{"k": zeros(), "v": zeros()} for _ in spec.layers()], "pos": 0}
+    return {"layers": [{k: zeros(x, sp[k]) for k, x in c.items()} for c, sp in zip(meta, specs)],
+            "pos": 0}
 
 
 def cache_to_grid(spec: LMSpec, cache: dict, rules) -> dict:
-    """A single-device cache (every block's K/V, as a prefill without a grid
-    leaves it) cut onto the grid in ``rules``: :func:`init_cache`'s tiles,
-    each holding its slice, at the same next position (a placement: no move
-    is counted)."""
+    """A single-device cache (as a prefill without a grid leaves it: K/V,
+    Mamba2's conv rows and states, RWKV6's shifts and states, an
+    encoder-decoder's cross K/V and encoder output) cut onto the grid in
+    ``rules``: :func:`init_cache`'s layout, each tile holding its slice, at
+    the same next position (a placement: no move is counted)."""
     run = _grid_run(spec, rules)
-    k0 = cache["layers"][0]["k"]
-    out = _init_cache_grid(spec, k0.shape[0], k0.shape[1], run)
-    for c, g in zip(cache["layers"], out["layers"], strict=True):
-        for name in ("k", "v"):
-            tiles = cm.shard_tree({"x": c[name]}, {"x": cm.Spec(*g[name].spec)}, run.grid)
-            for t, tile in enumerate(tiles):
-                g[name][t].copy_(tile["x"])
-    out["pos"] = cache["pos"]
+    first = cache["layers"][0]
+    batch = next(iter(first.values())).shape[0]
+    enc_len = first["xk"].shape[1] if "xk" in first else 0
+    _, specs = _cache_specs(spec, batch, _kv_len(cache) or 1, enc_len, run)
+    tiles = cm.shard_tree(cache["layers"], specs, run.grid)
+    layers = cm.sharded_tree(tiles, specs, run.grid)
+    out = {"layers": layers, "pos": cache["pos"]}
+    if "enc_out" in cache:
+        out["enc_out"] = run.place(cache["enc_out"], ("batch", "seq", "embed"))
     return out
 
 
@@ -985,33 +1035,105 @@ def _last_logits_grid(cfg: ArchConfig, params, h: coll.Sharded, run) -> coll.Sha
                         (x.shape[0], cfg.vocab_padded))
 
 
-def _prefill_grid(spec: LMSpec, params, tokens: coll.Sharded, s_max: int, run):
+def _prefill_block_grid(cfg: ArchConfig, bt: str, bp, h: coll.Sharded, c: dict, run, emb0,
+                        enc_out) -> coll.Sharded:
+    """One block over the per-tile prompt; fills its cache ``c`` (K/V in
+    place, the recurrent blocks' entries re-laid to their specs)."""
+    def norm(p, x):
+        return cm.apply_norm_grid(cfg, run, p, x)
+
+    def put(name, x):
+        c[name] = coll.relayout(x, c[name].spec, run.grid, run.path)
+
+    if bt == "mamba":
+        y, cn = mb.apply_mamba_grid(cfg, run, bp.mamba, norm(bp.ln, h),
+                                    cache_specs={k: c[k].spec for k in ("conv", "ssm")})
+        c.update(cn)
+        return _add(h, y)
+    if bt == "rwkv":
+        y, tm_prev, states = rwkv_mod.apply_rwkv_timemix_grid(cfg, run, bp.rwkv,
+                                                              norm(bp.ln1, h))
+        h = _add(h, y)
+        y, cm_prev = rwkv_mod.apply_rwkv_channelmix_grid(cfg, run, bp.rwkv, norm(bp.ln2, h))
+        put("tm_prev", tm_prev)
+        put("cm_prev", cm_prev)
+        put("wkv", states)
+        return _add(h, y)
+    if bt == "shared_attn":
+        y, k, v = attn.attend_prefill_grid(_shared_attn_cfg(cfg), run, bp.attn,
+                                           _shared_in_grid(cfg, run, bp, h, emb0))
+    else:
+        y, k, v = attn.attend_prefill_grid(cfg, run, bp.attn, norm(bp.ln1, h))
+    h = _add(h, y)
+    if bt == "dec":
+        y, xk, xv = attn.cross_attend_train_grid(cfg, run, bp.xattn, norm(bp.lnx, h), enc_out)
+        put("xk", xk)
+        put("xv", xv)
+        h = _add(h, y)
+    h = _add(h, _ffn_grid(cfg, bt, bp, norm(bp.ln2, h), run)[0])
+    _write_prefill_grid(c, k, v, run)
+    return h
+
+
+def _prefill_grid(spec: LMSpec, params, tokens: coll.Sharded, s_max: int, frames, run):
     cfg = spec.cfg
     s = tokens.shape[1]
     if s > s_max:
         raise ValueError(f"prompt of {s} tokens does not fit s_max={s_max}")
-    cache = _init_cache_grid(spec, tokens.shape[0], s_max, run)
+    if spec.is_encdec != (frames is not None):
+        raise ValueError(f"{cfg.name}: frames are the encoder's input and only an "
+                         f"encoder-decoder takes them")
+    enc_out = _encode_grid(spec, params, frames, run) if spec.is_encdec else None
+    cache = _init_cache_grid(spec, tokens.shape[0], s_max, run,
+                             enc_len=0 if enc_out is None else enc_out.shape[1])
     h = _embed_grid(cfg, params, tokens, run)
+    emb0 = h if spec.has_shared_attn else None
     for (bt, bp), c in zip(_walk(spec, params), cache["layers"], strict=True):
-        x = cm.apply_norm_grid(cfg, run, bp.ln1, h)
-        y, k, v = attn.attend_prefill_grid(cfg, run, bp.attn, x)
-        h = _add(h, y)
-        h = _add(h, _ffn_grid(cfg, bt, bp, cm.apply_norm_grid(cfg, run, bp.ln2, h), run)[0])
-        _write_prefill_grid(c, k, v, run)
+        h = _prefill_block_grid(cfg, bt, bp, h, c, run, emb0, enc_out)
     cache["pos"] = s
+    if enc_out is not None:
+        cache["enc_out"] = enc_out
     return _last_logits_grid(cfg, params, h, run), cache
+
+
+def _decode_block_grid(cfg: ArchConfig, bt: str, bp, h: coll.Sharded, c: dict, pos: int,
+                       emb0, run):
+    """One block's decode step on a grid: (h, the block's new cache)."""
+    def norm(p, x):
+        return cm.apply_norm_grid(cfg, run, p, x)
+
+    if bt == "mamba":
+        y, cn = mb.apply_mamba_decode_grid(cfg, run, bp.mamba, norm(bp.ln, h), c)
+        return _add(h, y), cn
+    if bt == "rwkv":
+        y, cn = rwkv_mod.rwkv_timemix_decode_grid(cfg, run, bp.rwkv, norm(bp.ln1, h), c)
+        h = _add(h, y)
+        y, cn = rwkv_mod.rwkv_channelmix_decode_grid(cfg, run, bp.rwkv, norm(bp.ln2, h), cn)
+        return _add(h, y), cn
+    if bt == "shared_attn":
+        h = _add(h, attn.attend_decode_grid(_shared_attn_cfg(cfg), run, bp.attn,
+                                            _shared_in_grid(cfg, run, bp, h, emb0),
+                                            (c["k"], c["v"]), pos))
+    else:
+        h = _add(h, attn.attend_decode_grid(cfg, run, bp.attn, norm(bp.ln1, h),
+                                            (c["k"], c["v"]), pos))
+    if bt == "dec":
+        h = _add(h, attn.cross_attend_decode_grid(cfg, run, bp.xattn, norm(bp.lnx, h),
+                                                  (c["xk"], c["xv"]), pos))
+    return _add(h, _ffn_grid(cfg, bt, bp, norm(bp.ln2, h), run)[0]), c
 
 
 def _decode_grid(spec: LMSpec, params, token: coll.Sharded, cache: dict, run):
     cfg = spec.cfg
     pos = cache["pos"]
-    s_max = cache["layers"][0]["k"].shape[1]
-    if pos >= s_max:
+    s_max = _kv_len(cache)
+    if s_max is not None and pos >= s_max:
         raise ValueError(f"decode position {pos} is past the KV cache (s_max={s_max})")
     tok = coll.Sharded([t[:, None] for t in token], (token.spec[0], None), (token.shape[0], 1))
     h = _embed_grid(cfg, params, tok, run)
+    emb0 = h if spec.has_shared_attn else None
+    layers = []
     for (bt, bp), c in zip(_walk(spec, params), cache["layers"], strict=True):
-        x = cm.apply_norm_grid(cfg, run, bp.ln1, h)
-        h = _add(h, attn.attend_decode_grid(cfg, run, bp.attn, x, (c["k"], c["v"]), pos))
-        h = _add(h, _ffn_grid(cfg, bt, bp, cm.apply_norm_grid(cfg, run, bp.ln2, h), run)[0])
-    return _last_logits_grid(cfg, params, h, run), {**cache, "pos": pos + 1}
+        h, cn = _decode_block_grid(cfg, bt, bp, h, c, pos, emb0, run)
+        layers.append(cn)
+    return _last_logits_grid(cfg, params, h, run), {**cache, "layers": layers, "pos": pos + 1}

@@ -25,6 +25,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import collectives as coll
 from repro_torch.models import common as cm
 from repro_torch.models.common import ArchConfig, Params
 
@@ -232,3 +233,155 @@ def apply_mamba_decode(cfg: ArchConfig, p: Params, x, cache: dict):
     y = _gated_norm(p, y.reshape(-1, 1, d_inner), z)
     out = y.to(dt_) @ p.w_out.to(dt_)
     return out, {"conv": win[:, 1:, :], "ssm": h.to(cache["ssm"].dtype)}
+
+
+# ---------------------------------------------------------------------------
+# on a device grid
+# ---------------------------------------------------------------------------
+
+
+def _grid_heads(cfg: ArchConfig, run) -> tuple[tuple, int]:
+    """(the axes ``inner`` splits the SSD heads over, heads a tile)."""
+    _, nh, _ = _dims(cfg)
+    ti = run.entry("inner", nh)
+    return ti, nh // run.size(ti)
+
+
+def _grid_params(cfg: ArchConfig, run, p, ti: tuple, varying: tuple) -> list:
+    """Each tile's parameters: ``w_z``, ``w_x``, ``conv_wx`` and ``norm`` by
+    their ``inner`` channels, ``w_out`` by its rows, the rest whole (each
+    tile takes its heads' slice of ``dt``, ``a_log``, ``d_skip`` and
+    ``dt_bias``, and of ``conv_b``'s x part)."""
+    ents = {"w_z": ((), ti), "w_x": ((), ti), "conv_wx": (ti, ()), "norm": (ti,),
+            "w_out": (ti, ()), "w_b": ((), ()), "w_c": ((), ()), "w_dt": ((), ()),
+            "conv_wbc": ((), ()), "conv_b": ((),), "a_log": ((),), "d_skip": ((),),
+            "dt_bias": ((),)}
+    return run.tiles(p, ents, varying)
+
+
+def _gated_norm_grid(run, ti: tuple, d_inner: int, norms: list, ys: list, zs: list) -> list:
+    """:func:`_gated_norm` over channels split over ``ti``: each tile's sum
+    of squares of its channels, summed over ``ti`` in tile order, divided by
+    d_inner (the RMS over the whole of d_inner)."""
+    grid = run.grid
+    yf = [y.to(_F32) * F.silu(z.to(_F32)) for y, z in zip(ys, zs)]
+    sq = coll.all_reduce([(v * v).sum(-1, keepdim=True) for v in yf], grid, ti, run.path)
+    sq = coll.pvary(sq, grid, ti, run.path)
+    return [v * torch.rsqrt(s / d_inner + 1e-6) * n.to(_F32) for v, s, n in zip(yf, sq, norms)]
+
+
+def _tile_slices(cfg: ArchConfig, run, ti: tuple, n_loc: int, t: int) -> tuple[slice, slice]:
+    """Tile ``t``'s heads and its x channels."""
+    h0 = run.grid.position(t, ti) * n_loc
+    return slice(h0, h0 + n_loc), slice(h0 * cfg.ssm_headdim, (h0 + n_loc) * cfg.ssm_headdim)
+
+
+def _cut_conv(cfg: ArchConfig, run, whole: list, spec) -> coll.Sharded:
+    """The decode cache's conv rows in the JAX layout from each tile's whole
+    rows (B, K - 1, d_inner + 2N): each tile keeps its slice of the last
+    dim, split over ``inner`` by ``spec`` -- a boundary that need not be the
+    heads' (zamba2 on two tiles: 7296 / 2 = 3648 columns, so tile 1 holds
+    x[3648:] and all of B and C)."""
+    d_inner, _, ds = _dims(cfg)
+    shape = (whole[0].shape[0] * run.size(coll.entry_axes(spec[0])), _CONV_K - 1,
+             d_inner + 2 * ds)
+    return coll.split(coll.Sharded(whole, (spec[0], None, None), shape), run.grid,
+                      coll.entry_axes(spec[2]), 2)
+
+
+def apply_mamba_grid(cfg: ArchConfig, run, p, x: coll.Sharded, *, cache_specs=None):
+    """:func:`apply_mamba` on a grid: ``x`` (B, S, d) per tile laid out by
+    ``(batch, seq, embed)``.  Each tile projects its heads' channels of z
+    and x (the (B, C) and dt projections whole), convolves them, runs the
+    SSD over its heads with no collective, and applies the gated norm, whose
+    RMS over d_inner sums the tiles' squares over ``inner``; ``w_out``'s
+    partials are summed over ``inner``'s axes.  A sequence split over tiles
+    is gathered first.  With ``cache_specs`` (the cache's ``conv`` and
+    ``ssm`` specs) also returns the decode cache laid out by them."""
+    grid = run.grid
+    d_inner, nh, ds = _dims(cfg)
+    dt_ = cfg.cdtype
+    xw, sa = run.whole_seq(x)
+    ti, n_loc = _grid_heads(cfg, run)
+    varying = coll.entry_axes(xw.spec[0]) + sa + ti
+    xt = coll.pvary(xw, grid, ti, run.path)
+    w = _grid_params(cfg, run, p, ti, varying)
+    b_, s = xw[0].shape[:2]
+    zs, ys, states, tails, bc_tails = [], [], [], [], []
+    for t in range(grid.n_tiles):
+        hs, cs = _tile_slices(cfg, run, ti, n_loc, t)
+        z, xi, b, c, dtr = _project(cfg, w[t], xt[t])
+        if cache_specs is not None:
+            pad = max(_CONV_K - 1 - s, 0)
+            tails.append(F.pad(xi, (0, 0, pad, 0))[:, -(_CONV_K - 1):])
+            bc_tails.append(F.pad(torch.cat([b, c], -1), (0, 0, pad, 0))[:, -(_CONV_K - 1):])
+        xi = F.silu(_causal_conv(xi, w[t].conv_wx, w[t].conv_b[:d_inner][cs]).to(_F32)).to(dt_)
+        bc = _causal_conv(torch.cat([b, c], -1), w[t].conv_wbc, w[t].conv_b[d_inner:])
+        bc = F.silu(bc.to(_F32)).to(bc.dtype)
+        dt_pos = F.softplus(dtr[..., hs].to(_F32) + w[t].dt_bias[hs][None, None, :])
+        y, h_fin = ssd_chunked(xi.reshape(b_, s, n_loc, cfg.ssm_headdim), dt_pos,
+                               w[t].a_log[hs], bc[..., :ds], bc[..., ds:], w[t].d_skip[hs],
+                               chunk=cfg.ssm_chunk)
+        zs.append(z)
+        ys.append(y.reshape(b_, s, n_loc * cfg.ssm_headdim))
+        states.append(h_fin)
+    normed = _gated_norm_grid(run, ti, d_inner, [wt.norm for wt in w], ys, zs)
+    outs = [v.to(dt_) @ w[t].w_out.to(dt_) for t, v in enumerate(normed)]
+    y = coll.split(coll.Sharded(coll.all_reduce(outs, grid, ti, run.path), xw.spec, xw.shape),
+                   grid, sa, 1)
+    if cache_specs is None:
+        return y
+    xs = coll.all_gather(tails, grid, ti, -1, run.path)  # the x channels whole (counted)
+    conv = _cut_conv(cfg, run, [torch.cat(v, -1) for v in zip(xs, bc_tails)],
+                     cache_specs["conv"])
+    ssm = coll.Sharded(states, (xw.spec[0], ti, None, None),
+                       (x.shape[0], nh, cfg.ssm_headdim, ds))
+    return y, {"conv": conv, "ssm": coll.relayout(ssm, cache_specs["ssm"], grid, run.path)}
+
+
+def apply_mamba_decode_grid(cfg: ArchConfig, run, p, x: coll.Sharded, cache: dict):
+    """:func:`apply_mamba_decode` on a grid: ``x`` (B, 1, d) laid out by
+    batch; the cache's conv rows in the JAX layout (split over ``inner`` on
+    [x | B | C]) are gathered whole for the step (counted), each tile
+    convolves its heads' channels and the (B, C) ones, steps its heads'
+    states and applies the gated norm as :func:`apply_mamba_grid`; the new
+    conv rows are cut back into the cache's layout.  Returns (y, the new
+    cache)."""
+    grid = run.grid
+    d_inner, nh, ds = _dims(cfg)
+    dt_ = cfg.cdtype
+    ti, n_loc = _grid_heads(cfg, run)
+    w = _grid_params(cfg, run, p, ti, ())
+    conv = cache["conv"]
+    whole = coll.relayout(conv, (conv.spec[0], None, None), grid, run.path)
+    ssm = coll.relayout(cache["ssm"], (x.spec[0], ti, None, None), grid, run.path)
+    zs, ys, states, rows, bcs = [], [], [], [], []
+    for t in range(grid.n_tiles):
+        hs, cs = _tile_slices(cfg, run, ti, n_loc, t)
+        z, xi, b, c, dtr = _project(cfg, w[t], x[t])
+        win_x = torch.cat([whole[t][..., :d_inner][..., cs], xi], dim=1)  # (B, K, d_loc)
+        win_bc = torch.cat([whole[t][..., d_inner:], torch.cat([b, c], -1)], dim=1)
+        ox = torch.einsum("bkc,ck->bc", win_x.to(_F32), w[t].conv_wx.to(_F32))
+        obc = torch.einsum("bkc,ck->bc", win_bc.to(_F32), w[t].conv_wbc.to(_F32))
+        xi1 = F.silu(ox + w[t].conv_b[:d_inner][cs].to(_F32)).to(dt_)
+        bc1 = F.silu(obc + w[t].conv_b[d_inner:].to(_F32)).to(dt_)
+        dt_pos = F.softplus(dtr[:, 0, hs].to(_F32) + w[t].dt_bias[hs][None, :])  # (B, H_loc)
+        xt = xi1.reshape(-1, n_loc, cfg.ssm_headdim).to(_F32)
+        a = torch.exp(-torch.exp(w[t].a_log[hs])[None, :] * dt_pos)
+        h = ssm[t].to(_F32) * a[..., None, None] + torch.einsum(
+            "bh,bn,bhp->bhpn", dt_pos, bc1[:, :ds].to(_F32), xt)
+        y = torch.einsum("bn,bhpn->bhp", bc1[:, ds:].to(_F32), h)
+        y = y + w[t].d_skip[hs][None, :, None] * xt
+        zs.append(z)
+        ys.append(y.reshape(-1, 1, n_loc * cfg.ssm_headdim))
+        states.append(h.to(cache["ssm"][t].dtype))
+        rows.append(xi)
+        bcs.append(torch.cat([b, c], -1))
+    normed = _gated_norm_grid(run, ti, d_inner, [wt.norm for wt in w], ys, zs)
+    outs = [v.to(dt_) @ w[t].w_out.to(dt_) for t, v in enumerate(normed)]
+    y = coll.Sharded(coll.all_reduce(outs, grid, ti, run.path), x.spec, x.shape)
+    xs = coll.all_gather(rows, grid, ti, -1, run.path)  # the new x row whole (counted)
+    new_conv = _cut_conv(cfg, run, [torch.cat([old[:, 1:], torch.cat(v, -1)], 1)
+                                    for old, v in zip(whole, zip(xs, bcs))], conv.spec)
+    new_ssm = coll.Sharded(states, (x.spec[0], ti, None, None), cache["ssm"].shape)
+    return y, {"conv": new_conv, "ssm": coll.relayout(new_ssm, cache["ssm"].spec, grid, run.path)}

@@ -7,8 +7,6 @@ the partial outputs are summed over ``model``.
 
 from __future__ import annotations
 
-from types import SimpleNamespace
-
 import torch
 import torch.nn.functional as F
 
@@ -53,9 +51,6 @@ def apply_mlp_grid(cfg: ArchConfig, run, p, x: coll.Sharded) -> coll.Sharded:
     tf = run.entry("ff", p.w_gate.shape[1])
     varying = coll.entry_axes(x.spec[0]) + coll.entry_axes(x.spec[1]) + tf
     xt = coll.pvary(x, grid, tf, run.path)
-    w = {"w_gate": run.param(p.w_gate, ((), tf), varying),
-         "w_up": run.param(p.w_up, ((), tf), varying),
-         "w_down": run.param(p.w_down, (tf, ()), varying)}
-    ys = [apply_mlp(cfg, SimpleNamespace(**{k: v[t] for k, v in w.items()}), xt[t])
-          for t in range(grid.n_tiles)]
+    w = run.tiles(p, {"w_gate": ((), tf), "w_up": ((), tf), "w_down": (tf, ())}, varying)
+    ys = [apply_mlp(cfg, w[t], xt[t]) for t in range(grid.n_tiles)]
     return coll.Sharded(coll.all_reduce(ys, grid, tf, run.path), x.spec, x.shape)

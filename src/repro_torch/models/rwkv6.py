@@ -23,6 +23,7 @@ from functools import partial
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import collectives as coll
 from repro_torch.kernels import wkv as wkv_kernel
 from repro_torch.models import common as cm
 from repro_torch.models.common import ArchConfig, Params
@@ -281,3 +282,133 @@ def apply_rwkv_timemix_decode(cfg: ArchConfig, p: Params, x, cache: dict):
 def apply_rwkv_channelmix_decode(cfg: ArchConfig, p: Params, x, cache: dict):
     """One-token channel-mix; x is the normed sublayer input (B, 1, d)."""
     return _channelmix(cfg, p, x, cache["cm_prev"]), {**cache, "cm_prev": x}
+
+
+# ---------------------------------------------------------------------------
+# on a device grid
+# ---------------------------------------------------------------------------
+
+
+def _grid_heads(cfg: ArchConfig, run) -> tuple[tuple, int]:
+    """(the axes ``inner`` splits the heads over, heads a tile): the rules'
+    entry where it divides the head count, else every head on every tile."""
+    nh, _ = _dims(cfg)
+    ti = run.entry("inner", nh)
+    return ti, nh // run.size(ti)
+
+
+def _timemix_tiles(cfg: ArchConfig, run, p, x: coll.Sharded, shifted: list, state=None,
+                   sa: tuple = ()):
+    """The time-mix of every tile over its heads: the projections' column
+    slices (``wr``, ``wk``, ``wv``, ``wg``, ``w_lora_b``, ``w_base``, ``ln_x``
+    over ``inner``; ``mix``, ``w_lora_a`` and ``u_bonus`` whole), the WKV of
+    its (B/data)·(H/model) rows and its group norm, then ``wo``'s row slice;
+    the partial outputs summed over ``inner``'s axes.  Returns (y, the
+    tiles' final states (B, H/model, K, V)); ``state`` given, one step of
+    the recurrence from it (decode), else the chunked prefill from zero.
+    ``sa``: the axes the caller gathered the sequence over (each tile keeps
+    its own rows of the result, so the parameters' gradients sum over them)."""
+    grid = run.grid
+    nh, hd = _dims(cfg)
+    ti, n_loc = _grid_heads(cfg, run)
+    varying = coll.entry_axes(x.spec[0]) + coll.entry_axes(x.spec[1]) + sa + ti
+    xt = coll.pvary(x, grid, ti, run.path)
+    sh = coll.pvary(coll.Sharded(shifted, x.spec, x.shape), grid, ti, run.path)
+    w = run.tiles(p, {"mix": ((), ()), "wr": ((), ti), "wk": ((), ti), "wv": ((), ti),
+                      "wg": ((), ti), "wo": (ti, ()), "w_base": (ti,), "w_lora_a": ((), ()),
+                      "w_lora_b": ((), ti), "u_bonus": ((), ()), "ln_x": (ti,)}, varying)
+    lcfg = cfg.replace(d_model=n_loc * hd)
+    ys, states = [], []
+    for t in range(grid.n_tiles):
+        h0 = grid.position(t, ti) * n_loc
+        u = w[t].u_bonus[h0:h0 + n_loc]
+        r, k, v, g, lw = _time_mix_inputs(lcfg, w[t], xt[t], sh[t])
+        if state is None:
+            y, s_fin = _wkv_prefill(r, k, v, lw, u, chunk=cfg.ssm_chunk)
+        else:
+            y, s_fin = wkv_reference(r, k, v, lw, u, s0=state[t])
+        y = _group_norm(w[t], y) * g
+        ys.append(y.to(cfg.cdtype) @ w[t].wo.to(cfg.cdtype))
+        states.append(s_fin)
+    y = coll.Sharded(coll.all_reduce(ys, grid, ti, run.path), x.spec, x.shape)
+    b = x.shape[0]
+    return y, coll.Sharded(states, (x.spec[0], ti, None, None), (b, nh, hd, hd))
+
+
+def _channelmix_tiles(cfg: ArchConfig, run, p, x: coll.Sharded, shifted: list,
+                      sa: tuple = ()):
+    """The channel-mix on a grid: ``k`` over ``cm_k``'s ``ff`` columns and
+    the partials of ``kv`` (``cm_v``'s rows) summed over ``ff``'s axes, as
+    the MLP; the gate ``r`` over ``cm_r``'s ``inner`` columns, so each tile
+    multiplies its slice of d by the reduced ``kv`` and the slices are
+    gathered over ``inner``'s axes (JAX's ``r`` is split over ``model`` on
+    d, its ``kv`` reduced over ``ff``)."""
+    grid = run.grid
+    dt = cfg.cdtype
+    _, hd = _dims(cfg)
+    ti, n_loc = _grid_heads(cfg, run)
+    tf = run.entry("ff", cfg.d_ff)
+    bs = coll.entry_axes(x.spec[0]) + coll.entry_axes(x.spec[1]) + sa
+    mix = run.tiles(p, {"cm_mix": ((), ())}, bs)
+    wk = run.tiles(p, {"cm_k": ((), tf), "cm_v": (tf, ())}, bs + tf)
+    wr = run.tiles(p, {"cm_r": ((), ti)}, bs + ti)
+    xk, xr = [], []
+    for t in range(grid.n_tiles):
+        m = mix[t].cm_mix.to(dt)
+        xk.append(x[t] * m[0] + shifted[t] * (1 - m[0]))
+        xr.append(x[t] * m[1] + shifted[t] * (1 - m[1]))
+    xk, xr = coll.pvary(xk, grid, tf, run.path), coll.pvary(xr, grid, ti, run.path)
+    parts = [torch.square(torch.relu((xk[t] @ wk[t].cm_k.to(dt)).to(torch.float32))).to(dt)
+             @ wk[t].cm_v.to(dt) for t in range(grid.n_tiles)]
+    kv = coll.pvary(coll.all_reduce(parts, grid, tf, run.path), grid, ti, run.path)
+    d_loc = n_loc * hd
+    outs = []
+    for t in range(grid.n_tiles):
+        c0 = grid.position(t, ti) * d_loc
+        r = torch.sigmoid((xr[t] @ wr[t].cm_r.to(dt)).to(torch.float32))
+        outs.append((r * kv[t][..., c0:c0 + d_loc].to(torch.float32)).to(dt))
+    y = coll.all_gather(outs, grid, ti, -1, run.path, invariant=True)
+    return coll.Sharded(y, x.spec, x.shape)
+
+
+def _shift_tiles(x: coll.Sharded, prev=None) -> list:
+    return [_token_shift(xx, None if prev is None else prev[t]) for t, xx in enumerate(x)]
+
+
+def apply_rwkv_timemix_grid(cfg: ArchConfig, run, p, x: coll.Sharded):
+    """:func:`rwkv_timemix_prefill` on a grid: ``x`` (B, S, d) per tile laid
+    out by ``(batch, seq, embed)``.  Returns (y laid out as ``x``, tm_prev
+    (B, 1, d) laid out by batch, the WKV states (B, H, K, V) with the heads
+    over ``inner``'s axes).  A sequence split over tiles is gathered first
+    (:meth:`~repro_torch.models.common.GridRun.whole_seq`)."""
+    xw, sa = run.whole_seq(x)
+    y, states = _timemix_tiles(cfg, run, p, xw, _shift_tiles(xw), sa=sa)
+    last = coll.Sharded([xx[:, -1:] for xx in xw], xw.spec, (x.shape[0], 1, x.shape[2]))
+    return coll.split(y, run.grid, sa, 1), last, states
+
+
+def apply_rwkv_channelmix_grid(cfg: ArchConfig, run, p, x: coll.Sharded):
+    """:func:`apply_rwkv_channelmix` on a grid (the sequence as in
+    :func:`apply_rwkv_timemix_grid`); returns (y laid out as ``x``, cm_prev)."""
+    xw, sa = run.whole_seq(x)
+    y = _channelmix_tiles(cfg, run, p, xw, _shift_tiles(xw), sa)
+    last = coll.Sharded([xx[:, -1:] for xx in xw], xw.spec, (x.shape[0], 1, x.shape[2]))
+    return coll.split(y, run.grid, sa, 1), last
+
+
+def rwkv_timemix_decode_grid(cfg: ArchConfig, run, p, x: coll.Sharded, cache: dict):
+    """:func:`apply_rwkv_timemix_decode` on a grid: ``x`` (B, 1, d) laid out
+    by batch, the cache's ``tm_prev`` beside it and its WKV states with the
+    heads over ``inner``'s axes; returns (y, the new cache, laid out as the
+    cache)."""
+    wkv = coll.relayout(cache["wkv"], (x.spec[0], _grid_heads(cfg, run)[0], None, None),
+                        run.grid, run.path)
+    y, states = _timemix_tiles(cfg, run, p, x, _shift_tiles(x, cache["tm_prev"]), wkv)
+    return y, {**cache, "tm_prev": x,
+               "wkv": coll.relayout(states, cache["wkv"].spec, run.grid, run.path)}
+
+
+def rwkv_channelmix_decode_grid(cfg: ArchConfig, run, p, x: coll.Sharded, cache: dict):
+    """:func:`apply_rwkv_channelmix_decode` on a grid; returns (y, the new cache)."""
+    return (_channelmix_tiles(cfg, run, p, x, _shift_tiles(x, cache["cm_prev"])),
+            {**cache, "cm_prev": x})

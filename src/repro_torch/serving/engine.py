@@ -8,8 +8,7 @@ Temperature sampling is the Gumbel-max draw ``jax.random.categorical``
 makes, from a ``torch.Generator`` seeded with ``ServeConfig.seed``: the same
 distribution, not the same bits.
 
-On a device grid (``grid=``: the dense, MoE and vlm families) the engine
-holds the weights once, as per-tile trees laid out by the JAX engine's
+On a device grid (``grid=``: every family) the engine holds the weights once, as per-tile trees laid out by the JAX engine's
 decode rules: the arch's rules with ``moe_gathered`` and ``embed_p`` /
 ``embed_d`` whole (heads, d_ff and the vocab over ``model``, the cache's
 positions over ``model``, the expert stacks over ``experts``' and
@@ -22,7 +21,8 @@ does granite-moe's decode, whose experts are not sharded (the JAX
 gathered path's fallback).  The dense layers keep the decode layout,
 which gives them the same numbers.
 Prompts and sampled tokens are laid out by ``("batch",)``, as the JAX
-engine's ``_token_sharding``; each step's logits are gathered whole on the
+engine's ``_token_sharding``, an encoder-decoder's frames by ``("batch",
+"seq", "embed")``; each step's logits are gathered whole on the
 home device and sampled there with the one generator in the single-device
 order, so a grid samples the tokens a single device samples from the same
 logits.  Moves count under ``lm.serve``.
@@ -101,7 +101,6 @@ class ServeEngine:
         if g is not None:
             device = g.home
             if not g.is_trivial:
-                lm.require_grid_family(spec.cfg)
                 self.grid, self.rules = g, serve_rules(spec, g, rules)
                 self.prefill_rules = prefill_rules(self.rules)
         self.device = resolve_device(device)
@@ -132,8 +131,8 @@ class ServeEngine:
         gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64, device=self.device)
         fr = None if frames is None else torch.as_tensor(np.asarray(frames), device=self.device)
-        if self.grid is not None and fr is not None:
-            raise ValueError("frames: the encoder-decoder family does not run on a grid")
+        if fr is not None:
+            fr = self._place(fr, ("batch", "seq", "embed"))
         t0 = time.perf_counter()
         logits, cache = lm.prefill(self.spec, self.params, self._place(tokens, ("batch", "seq")),
                                    self.s_max, frames=fr, rules=self.prefill_rules)
@@ -153,8 +152,9 @@ class ServeEngine:
         return result
 
     def _place(self, tokens: torch.Tensor, axes: tuple):
-        """Tokens as the model takes them: whole without a grid, else cut
-        into their tiles by ``axes`` (an input's placement: not counted)."""
+        """Tokens (or frames) as the model takes them: whole without a grid,
+        else cut into their tiles by ``axes`` (an input's placement: not
+        counted)."""
         return tokens if self.grid is None else cm.GridRun(self.rules).place(tokens, axes)
 
     def _whole(self, logits) -> torch.Tensor:

@@ -14,11 +14,11 @@ their ``autograd.Function``s, whose backward recomputes the plain chunked
 forms, as the JAX package differentiates its plain scans.  Parameters and
 moments are updated in place.
 
-On a device grid (``make_train_step(..., grid=)``: the dense, MoE and vlm
-families) the parameters and optimizer state are per-tile trees laid out
+On a device grid (``make_train_step(..., grid=)``: every family) the parameters and optimizer state are per-tile trees laid out
 by the sanitized ``lm.params_tree_axes`` specs and the optimizer's state specs
 (:func:`init_state` makes them, ``models.common.shard_tree`` /
-``unshard_tree`` convert), the batch is laid out by ``(batch, seq)``, and
+``unshard_tree`` convert), the batch is laid out by ``(batch, seq)`` (an
+encoder-decoder's frames by ``(batch, seq, embed)``), and
 the forward is ``lm.loss_fn`` on the grid: autograd through its
 collectives gives each tile the gradient of its own shard, already summed
 over the data-parallel axes.  The global norm and Adafactor's statistics
@@ -371,7 +371,6 @@ def make_compressed_train_step(spec: lm.LMSpec, grid, opt_cfg: opt_mod.OptConfig
     g = cm.device_grid(grid)
     if "pod" not in g.axis_names:
         raise ValueError("compressed sync needs a 'pod' grid axis")
-    lm.require_grid_family(spec.cfg)
     step = _CompressedStep(spec, opt_cfg, g, pod_inner_rules(spec, g, rules), accum)
 
     def ef_init(params):

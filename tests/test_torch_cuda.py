@@ -1304,3 +1304,21 @@ def test_llama4_gathered_decode_on_card_matches_1x1(dev):
     out = _chip_smoke()._moegrid_decode_vs_1x1(torch)
     assert set(out) == {"2x2", "1x4"}
     assert all(v["err"] <= 1e-3 * v["max_logit"] for v in out.values())
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-7b", "seamless-m4t-medium"])
+def test_famgrid_card_matches_cpu_grid(dev, arch):
+    """fp32, the card's 2x2 grid against the CPU's at full width (rwkv6 at
+    depth 2, zamba2 at depth 7 so its shared block runs once, seamless at
+    2 + 2 layers over 64 frames): greedy tokens equal, prefill logits within
+    1e-3 of the largest, each device's grid train step within 1e-5 of its
+    1x1 step, and the card's against the CPU's within 1e-5 (rwkv6's grad
+    norm within phase 15's 1e-3: its position-0 group norm amplifies last
+    bits, ROADMAP Queue 3); wkv or flash_attention launched once a tile a
+    call in prefill, and by no CPU tile."""
+    out = _chip_smoke()._famgrid_card_vs_cpu(torch, arch)
+    assert out["tokens_equal"]
+    assert out["logits_err"] <= 1e-3 * out["max_logit"]
+    assert all(out["train_rel"][k] <= out["train_tol"][k] for k in out["train_rel"])
+    assert out["train_tol"]["loss"] == 1e-5
+    assert all(v <= 1e-5 for r in out["grid_vs_1x1"].values() for v in r.values())

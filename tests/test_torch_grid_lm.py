@@ -226,16 +226,6 @@ def test_presets_match_baseline_on_other_grids(jparams, preset):
         assert _port_loss(np_tree, tok, grid, preset) == pytest.approx(base, rel=1e-5)
 
 
-def test_non_dense_family_on_grid_raises():
-    grid = make_cpu_mesh(2, 2)
-    for arch, item in (("zamba2-7b", "9e"), ("rwkv6-3b", "9e"), ("seamless-m4t-medium", "9g")):
-        spec = tlm.build_spec(tconfigs.get_smoke(arch))
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 item {item}"):
-            tlm.loss_fn(spec, None, {}, rules=tts.train_rules(spec, grid))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tts.make_compressed_train_step(spec, make_cpu_mesh(1, 1, pod=2), toptim.OptConfig())
-
-
 def test_any_family_on_1x1_grid_runs_single_device_code():
     cfg = tconfigs.get_smoke("rwkv6-3b")
     spec = tlm.build_spec(cfg)
@@ -544,9 +534,10 @@ def test_serve_and_train_launchers_on_grid(capsys, tmp_path):
     ttrain.main(["--arch", "granite-3-2b", "--smoke", "--steps", "2", "--batch", "4",
                  "--seq", "16", "--device", "cpu", "--data", "2", "--model", "2"])
     assert "[train] done" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9e"):
-        tserve.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu", "--data", "2",
-                     "--model", "2", "--max-new", "2", "--prompt-len", "4"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9g"):
-        ttrain.main(["--arch", "seamless-m4t-medium", "--smoke", "--steps", "1", "--device",
-                     "cpu", "--data", "2", "--model", "1"])
+    # every family runs on a grid (tests/test_torch_grid_ssm.py, test_torch_grid_encdec.py)
+    tserve.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu", "--data", "2",
+                 "--model", "2", "--max-new", "2", "--prompt-len", "4"])
+    assert "grid 2x2" in capsys.readouterr().out
+    ttrain.main(["--arch", "seamless-m4t-medium", "--smoke", "--steps", "1", "--device",
+                 "cpu", "--data", "2", "--model", "1"])
+    assert "[train] done" in capsys.readouterr().out
