@@ -203,8 +203,13 @@ Phases, in order; any failure exits non-zero:
    optimizer bytes equal to phase 15's tensors on the card, dot_flops
    against ``_train_bound``'s ops and the activation estimate against the
    card's peak; the 2x2 chain at n=10512 whose moved bytes equal phase 11's
-   counter readings on the card (``[grid] ... tile moves`` lines); its
-   seconds, under 120;
+   counter readings on the card (``[grid] ... tile moves`` lines); the
+   collective bytes of granite-3-2b's train_4k, prefill_32k and decode_32k
+   cells on the 16x16 grid, counted by running the port's grid step on
+   meta tiles (non-null and non-zero, one line a cell and its bytes by JAX
+   op type); the cells in parallel processes; its seconds, under
+   ``DRYRUN_BUDGET_S``.  Phases 17-19 hold the same meta count, of each
+   step they run on the card's grid, equal to the card's counter;
 17. the LM substrate on a 2x2 grid of the one card (``[lmgrid]`` lines,
    ``make_context([cuda:0] * 4, 2)``): qwen2-1.5b at full width and depth
    served through ``ServeEngine.generate(grid=)`` with phase 9's requests
@@ -283,6 +288,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -3187,6 +3193,37 @@ def _train_restart(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 DRYRUN_BUDGET_S = 120.0  # the phase's time limit, its anchors included
+# the cells whose collective bytes phase 16 counts on the 16x16 meta grid
+DRYRUN_COLLECTIVE_CELLS = (("granite-3-2b", "train_4k"), ("granite-3-2b", "prefill_32k"),
+                           ("granite-3-2b", "decode_32k"))
+
+
+def meta_anchor(tag: str, card: dict, spec, kind: str, batch: int, seq: int, grid, rules,
+                path: str, *, steps: int = 1, **kw) -> dict:
+    """The dry run's count of one step that a phase ran on the card's grid:
+    the same spec, kind, batch, length and rules on a grid of meta tiles
+    shaped as ``grid`` (``dryrun.extrapolated_moves``, from depths 1 and 2),
+    times ``steps``, equal to the card's ``lm_moves()`` reading ``card`` of
+    ``path``, kind by kind; ``kw`` goes to ``grid_step_moves`` (``s_max``,
+    ``pos``, ``enc_len``, ``store_rules``, ``opt_name``)."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import as_grid
+
+    t0 = time.perf_counter()
+    mg = dryrun.meta_grid(as_grid(grid))
+    shape = configs.ShapeSpec(f"{kind}_anchor", kind, seq, batch)
+    moves, runs = dryrun.extrapolated_moves(spec, shape, mg, rules, **kw)
+    meta = {k: v * steps for k, v in moves[path].items()}
+    if meta != card:
+        fail(f"{tag}: the meta count {meta} (depths {runs}, x {steps}) != the card's {card}")
+    seconds = time.perf_counter() - t0
+    log(f"{tag}: the dry run's meta count (depths {runs} extrapolated to "
+        f"{dryrun._counts(spec)}, x {steps} steps) equals the card's counter: "
+        + ", ".join(f"{k} {meta[f'{k}_bytes']:.0f} B ({meta[f'{k}s']:g})"
+                    for k in ("gather", "reduce", "reduce_scatter", "permute")
+                    if meta[f"{k}s"]) + f" ({seconds:.1f} s on the host)")
+    return {"meta": meta, "depths_run": runs, "seconds": seconds}
 
 
 def _dryrun_anchor(torch, train: dict) -> dict:
@@ -3234,27 +3271,56 @@ def _dryrun_anchor(torch, train: dict) -> dict:
 
 
 def phase_dryrun(torch, train: dict, grid: dict) -> dict:
-    """Phase 16: (a) ``dryrun --all --mesh both`` and the 16x16 chain cell on
-    meta, one ``[dryrun]`` line a cell (per-tile GB against 80 GB), every cell
-    ``ok`` and the LM cells' collective bytes null; (b) :func:`_dryrun_anchor`;
-    (c) the 2x2 chain at n=10512, d=6 on meta, whose moved bytes times phase
-    11's chain builds equal phase 11's counter readings on the card exactly,
-    for cannon and summa; under DRYRUN_BUDGET_S."""
+    """Phase 16: (a) ``dryrun --all --mesh both`` in a process a core and,
+    meanwhile, the 16x16 chain cell on meta, one ``[dryrun]`` line a
+    cell (per-tile GB against 80 GB), every cell ``ok``, the collective
+    bytes counted (the grid step on meta tiles) for DRYRUN_COLLECTIVE_CELLS
+    on the 16x16 grid only, each non-null and non-zero; (b)
+    :func:`_dryrun_anchor`; (c) the 2x2 chain at n=10512, d=6 on meta,
+    whose moved bytes times phase 11's chain builds equal phase 11's counter
+    readings on the card exactly, for cannon and summa; under
+    DRYRUN_BUDGET_S."""
     from repro_torch import configs
     from repro_torch.launch import dryrun
 
     t_phase = time.perf_counter()
     out_dir = OUT / "dryrun_torch"
-    records = dryrun.run_cells(configs.all_cells(), ["single", "multi"], str(out_dir), log=log)
+    want = {(a, s, "single") for a, s in DRYRUN_COLLECTIVE_CELLS}
+    # the 16x16 chain in this process while the cells run in the workers
+    box: dict = {}
+
+    def chain_cell():
+        try:
+            box["chain"] = dryrun.dry_chain(65536, 6, log=log)
+        except Exception as e:  # re-raised below, in the phase's thread
+            box["error"] = e
+
+    chain_thread = threading.Thread(target=chain_cell)
+    chain_thread.start()
+    records = dryrun.run_cells(configs.all_cells(), ["single", "multi"], str(out_dir), log=log,
+                               collectives=want)
+    t_cells = time.perf_counter() - t_phase
+    chain_thread.join()
+    if "error" in box:
+        raise box["error"]
+    chain = box["chain"]
     bad = [f"{r['arch']} {r['shape']} {r['mesh']}: {r['error']}" for r in records
            if r["status"] != "ok"]
     if bad:
         fail(f"dryrun cells failed: {bad}")
-    if any(r["analysis"]["collective_bytes"] is not None for r in records):
-        fail("dryrun: an LM cell reports collective bytes; no LM cell runs on a grid")
-    t_cells = time.perf_counter() - t_phase
+    counted = [r for r in records if (r["arch"], r["shape"], "single") in want
+               and r["mesh"] == {"data": 16, "model": 16}]
+    if len(counted) != len(want):
+        fail(f"dryrun: {len(counted)} cells with collectives, want {sorted(want)}")
+    for r in counted:
+        ana = r["analysis"]
+        if not ana["collective_total_bytes"] or ana["collective_bytes"] is None:
+            fail(f"dryrun {r['arch']} {r['shape']}: collective bytes {ana['collective_bytes']}")
+        log(f"[dryrun] {r['arch']} {r['shape']} 16x16 collectives a tile (the grid step on meta "
+            f"tiles, {r['collective_seconds']:.1f} s): "
+            + ", ".join(f"{op} {b / 256 / 1e9:.4f} GB ({ana['collective_counts'][op]})"
+                        for op, b in ana["collective_bytes"].items() if b))
     slowest = max(records, key=lambda r: r["seconds"])
-    chain = dryrun.dry_chain(65536, 6, log=log)
     (out_dir / "chain__n65536__d6__16x16.json").write_text(json.dumps(chain, indent=1))
     anchor = _dryrun_anchor(torch, train)
     small = dryrun.dry_chain(N_MAIN, 6, rows=2, cols=2, schedules=("summa", "cannon"), log=log)
@@ -3268,10 +3334,10 @@ def phase_dryrun(torch, train: dict, grid: dict) -> dict:
             f"{r['collective_total_bytes'] / 1e9:.4f} GB moved a chain x {run['chain_builds']} "
             f"builds equals phase 11's counter on the card")
     seconds = time.perf_counter() - t_phase
-    log(f"[dryrun] phase 16 in {seconds:.1f} s (the {len(records)} cells {t_cells:.1f} s, slowest "
-        f"{slowest['arch']} {slowest['shape']} {slowest['mesh']['data']}-data "
-        f"{slowest['seconds']:.2f} s; the 16x16 chain {chain['seconds']:.1f} s; limit "
-        f"{DRYRUN_BUDGET_S:.0f} s)")
+    log(f"[dryrun] phase 16 in {seconds:.1f} s (the {len(records)} cells {t_cells:.1f} s in "
+        f"{dryrun.worker_count()} processes, slowest {slowest['arch']} {slowest['shape']} "
+        f"{slowest['mesh']['data']}-data {slowest['seconds']:.2f} s; the 16x16 chain "
+        f"{chain['seconds']:.1f} s; limit {DRYRUN_BUDGET_S:.0f} s)")
     if seconds > DRYRUN_BUDGET_S:
         fail(f"phase 16 took {seconds:.1f} s, over its {DRYRUN_BUDGET_S:.0f} s limit")
     return {"cells": records, "chain_16x16": chain, "anchor": anchor, "chain_2x2": small,
@@ -4480,6 +4546,13 @@ def _lmgrid_serve(torch, grid, serve: dict) -> dict:
         sp_dec = device_split(torch, lambda: lm.decode_step(spec, eng.params, step_tok, cache,
                                                             rules=eng.rules))
     del logits, cache, lg, tiles, step_tok
+    anchors = {
+        "prefill": meta_anchor(f"[lmgrid] serve {LMGRID_SERVE} prefill", pre_moved, spec,
+                               "prefill", SERVE_BATCH, SERVE_PROMPT, grid, eng.rules, "lm.serve",
+                               s_max=s_max),
+        "decode": meta_anchor(f"[lmgrid] serve {LMGRID_SERVE} decode step", dec_moved, spec,
+                              "decode", SERVE_BATCH, s_max, grid, eng.rules, "lm.serve",
+                              pos=SERVE_PROMPT)}
     step_ms = st.decode_s / st.decode_steps * 1e3
     one = serve[LMGRID_SERVE]
     log(f"[lmgrid] serve {LMGRID_SERVE} ({cfg.n_layers} layers, bf16 compute) on a 2x2 grid of "
@@ -4498,6 +4571,7 @@ def _lmgrid_serve(torch, grid, serve: dict) -> dict:
            "decode_ms_per_step": step_ms, "peak_gb": peak, "tokens_equal_1x1": equal,
            "tokens": toks.size, "first_differing_step": first_diff,
            "moved_prefill": pre_moved, "moved_decode_step": dec_moved, "moved_generate": moved,
+           "meta_anchors": anchors,
            "decode_device_split": sp_dec}
     del eng
     gc.collect()
@@ -4571,6 +4645,9 @@ def _lmgrid_train(torch, grid) -> dict:
                                      history=hist, log_every=100)
     counts = kernels.launch_counts()
     moved = _moved(torch, m0, "lm.train")
+    anchor = meta_anchor(f"[lmgrid] train {cfg.name}", moved, spec, "train",
+                         LMGRID_TRAIN_BATCH, LMGRID_TRAIN_SEQ, grid, None, "lm.train",
+                         steps=LMGRID_TRAIN_STEPS, opt_name=cfg.optimizer)
     peak = torch.cuda.max_memory_allocated() / 1e9
     calls = 4 * 2 * cfg.n_layers * LMGRID_TRAIN_STEPS
     want = {name: 0 for name in counts} | {"flash_attention": calls,
@@ -4614,7 +4691,8 @@ def _lmgrid_train(torch, grid) -> dict:
     log(f"[lmgrid] train {LMGRID_TRAIN} one more step on the 2x2 grid under torch.profiler: "
         f"{fmt_split(sp)}")
     out = {"counts": counts, "depth": cfg.n_layers, "history": hist, "peak_gb": peak,
-           "ms_per_step": ms, "moved": moved, "param_bytes_per_tile": pb[0],
+           "ms_per_step": ms, "moved": moved, "meta_anchor": anchor,
+           "param_bytes_per_tile": pb[0],
            "opt_bytes_per_tile": ob[0], "device_split": sp}
     del params, opt, step, b
     gc.collect()
@@ -4932,13 +5010,18 @@ def _moegrid_serve(torch, arch: str, depth, shape: tuple) -> dict:
         logits, cache = lm.prefill(spec, eng.params, tiles, s_max, rules=eng.prefill_rules)
         pre_moved = _moved(torch, m0, "lm.serve")
         n_pre = len(routes)
-        m0 = lm_moves()
-        lg, cache = lm.decode_step(spec, eng.params,
-                                   run.place(eng._whole(logits).float().argmax(-1), ("batch",)),
-                                   cache, rules=eng.rules)
+        tok = run.place(eng._whole(logits).float().argmax(-1), ("batch",))
+        m0 = lm_moves()  # the decode step alone: its token's gather home is the engine's
+        lg, cache = lm.decode_step(spec, eng.params, tok, cache, rules=eng.rules)
         dec_moved = _moved(torch, m0, "lm.serve")
         if not bool(torch.isfinite(eng._whole(lg)[:, :cfg.vocab].float()).all()):
             fail(f"moegrid serve {arch}: decode logits not finite")
+    anchors = {
+        "prefill": meta_anchor(f"[moegrid] serve {arch} prefill", pre_moved, spec, "prefill",
+                               SERVE_BATCH, SERVE_PROMPT, grid, eng.prefill_rules, "lm.serve",
+                               s_max=s_max, store_rules=eng.rules),
+        "decode": meta_anchor(f"[moegrid] serve {arch} decode step", dec_moved, spec, "decode",
+                              SERVE_BATCH, s_max, grid, eng.rules, "lm.serve", pos=SERVE_PROMPT)}
     n_moe = spec.layers().count("attn_moe")
     if n_pre != n_moe or len(routes) != 2 * n_moe:
         fail(f"moegrid serve {arch}: {n_pre} / {len(routes) - n_pre} MoE calls in a prefill / "
@@ -4956,7 +5039,7 @@ def _moegrid_serve(torch, arch: str, depth, shape: tuple) -> dict:
              f"(want the batch shard's {SERVE_BATCH * SERVE_PROMPT // n_batch} and "
              f"{t_dec_want})")
     dropped = _dropped(routes[:n_pre], g)
-    del logits, cache, lg, tiles, routes
+    del logits, cache, lg, tiles, routes, tok
     step_ms = st.decode_s / st.decode_steps * 1e3
     one_card = f"; 1x1 dropped {dropped_1x1}" if dropped_1x1 is not None else ""
     log(f"[moegrid] serve {arch} ({cfg.n_layers} layers"
@@ -4978,6 +5061,7 @@ def _moegrid_serve(torch, arch: str, depth, shape: tuple) -> dict:
            "decode_ms_per_step": step_ms, "peak_gb": peak, "tile_param_bytes": tile_bytes[0],
            "dryrun_param_bytes_per_tile": cell,
            "moved_prefill": pre_moved, "moved_decode_step": dec_moved, "moved_generate": moved,
+           "meta_anchors": anchors,
            "dropped_grid": dropped, "dropped_1x1": dropped_1x1, "first_tokens": toks[0].tolist()}
     del eng
     gc.collect()
@@ -5031,6 +5115,9 @@ def _moegrid_train(torch) -> dict:
                                 log_every=100)
     counts = kernels.launch_counts()
     moved = _moved(torch, m0, "lm.train")
+    anchor = meta_anchor(f"[moegrid] train {cfg.name}", moved, spec, "train",
+                         MOEGRID_TRAIN_BATCH, MOEGRID_TRAIN_SEQ, grid, None, "lm.train",
+                         steps=MOEGRID_TRAIN_STEPS, opt_name=cfg.optimizer)
     peak = torch.cuda.max_memory_allocated() / 1e9
     calls = 4 * 2 * cfg.n_layers * MOEGRID_TRAIN_STEPS
     want = {name: 0 for name in counts} | {"flash_attention": calls,
@@ -5063,7 +5150,8 @@ def _moegrid_train(torch) -> dict:
         f"{MOEGRID_TRAIN_STEPS}); moved a step: {_fmt_moved(moved, MOEGRID_TRAIN_STEPS)}; "
         f"per tile {pb[0]} B of parameters and {ob[0]} B of AdamW state = the dry run's")
     out = {"counts": counts, "depth": cfg.n_layers, "history": hist, "peak_gb": peak,
-           "ms_per_step": ms, "moved": moved, "param_bytes_per_tile": pb[0],
+           "ms_per_step": ms, "moved": moved, "meta_anchor": anchor,
+           "param_bytes_per_tile": pb[0],
            "opt_bytes_per_tile": ob[0]}
     del params, opt
     gc.collect()
@@ -5388,14 +5476,21 @@ def _famgrid_serve(torch, arch: str, kernel: str, one: dict) -> dict:
         logits, cache = lm.prefill(spec, eng.params, tiles, s_max, frames=fr,
                                    rules=eng.prefill_rules)
         pre_moved = _moved(torch, m0, "lm.serve")
-        m0 = lm_moves()
-        lg, cache = lm.decode_step(spec, eng.params,
-                                   run.place(eng._whole(logits).float().argmax(-1), ("batch",)),
-                                   cache, rules=eng.rules)
+        tok = run.place(eng._whole(logits).float().argmax(-1), ("batch",))
+        m0 = lm_moves()  # the decode step alone: its token's gather home is the engine's
+        lg, cache = lm.decode_step(spec, eng.params, tok, cache, rules=eng.rules)
         dec_moved = _moved(torch, m0, "lm.serve")
         if not bool(torch.isfinite(eng._whole(lg)[:, :cfg.vocab].float()).all()):
             fail(f"famgrid serve {arch}: decode logits not finite")
-    del logits, cache, lg, tiles, fr
+    del logits, cache, lg, tiles, fr, tok
+    enc = {"enc_len": SEAMLESS_FRAMES} if spec.is_encdec else {}
+    anchors = {
+        "prefill": meta_anchor(f"[famgrid] serve {arch} prefill", pre_moved, spec, "prefill",
+                               SERVE_BATCH, SERVE_PROMPT, grid, eng.prefill_rules, "lm.serve",
+                               s_max=s_max, store_rules=eng.rules, **enc),
+        "decode": meta_anchor(f"[famgrid] serve {arch} decode step", dec_moved, spec, "decode",
+                              SERVE_BATCH, s_max, grid, eng.rules, "lm.serve", pos=SERVE_PROMPT,
+                              **enc)}
     step_ms = st.decode_s / st.decode_steps * 1e3
     route, hd = ("wgmma", cfg.hd) if spec.is_encdec else _flash_route(spec, fa)
     what = (f"wkv {counts['wkv']} launches ({g.n_tiles} tiles x {cfg.n_layers} layers)"
@@ -5418,6 +5513,7 @@ def _famgrid_serve(torch, arch: str, kernel: str, one: dict) -> dict:
            "init_peak_gb": init_peak, "ttft_ms": st.ttft_s * 1e3, "decode_ms_per_step": step_ms,
            "peak_gb": peak, "tile_param_bytes": tile_bytes[0], "dryrun_param_bytes_per_tile": cell,
            "moved_prefill": pre_moved, "moved_decode_step": dec_moved, "moved_generate": moved,
+           "meta_anchors": anchors,
            "first_tokens": toks[0].tolist(), "calls": shapes.summary(),
            "one_by_one": {k: one[k] for k in ("ttft_ms", "decode_ms_per_step", "peak_gb")}}
     del eng
@@ -5476,6 +5572,9 @@ def _famgrid_train(torch) -> dict:
                                 log_every=100)
     counts = kernels.launch_counts()
     moved = _moved(torch, m0, "lm.train")
+    anchor = meta_anchor(f"[famgrid] train {cfg.name}", moved, spec, "train",
+                         FAMGRID_TRAIN_BATCH, FAMGRID_TRAIN_SEQ, grid, None, "lm.train",
+                         steps=FAMGRID_TRAIN_STEPS, opt_name=cfg.optimizer)
     peak = torch.cuda.max_memory_allocated() / 1e9
     want = {name: 0 for name in counts} | {"wkv": 4 * 2 * cfg.n_layers * FAMGRID_TRAIN_STEPS}
     if counts != want:
@@ -5503,7 +5602,8 @@ def _famgrid_train(torch) -> dict:
         f"a step: {_fmt_moved(moved, FAMGRID_TRAIN_STEPS)}; per tile {pb[0]} B of parameters "
         f"and {ob[0]} B of AdamW state = the dry run's")
     out = {"counts": counts, "depth": cfg.n_layers, "history": hist, "peak_gb": peak,
-           "ms_per_step": ms, "moved": moved, "param_bytes_per_tile": pb[0],
+           "ms_per_step": ms, "moved": moved, "meta_anchor": anchor,
+           "param_bytes_per_tile": pb[0],
            "opt_bytes_per_tile": ob[0]}
     del params, opt
     gc.collect()

@@ -37,8 +37,43 @@ same bytes; it is part of the estimate.  ``depths_run`` lists the counts run.
 
 Host reads.  The train step reads nothing back (``float(loss)`` is the
 launcher's, not the step's).  The chain's ``estimate_rho`` runs its power
-iterations on meta and returns None instead of reading the norm back.  LM
-cells run on no device grid, so their collective bytes are None.
+iterations on meta and returns None instead of reading the norm back.
+
+Collectives.  An LM cell's collective bytes come from the port's own grid
+step (:func:`grid_step_moves`): the train step (``make_train_step(grid=)``),
+``lm.prefill`` or ``lm.decode_step`` against a full cache, at the global
+batch, on a :class:`~repro_torch.launch.mesh.DeviceGrid` of meta tiles
+shaped as the cell's logical grid (:func:`meta_grid`: 16x16, or 2x16x16
+pod x data x model), under the cell's rules (:func:`step_rules`: decode
+under the serve engine's rules, prefill with FSDP kept).  The moves are
+read from :func:`repro_torch.core.collectives.lm_moves` around the step,
+every path summed (``lm.train``, ``lm.serve``, ``lm.pod``), at depths 1
+and 2 of each layer group and extrapolated
+linearly (:func:`extrapolated_moves`; exact: every layer of a group issues
+the same collectives).  They land in ``analysis`` as the chain cell's:
+``collective_bytes`` by JAX op type (``gather`` as ``all-gather``,
+``reduce`` as ``all-reduce``, ``reduce_scatter`` as ``reduce-scatter``),
+``collective_total_bytes`` and ``collective_counts``, and
+``moved_bytes_per_tile`` is the total over the tiles.  A count is the bytes
+that cross between logical grid positions over the whole grid.  The JAX
+record counts each collective's result bytes per device times its ring
+multiplier; for a group of n tiles and a result of R bytes a tile (S a
+tile's slice of a reduce-scatter):
+
+==================  ===============  ==============
+collective          JAX, per device  port, per tile
+==================  ===============  ==============
+all-reduce          2 R              (n - 1) R
+all-gather          R                (n - 1) R / n
+reduce-scatter      S                (n - 1) S
+==================  ===============  ==============
+
+GSPMD's all-to-alls and resharding permutes have no port counterpart (the
+port issues only its explicit collectives).  The grid steps run under
+:class:`~repro_torch.launch.hlo_analysis.MetaMemo`; a 16x16 step still
+dispatches every op once per tile, so ``collectives=False`` leaves the
+count out (the fields stay None), and :func:`run_cells` runs the cells and
+each depth run of a count as tasks on every core the process may use.
 
 The chain cell (``--chain``; ``--n 65536 --d 6`` as
 ``benchmarks/bench_chain_dryrun.py``) runs ``chain_product`` (``fuse_l``) on
@@ -55,20 +90,27 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
+import multiprocessing
 import os
 import time
 import traceback
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 from repro_torch import configs
 from repro_torch.launch import hlo_analysis
-from repro_torch.launch.mesh import LogicalGrid, make_production_mesh, mesh_chip_count
+from repro_torch.core import collectives as coll
+from repro_torch.launch.mesh import (DeviceGrid, LogicalGrid, make_cpu_mesh, make_production_mesh,
+                                     mesh_chip_count)
 from repro_torch.models import common as cm
 from repro_torch.models import lm
+from repro_torch.serving import engine
 from repro_torch.tree import tree_leaves, tree_map
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "experiments", "dryrun_torch")
@@ -156,11 +198,19 @@ def batch_specs(inputs: dict, rules: dict, grid) -> dict:
                                 v.shape, grid) for k, v in inputs.items()}
 
 
-def _serve_rules(cfg, rules: dict, decode: bool) -> dict:
-    r = cm.arch_rules(cfg, rules)
-    if decode:  # decode keeps every weight resident: no FSDP d_model shard
-        r = {**r, "embed_p": None, "embed_d": None}
-    return r
+def step_rules(spec: lm.LMSpec, shape: configs.ShapeSpec, grid, rules: dict) -> dict:
+    """The rules a cell's step runs under on ``grid`` (logical or of
+    devices), from the cell's ``rules``: train ``rules`` as the train step
+    takes them; decode the serve engine's
+    (:func:`repro_torch.serving.engine.serve_rules`: every weight resident,
+    the experts gathered); prefill the arch's rules with FSDP kept, as the
+    JAX package's ``make_prefill``, the grid attached and moves counted
+    under ``lm.serve``."""
+    if shape.kind == "train":
+        return rules
+    if shape.kind == "decode":
+        return engine.serve_rules(spec, grid, rules)
+    return {**cm.attach_axis_sizes(cm.arch_rules(spec.cfg, rules), grid), "_path": "lm.serve"}
 
 
 def _stacked_meta_tree(spec: lm.LMSpec, compute_cast: bool = False) -> dict:
@@ -198,7 +248,7 @@ def argument_bytes(spec: lm.LMSpec, shape: configs.ShapeSpec, grid, rules: dict,
     first = next(iter(inputs))
     out["per_tile_batch"] = cm.tile_shape(bspecs[first], inputs[first].shape, grid)[0]
     train = shape.kind == "train"
-    r = cm.arch_rules(cfg, rules) if train else _serve_rules(cfg, rules, shape.kind == "decode")
+    r = cm.arch_rules(cfg, rules) if train else step_rules(spec, shape, grid, rules)
     tree = _stacked_meta_tree(spec, compute_cast)
     pspecs = cm.sanitize_specs(cm.tree_specs(lm.params_tree_axes(spec), r), tree, grid)
     out["param_bytes_per_tile"] = tree_tile_bytes(pspecs, tree, grid)
@@ -239,16 +289,18 @@ def _with_counts(spec: lm.LMSpec, counts) -> lm.LMSpec:
     return dataclasses.replace(spec, groups=groups, enc_groups=enc)
 
 
-def _meta_cache(spec: lm.LMSpec, shape: configs.ShapeSpec, batch: int) -> dict:
-    """The decode cell's cache on meta: full (``pos`` at its last slot); an
-    encoder-decoder's holds the encoder output over ``seq_len`` frames, as
-    the JAX package's serve step does."""
-    enc_len = shape.seq_len if spec.is_encdec else 0
-    cache = lm.init_cache(spec, batch, shape.seq_len, device="meta", enc_len=enc_len)
-    cache["pos"] = shape.seq_len - 1
+def _meta_cache(spec: lm.LMSpec, shape: configs.ShapeSpec, batch: int, device="meta",
+                pos: int | None = None, enc_len: int | None = None) -> dict:
+    """The decode cell's cache on ``device`` (zeros off meta): full (``pos``
+    at its last slot unless given); an encoder-decoder's holds the encoder
+    output over ``enc_len`` frames (default ``seq_len``), as the JAX
+    package's serve step does."""
+    enc_len = (enc_len or shape.seq_len) if spec.is_encdec else 0
+    cache = lm.init_cache(spec, batch, shape.seq_len, device=device, enc_len=enc_len)
+    cache["pos"] = shape.seq_len - 1 if pos is None else pos
     if spec.is_encdec:
-        cache["enc_out"] = torch.empty((batch, enc_len, spec.cfg.d_model), dtype=spec.cfg.cdtype,
-                                       device="meta")
+        cache["enc_out"] = torch.zeros((batch, enc_len, spec.cfg.d_model), dtype=spec.cfg.cdtype,
+                                       device=device)
     return cache
 
 
@@ -392,14 +444,198 @@ def extrapolated_step(spec: lm.LMSpec, shape: configs.ShapeSpec, batch: int, **k
 
 
 # ---------------------------------------------------------------------------
+# collectives: the grid step on a grid of meta tiles
+# ---------------------------------------------------------------------------
+
+
+def meta_grid(grid: LogicalGrid | DeviceGrid) -> DeviceGrid:
+    """A :class:`DeviceGrid` of ``meta`` tiles shaped as ``grid``: data x
+    model, or pod x data x model."""
+    sizes = grid.shape
+    return make_cpu_mesh(sizes["data"], sizes["model"], pod=sizes.get("pod", 0), device="meta")
+
+
+def _step_inputs(cfg, shape: configs.ShapeSpec, batch: int, device, seed: int,
+                 enc_len: int | None = None) -> dict:
+    """The step's inputs on ``device``: empty on meta, else drawn from
+    numpy with ``seed`` (ids below the vocab, frames standard normal); an
+    encoder's frames over ``enc_len`` positions (default ``seq_len``)."""
+    specs = configs.input_specs(cfg, shape, batch=batch)
+    if enc_len and "frames" in specs:
+        specs["frames"] = specs["frames"].new_empty((batch, enc_len, cfg.d_model))
+    if torch.device(device).type == "meta":
+        return specs
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, v in specs.items():
+        x = (rng.standard_normal(tuple(v.shape)) if v.is_floating_point()
+             else rng.integers(0, cfg.vocab, size=tuple(v.shape)))
+        out[k] = torch.as_tensor(x).to(dtype=v.dtype, device=device)
+    return out
+
+
+def grid_step_moves(spec: lm.LMSpec, shape: configs.ShapeSpec, grid: DeviceGrid,
+                    rules: dict | None = None, *, batch: int | None = None,
+                    s_max: int | None = None, pos: int | None = None,
+                    enc_len: int | None = None, opt_name: str = "adamw", accum: int = 1,
+                    store_rules: dict | None = None, seed: int = 0) -> dict:
+    """The moves of one step of the port on ``grid`` (any device; on meta
+    under :class:`~repro_torch.launch.hlo_analysis.MetaMemo`):
+    :func:`~repro_torch.core.collectives.lm_moves` read around it, by path.
+
+    - train: ``make_train_step(grid=, rules=rules)`` (``rules`` the base
+      rules, as the step takes them) on ``init_state(grid=)``'s state;
+    - prefill: ``lm.prefill`` of ``batch x seq_len`` tokens into a cache of
+      ``s_max`` (default ``seq_len``);
+    - decode: one ``lm.decode_step`` at ``pos`` (default the last slot)
+      against a cache of ``seq_len``, cut onto the grid by
+      ``lm.cache_to_grid``.
+
+    An encoder-decoder's encoder runs over ``enc_len`` frames (default
+    ``seq_len``), its decode cache holds as many.  A serve step runs under
+    ``rules`` (the step's rules, as ``lm.prefill`` takes them; any grid in
+    them is replaced by ``grid``) on weights stored by ``store_rules``
+    (default ``rules``), cast for compute.  Weights come from
+    ``lm.init_params(seed=)``, inputs from :func:`_step_inputs`; reading the
+    logits or the loss back is not the step's."""
+    from repro_torch.training import optim, train_step
+
+    cfg, dev = spec.cfg, grid.home
+    batch = batch or shape.global_batch
+    inputs = _step_inputs(cfg, shape, batch, dev, seed, enc_len)
+    with hlo_analysis.MetaMemo() if dev.type == "meta" else contextlib.nullcontext():
+        if shape.kind == "train":
+            oc = optim.OptConfig(name=opt_name)
+            params, state = train_step.init_state(spec, oc, seed, grid=grid, rules=rules)
+            step = train_step.make_train_step(spec, oc, accum=accum, grid=grid, rules=rules)
+            before = coll.lm_moves()
+            step(params, state, inputs)
+        else:
+            r = cm.attach_axis_sizes(rules, grid)
+            store = cm.attach_axis_sizes(store_rules or rules, grid)
+            weights = cm.cast_for_compute(lm.init_params(spec, seed, device=dev), cfg.cdtype, dev)
+            tree = lm.param_dict(weights)
+            specs = cm.sanitize_specs(lm.param_specs(spec, store), tree, grid)
+            view = lm.grid_view(spec, cm.shard_tree(tree, specs, grid), specs, grid,
+                                stacked=False)
+            run = cm.GridRun(r)
+            with torch.no_grad():
+                if shape.kind == "prefill":
+                    tok = run.place(inputs["tokens"].to(torch.int64), ("batch", "seq"))
+                    fr = inputs.get("frames")
+                    fr = None if fr is None else run.place(fr, ("batch", "seq", "embed"))
+                    before = coll.lm_moves()
+                    lm.prefill(spec, view, tok, s_max or shape.seq_len, frames=fr, rules=r)
+                else:
+                    cache = lm.cache_to_grid(
+                        spec, _meta_cache(spec, shape, batch, dev, pos, enc_len), r)
+                    tok = run.place(inputs["token"].to(torch.int64), ("batch",))
+                    before = coll.lm_moves()
+                    lm.decode_step(spec, view, tok, cache, rules=r)
+        after = coll.lm_moves()
+    return hlo_analysis.moves_between(before, after)
+
+
+def depth_plan(spec: lm.LMSpec) -> list[list[int]]:
+    """The layer-group counts a count runs: 1 in every group, then 2 in each
+    group whose count exceeds 1 (the others at 1)."""
+    full = _counts(spec)
+    plan = [[1] * len(full)]
+    for g, c in enumerate(full):
+        if c > 1:
+            plan.append([2 if i == g else 1 for i in range(len(full))])
+    return plan
+
+
+def extrapolate(spec: lm.LMSpec, plan: list, runs: list) -> dict:
+    """Moves by path at the spec's counts from ``runs`` (each a
+    :func:`grid_step_moves` reading) at :func:`depth_plan`'s counts: each
+    counter along its group's count, linearly."""
+    full = _counts(spec)
+    m0 = runs[0]
+    out = {p: dict(v) for p, v in m0.items()}
+    for counts, mg in zip(plan[1:], runs[1:], strict=True):
+        c = full[counts.index(2)]
+        for p, v in mg.items():
+            for k, x in v.items():
+                out[p][k] += (c - 1) * (x - m0[p][k])
+    return out
+
+
+def extrapolated_moves(spec: lm.LMSpec, shape: configs.ShapeSpec, grid: DeviceGrid,
+                       rules: dict | None = None, **kw) -> tuple[dict, list]:
+    """(moves by path at the spec's counts, the counts run):
+    :func:`grid_step_moves` at :func:`depth_plan`'s counts, extrapolated
+    (:func:`extrapolate`)."""
+    plan = depth_plan(spec)
+    runs = [grid_step_moves(_with_counts(spec, c), shape, grid, rules, **kw) for c in plan]
+    return extrapolate(spec, plan, runs), plan
+
+
+# ---------------------------------------------------------------------------
 # cells
 # ---------------------------------------------------------------------------
 
 
+def _no_moves() -> dict:
+    return {p: {f"{k}{x}": 0.0 for k in coll.KINDS for x in ("_bytes", "s")} for p in coll.PATHS}
+
+
+def count_plan(spec: lm.LMSpec, grid: LogicalGrid) -> list[list[int]]:
+    """The depth runs of a cell's count: :func:`depth_plan`, or none on one
+    tile (every collective is the identity there)."""
+    return depth_plan(spec) if mesh_chip_count(grid) > 1 else []
+
+
+def depth_run(spec: lm.LMSpec, shape: configs.ShapeSpec, grid: LogicalGrid, counts: list,
+              accum: int = 1, preset: str = "baseline") -> tuple[dict, float]:
+    """One run of a cell's count (a task of :func:`run_cells`): the grid step
+    at the layer-group ``counts`` on :func:`meta_grid` under the cell's
+    rules (:func:`step_rules`); its moves by path and its host seconds."""
+    t0 = time.perf_counter()
+    mg = meta_grid(grid)
+    rules = step_rules(spec, shape, mg, rules_for(grid, shape, preset))
+    moves = grid_step_moves(_with_counts(spec, counts), shape, mg, rules, accum=accum,
+                            opt_name=spec.cfg.optimizer)
+    return moves, time.perf_counter() - t0
+
+
+def _extrapolated(spec: lm.LMSpec, plan: list, runs: list) -> tuple[dict, float]:
+    """(moves by path at the spec's counts, host seconds) of a count's
+    :func:`depth_run` results ``runs`` at ``plan``'s counts."""
+    if not plan:
+        return _no_moves(), 0.0
+    return extrapolate(spec, plan, [m for m, _ in runs]), sum(t for _, t in runs)
+
+
+def cell_moves(spec: lm.LMSpec, shape: configs.ShapeSpec, grid: LogicalGrid, *,
+               accum: int = 1, preset: str = "baseline") -> tuple[dict, float]:
+    """A cell's moves by path at the spec's depth and their host seconds:
+    :func:`count_plan`'s :func:`depth_run` s, extrapolated."""
+    plan = count_plan(spec, grid)
+    return _extrapolated(spec, plan, [depth_run(spec, shape, grid, c, accum, preset)
+                                      for c in plan])
+
+
+def _with_moves(rec: dict, moves: dict, seconds: float) -> dict:
+    """``rec`` with its collective fields from ``moves`` (module docstring)."""
+    nbytes, counts = hlo_analysis.collectives_of(moves)
+    total = sum(nbytes.values())
+    rec["analysis"].update(collective_bytes=nbytes, collective_total_bytes=total,
+                           collective_counts=counts)
+    rec.update(moved_bytes_per_tile=total / rec["chips"], moves_by_path=moves,
+               collective_seconds=seconds)
+    rec["seconds"] += seconds
+    return rec
+
+
 def dry_cell(arch_id: str, shape: configs.ShapeSpec, grid: LogicalGrid, *, accum: int = 1,
-             preset: str = "baseline", flops_cache: dict | None = None) -> dict:
+             preset: str = "baseline", flops_cache: dict | None = None,
+             collectives: bool = True) -> dict:
     """One cell's record (module docstring).  ``flops_cache`` (a caller's dict)
-    keeps the global step's counts between grids: they do not depend on it."""
+    keeps the global step's counts between grids: they do not depend on it.
+    ``collectives=False`` leaves the grid step's count out (None); a 1x1
+    grid moves nothing."""
     t0 = time.perf_counter()
     cfg = configs.get_config(arch_id)
     spec = lm.build_spec(cfg)
@@ -415,7 +651,7 @@ def dry_cell(arch_id: str, shape: configs.ShapeSpec, grid: LogicalGrid, *, accum
         if flops_cache is not None:
             flops_cache[key] = glob
     per_tile = args["argument_bytes_per_tile"] + tile["peak_live_bytes"]
-    return {
+    rec = {
         "arch": arch_id, "shape": shape.name, "kind": shape.kind, "seq_len": shape.seq_len,
         "global_batch": shape.global_batch, "mesh": grid.shape, "chips": mesh_chip_count(grid),
         "preset": preset, "accum": accum, **args,
@@ -426,17 +662,25 @@ def dry_cell(arch_id: str, shape: configs.ShapeSpec, grid: LogicalGrid, *, accum
         "analysis": {"dot_flops": glob["dot_flops"], "flops_by_op": glob["flops_by_op"],
                      "collective_bytes": None, "collective_total_bytes": None,
                      "collective_counts": None},
+        "moved_bytes_per_tile": None, "moves_by_path": None, "collective_seconds": None,
         "depths_run": glob["depths_run"],
-        "seconds": time.perf_counter() - t0,
     }
+    rec["seconds"] = time.perf_counter() - t0
+    if collectives:
+        _with_moves(rec, *cell_moves(spec, shape, grid, accum=accum, preset=preset))
+    return rec
 
 
 def _cell_line(rec: dict) -> str:
     gb = rec["per_tile_bytes_estimate"] / 1e9
+    coll_total = rec["analysis"]["collective_total_bytes"]
+    moved = ("" if coll_total is None else
+             f", coll {coll_total / 1e9:.3f} GB ({rec['moved_bytes_per_tile'] / 1e9:.4f} GB a "
+             f"tile, {rec['collective_seconds']:.2f} s)")
     return (f"args {rec['argument_bytes_per_tile'] / 1e9:.3f} GB + act "
             f"{rec['activation_bytes_estimate'] / 1e9:.3f} GB = {gb:.3f} GB a tile of "
             f"{TILE_MEMORY_BYTES / 1e9:.0f} GB ({'fits' if rec['fits_80gb'] else 'DOES NOT FIT'}), "
-            f"dot_flops {rec['dot_flops']:.4e}, {rec['seconds']:.2f} s")
+            f"dot_flops {rec['dot_flops']:.4e}{moved}, {rec['seconds']:.2f} s")
 
 
 def _write(out_dir: str, tag: str, rec: dict) -> None:
@@ -444,28 +688,100 @@ def _write(out_dir: str, tag: str, rec: dict) -> None:
         json.dump(rec, f, indent=1)
 
 
-def run_cells(cells, meshes, out_dir: str, accum: int = 1, preset: str = "baseline",
-              log=print) -> list[dict]:
-    os.makedirs(out_dir, exist_ok=True)
-    records = []
+def _counted(collectives, arch_id: str, shape: configs.ShapeSpec, mesh_name: str) -> bool:
+    return (collectives is True
+            or (collectives is not False and (arch_id, shape.name, mesh_name) in collectives))
+
+
+def _error_record(arch_id: str, shape: configs.ShapeSpec, mesh_name: str,
+                  e: Exception) -> dict:
+    """A failed cell's record, the traceback's tail kept."""
+    return {"arch": arch_id, "shape": shape.name, "mesh": mesh_name, "status": "error",
+            "error": f"{type(e).__name__}: {e}", "traceback": traceback.format_exc()[-2000:]}
+
+
+def _cell_records(arch_id: str, shape: configs.ShapeSpec, meshes, accum: int,
+                  preset: str) -> list[dict]:
+    """The records of one (arch, shape) on each grid, their collectives not
+    yet counted (a task of :func:`run_cells`); a cell's failure is recorded
+    and the others still run."""
+    out = []
     flops_cache: dict = {}
     for mesh_name in meshes:
         grid = make_production_mesh(multi_pod=mesh_name == "multi")
-        for arch_id, shape in cells:
-            tag = f"{arch_id}__{shape.name}__{mesh_name}"
-            try:
-                rec = dry_cell(arch_id, shape, grid, accum=accum, preset=preset,
-                               flops_cache=flops_cache)
-                rec["status"] = "ok"
-                log(f"[dryrun] {tag}: {_cell_line(rec)}")
-            except Exception as e:  # one cell's failure is recorded; the others still run
-                rec = {"arch": arch_id, "shape": shape.name, "mesh": mesh_name, "status": "error",
-                       "error": f"{type(e).__name__}: {e}",
-                       "traceback": traceback.format_exc()[-2000:]}
-                log(f"[dryrun] {tag}: ERROR {type(e).__name__}: {str(e)[:200]}")
-            _write(out_dir, tag, rec)
-            records.append(rec)
-    return records
+        try:
+            rec = dry_cell(arch_id, shape, grid, accum=accum, preset=preset,
+                           flops_cache=flops_cache, collectives=False)
+            rec["status"] = "ok"
+        except Exception as e:
+            rec = _error_record(arch_id, shape, mesh_name, e)
+        out.append(rec)
+    return out
+
+
+def _run_cost(spec: lm.LMSpec, shape: configs.ShapeSpec, grid: LogicalGrid, counts: list) -> int:
+    """A depth run's rough cost, to start the longest first: its blocks x
+    its kind x the grid's tiles."""
+    spec = _with_counts(spec, counts)
+    blocks = len(spec.layers()) + len(spec.enc_layers())
+    return blocks * {"train": 3, "prefill": 2, "decode": 1}[shape.kind] * mesh_chip_count(grid)
+
+
+def worker_count() -> int:
+    """The processes :func:`run_cells` runs its tasks in: the cores this
+    process may run on."""
+    return len(os.sched_getaffinity(0))
+
+
+def run_cells(cells, meshes, out_dir: str, accum: int = 1, preset: str = "baseline",
+              log=print, *, collectives=True) -> list[dict]:
+    """Every cell on every grid in ``meshes``: one record each, written to
+    ``out_dir`` and returned grid by grid.  ``collectives``: count every
+    cell's collectives (True), none (False), or only those of the
+    ``(arch, shape name, mesh name)`` triples it holds.  The work runs as
+    tasks in :func:`worker_count` processes (spawned: each imports the port
+    anew; in this process when there is one core): each (arch, shape)'s
+    records on every grid one task, each :func:`depth_run` of a count one,
+    the costliest first.  A script that calls it guards its top level with
+    ``if __name__ == "__main__":`` (the workers import it again)."""
+    os.makedirs(out_dir, exist_ok=True)
+    counts: dict = {}  # (arch, shape name, mesh name) -> (spec, plan, {counts: its task})
+    runs = []  # (cost, key, spec, shape, grid, counts)
+    for arch_id, shape in cells:
+        spec = lm.build_spec(configs.get_config(arch_id))
+        for m in meshes:
+            if _counted(collectives, arch_id, shape, m):
+                grid = make_production_mesh(multi_pod=m == "multi")
+                key = (arch_id, shape.name, m)
+                counts[key] = (spec, count_plan(spec, grid), {})
+                runs += [(_run_cost(spec, shape, grid, c), key, spec, shape, grid, c)
+                         for c in counts[key][1]]
+    runs.sort(key=lambda r: -r[0])
+    n = min(worker_count(), len(runs) + len(cells))
+    pool = (ProcessPoolExecutor(n, mp_context=multiprocessing.get_context("spawn")) if n > 1
+            else ThreadPoolExecutor(1))
+    done: dict = {}
+    with pool as ex:
+        for _, key, spec, shape, grid, c in runs:
+            counts[key][2][tuple(c)] = ex.submit(depth_run, spec, shape, grid, c, accum, preset)
+        recs = [(arch_id, shape, ex.submit(_cell_records, arch_id, shape, tuple(meshes), accum,
+                                           preset)) for arch_id, shape in cells]
+        for arch_id, shape, fut in recs:
+            for mesh_name, rec in zip(meshes, fut.result(), strict=True):
+                key = (arch_id, shape.name, mesh_name)
+                if rec["status"] == "ok" and key in counts:
+                    spec, plan, futs = counts[key]
+                    try:
+                        _with_moves(rec, *_extrapolated(spec, plan,
+                                                        [futs[tuple(c)].result() for c in plan]))
+                    except Exception as e:  # a depth run failed: the cell fails
+                        rec = _error_record(arch_id, shape, mesh_name, e)
+                tag = "__".join(key)
+                log(f"[dryrun] {tag}: " + (_cell_line(rec) if rec["status"] == "ok"
+                                           else f"ERROR {rec['error'][:200]}"))
+                _write(out_dir, tag, rec)
+                done[key] = rec
+    return [done[arch_id, shape.name, m] for m in meshes for arch_id, shape in cells]
 
 
 # ---------------------------------------------------------------------------

@@ -22,11 +22,32 @@ The keys are the JAX module's:
   ``collective_counts``: the tile moves of a device grid
   (:func:`repro_torch.core.distmatrix.grid_moves`) read around the call,
   SUMMA's panel gathers as ``all-gather`` and Cannon's skews and shifts as
-  ``collective-permute``.  Bytes are those that cross between grid
-  positions (a tile already at its destination is not counted), where the
-  JAX module counts each collective's result bytes per device.  A call
-  with no grid (``grid=None``) has None there, never 0: nothing was
+  ``collective-permute``; the LM substrate's moves
+  (:func:`repro_torch.core.collectives.lm_moves`, read by the dry run around
+  a grid step) by :func:`collectives_of`: ``gather`` as ``all-gather``,
+  ``reduce`` as ``all-reduce``, ``reduce_scatter`` as ``reduce-scatter``.
+  A call with no grid (``grid=None``) has None there, never 0: nothing was
   measured.
+
+  Bytes are those that cross between logical grid positions, summed over
+  the whole grid (a tile already at its destination is not counted).  The
+  JAX module counts each collective's result bytes per device times
+  ``RING_MULTIPLIER``.  For a group of n tiles and a result of R bytes a
+  tile (S a tile's slice of a reduce-scatter), per tile:
+
+  ==================  ===============  ==============
+  collective          JAX, per device  port, per tile
+  ==================  ===============  ==============
+  all-reduce          2 R              (n - 1) R
+  all-gather          R                (n - 1) R / n
+  reduce-scatter      S                (n - 1) S
+  ==================  ===============  ==============
+
+  so a port count converts to the JAX convention by 2 / (n - 1),
+  n / (n - 1) and 1 / (n - 1) of its per-tile bytes (the port's total over
+  the tiles).  GSPMD's all-to-all and resharding collective-permutes have
+  no counterpart: the port's grid code issues only its explicit
+  collectives.
 
 Besides: ``peak_live_bytes``, the high-water mark of the bytes of tensors
 made during the call and still alive (each storage once; views cost
@@ -65,6 +86,10 @@ other arguments) and answers a repeat with an empty tensor of the shape,
 strides and dtype the kernel gave (an in-place op with its first argument):
 the same tensors, without the cost.  Without it the 64 cells and the chain
 of ``dryrun --all --mesh both --chain`` take about 1.8 times as long.
+:class:`MetaMemo` does the same for every op that returns one new tensor
+(no view, no in-place op but a pointwise one), with nothing counted: the
+dry run's grid steps run under it, where every tile repeats the ops of
+every other.
 """
 
 from __future__ import annotations
@@ -78,7 +103,8 @@ from torch.utils.flop_counter import flop_registry
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
 
 # the grid counters' move kinds -> the JAX module's collective op types
-_KIND_TO_COLLECTIVE = {"gather": "all-gather", "permute": "collective-permute"}
+_KIND_TO_COLLECTIVE = {"gather": "all-gather", "permute": "collective-permute",
+                       "reduce": "all-reduce", "reduce_scatter": "reduce-scatter"}
 
 # ops whose result may be a gradient summed or stacked from partial gradients
 _GRAD_JOINS = ("add", "stack")
@@ -110,7 +136,79 @@ class _Storage:
         self.joined = joined  # the storages an add / stack made it from (or None)
 
 
-class OpCounter(TorchDispatchMode):
+class MetaMemo(TorchDispatchMode):
+    """Answers a repeated op on ``meta`` tensors from a memo (module
+    docstring): every pointwise op (in place too) and every op with one new
+    tensor as its result, or with ``pointwise_only`` the pointwise ops alone.
+    :class:`OpCounter` takes the pointwise rule: under the wider one the
+    activation estimate of 34 of the dry run's 64 cells moves (their
+    ``activation_bytes_estimate``, so ``per_tile_bytes_estimate``, and
+    ``fits_80gb`` in three; decode cells by up to 45x), FLOPs and argument
+    bytes do not."""
+
+    def __init__(self, pointwise_only: bool = False):
+        super().__init__()
+        self._pointwise_only = pointwise_only
+        self._memo: dict = {}  # signature -> (shape, stride, dtype) or None (in place)
+        self._memo_ok: dict = {}  # op -> whether its results may be memoized
+
+    def _memoizable(self, func) -> bool:
+        ok = self._memo_ok.get(func)
+        if ok is None:
+            schema = func._schema
+            pointwise = torch.Tag.pointwise in func.tags
+            fresh = (len(schema.returns) == 1 and schema.returns[0].alias_info is None
+                     and not schema.is_mutable)
+            ok = self._memo_ok[func] = pointwise or (not self._pointwise_only and fresh)
+        return ok
+
+    def _signature(self, func, leaves):
+        """The key of a memoizable op on meta tensors, or None (not memoized)."""
+        if not self._memoizable(func):
+            return None
+        parts = [func]
+        meta = False
+        for a in leaves:
+            if isinstance(a, torch.Tensor):
+                if a.device.type != "meta":
+                    return None
+                meta = True
+                parts.append((tuple(a.shape), a.stride(), a.dtype))
+            else:
+                parts.append((type(a), a))
+        if not meta:  # a factory: its device is an argument
+            return None
+        key = tuple(parts)
+        try:
+            hash(key)
+        except TypeError:  # an argument that cannot key a cache
+            return None
+        return key
+
+    def _run(self, func, args, kwargs, leaves):
+        key = self._signature(func, leaves)
+        if key is None:
+            return func(*args, **kwargs)
+        key = (key, tuple(kwargs))
+        hit = self._memo.get(key, False)
+        if hit is None:
+            return args[0]
+        if hit:
+            return torch.empty_strided(hit[0], hit[1], dtype=hit[2], device="meta")
+        out = func(*args, **kwargs)
+        if func._schema.is_mutable:  # in place: the answer is the first argument
+            if out is args[0]:
+                self._memo[key] = None
+        elif isinstance(out, torch.Tensor) and out.device.type == "meta":
+            self._memo[key] = (tuple(out.shape), out.stride(), out.dtype)
+        return out
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        return self._run(func, args, kwargs, _leaves((args, kwargs), []))
+
+
+class OpCounter(MetaMemo):
     """Counts matmul FLOPs by op and records every storage made while it is
     active: its bytes, its share (module docstring) and the ops at which it
     was made and freed.  A storage an op received (an in-place result, a
@@ -118,7 +216,7 @@ class OpCounter(TorchDispatchMode):
     share) pairs of the arguments that count at a share."""
 
     def __init__(self, shares=()):
-        super().__init__()
+        super().__init__(pointwise_only=True)
         self.flops: dict[str, int] = {}
         self.n_ops = 0
         self._arg_share = {t.untyped_storage()._cdata: w for t, w in shares}
@@ -129,7 +227,6 @@ class OpCounter(TorchDispatchMode):
         self.storages: list[_Storage] = []  # every storage made, in order
         self._alive: dict[int, _Storage] = {}  # storage key -> its record while alive
         self.ops: list[tuple[int, str]] = []  # (segment, op name) of every op
-        self._pointwise: dict = {}  # signature -> (shape, stride, dtype) or None (in place)
         self._phase, self._segment = "forward", 0
 
     def _share_of(self, key: int) -> float:
@@ -165,43 +262,6 @@ class OpCounter(TorchDispatchMode):
                 joined = [self._alive[k] for a, k in inputs
                           if k in self._alive and a.shape in (t.shape, t.shape[1:])]
         return _Storage(key, t.untyped_storage().nbytes(), share, i, joined)
-
-    def _signature(self, func, leaves):
-        """The key of a pointwise op on meta tensors, or None (not cached)."""
-        if torch.Tag.pointwise not in func.tags:
-            return None
-        parts = [func]
-        for a in leaves:
-            if isinstance(a, torch.Tensor):
-                if a.device.type != "meta":
-                    return None
-                parts.append((tuple(a.shape), a.stride(), a.dtype))
-            else:
-                parts.append((type(a), a))
-        key = tuple(parts)
-        try:
-            hash(key)
-        except TypeError:  # an argument that cannot key a cache
-            return None
-        return key
-
-    def _run(self, func, args, kwargs, leaves):
-        key = self._signature(func, leaves)
-        if key is None:
-            return func(*args, **kwargs)
-        key = (key, tuple(kwargs))
-        hit = self._pointwise.get(key, False)
-        if hit is None:
-            return args[0]
-        if hit:
-            return torch.empty_strided(hit[0], hit[1], dtype=hit[2], device="meta")
-        out = func(*args, **kwargs)
-        if func._schema.is_mutable:  # in place: the answer is the first argument
-            if out is args[0]:
-                self._pointwise[key] = None
-        elif isinstance(out, torch.Tensor):
-            self._pointwise[key] = (tuple(out.shape), out.stride(), out.dtype)
-        return out
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -255,14 +315,23 @@ class OpCounter(TorchDispatchMode):
         return out
 
 
-def _collectives(before: dict, after: dict) -> tuple[dict, dict]:
+def collectives_of(moves: dict) -> tuple[dict, dict]:
+    """(bytes, calls) by JAX op type of grid moves ``{group: {"<kind>_bytes",
+    "<kind>s"}}`` summed over the groups (schedules or paths): the counters'
+    form (:func:`~repro_torch.core.distmatrix.grid_moves`,
+    :func:`~repro_torch.core.collectives.lm_moves`) or a difference of it."""
     nbytes = {k: 0 for k in COLLECTIVES}
     counts = {k: 0 for k in COLLECTIVES}
-    for sched, now in after.items():
+    for now in moves.values():
         for kind, op in _KIND_TO_COLLECTIVE.items():
-            nbytes[op] += int(now[f"{kind}_bytes"] - before[sched][f"{kind}_bytes"])
-            counts[op] += int(now[f"{kind}s"] - before[sched][f"{kind}s"])
+            nbytes[op] += int(now.get(f"{kind}_bytes", 0))
+            counts[op] += int(now.get(f"{kind}s", 0))
     return nbytes, counts
+
+
+def moves_between(before: dict, after: dict) -> dict:
+    """The difference of two readings of a move counter, group by group."""
+    return {g: {k: v - before[g][k] for k, v in now.items()} for g, now in after.items()}
 
 
 def count(fn, *args, shares=(), **kwargs) -> OpCounter:
@@ -302,7 +371,7 @@ def analyze(fn, *args, grid=None, shares=(), **kwargs) -> dict:
         "timeline": timeline,
     }
     if grid is not None:
-        nbytes, counts = _collectives(before, grid_moves())
+        nbytes, counts = collectives_of(moves_between(before, grid_moves()))
         out.update(collective_bytes=nbytes, collective_total_bytes=sum(nbytes.values()),
                    collective_counts=counts)
     return out

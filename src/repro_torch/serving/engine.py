@@ -63,8 +63,9 @@ def serve_rules(spec: lm.LMSpec, grid, rules=None) -> dict:
     ``multipod_rules`` on a pod grid, else ``DEFAULT_RULES``) with the arch's
     overrides, ``moe_gathered`` and every weight's d_model dim whole, the
     grid attached and moves counted under ``lm.serve``.  The weights are
-    stored by these rules."""
-    g = cm.device_grid(grid)
+    stored by these rules.  ``grid`` may also be a ``LogicalGrid`` (the dry
+    run's): then only its axis sizes are attached."""
+    g = cm.device_grid(grid) or grid
     rules = rules or (cm.multipod_rules() if "pod" in g.axis_names else dict(cm.DEFAULT_RULES))
     rules = {**cm.arch_rules(spec.cfg, rules), "moe_gathered": True, "embed_p": None,
              "embed_d": None}
