@@ -32,7 +32,8 @@ Phases, in order; any failure exits non-zero:
    against the plain version and the whole sequence's rows, the SHA-256 of
    its other forms' outputs (``scripts/flash_bits.py``), and ``flash_attention``
    at zamba2's shared-block prefill (q/k/v 128 x 1024 x 224 bf16, causal, the
-   SIMT route) beside SDPA and its bound; then the pinned
+   tensor-core route, its ptxas registers and spills) beside the SIMT kernel
+   on the same inputs, SDPA and its bound; then the pinned
    host-to-device rate of one out-of-core panel (the ``[h2d]`` line);
 3. the resident main path: ``SequenceDetector`` over the n=10512 climate
    sequence (the 2.5-degree NCEP/NCAR Reanalysis 1 grid, 73 x 144), with
@@ -161,8 +162,8 @@ Phases, in order; any failure exits non-zero:
    of 128 experts and the shared expert), random weights from seed 0,
    through ``ServeEngine.generate`` with phase 9's requests: exact launch
    counts (``flash_attention`` once per attention block in prefill, zamba2's
-   13 shared-block calls on the SIMT route at D=224, the others on the
-   tensor-core route; none in decode), tokens in range, finite logits,
+   13 shared-block calls at D=224 and the others all on the tensor-core
+   route; none in decode), tokens in range, finite logits,
    time to first token, decode time per step, peak device memory (at most
    76 GB) and the prefill's device split; then each model card against CPU
    in fp32 at full width and depth 2 (zamba2 7, so the shared block runs
@@ -207,7 +208,9 @@ Phases, in order; any failure exits non-zero:
    collective bytes of granite-3-2b's train_4k, prefill_32k and decode_32k
    cells on the 16x16 grid, counted by running the port's grid step on
    meta tiles (non-null and non-zero, one line a cell and its bytes by JAX
-   op type); the cells in parallel processes; its seconds, under
+   op type); the cells in parallel processes, run beside the kernel build
+   (they need no card, and the build leaves most cores idle while its
+   longest source compiles) and checked here; its seconds, under
    ``DRYRUN_BUDGET_S``.  Phases 17-19 hold the same meta count, of each
    step they run on the card's grid, equal to the card's counter;
 17. the LM substrate on a 2x2 grid of the one card (``[lmgrid]`` lines,
@@ -254,8 +257,8 @@ Phases, in order; any failure exits non-zero:
    lines): rwkv6-3b, zamba2-7b (81 layers, its 13 shared-block calls) and
    seamless-m4t-medium (12 + 12 layers, over frames (4, 1024, 1024)) at
    full width and depth, served with phase 9's requests (8 greedy tokens):
-   exact launches (``wkv`` 4 x 32, ``flash_attention`` 4 x 13 on the SIMT
-   route at D=224 and 4 x 36 on ``wgmma`` by (S, T, causal), none in
+   exact launches (``wkv`` 4 x 32, ``flash_attention`` 4 x 13 on ``wgmma``
+   at D=224 and 4 x 36 on ``wgmma`` by (S, T, causal), none in
    decode), time to first token, decode ms a step and peak (<= 76 GB, also
    while the engine cuts its tiles) beside the 1x1 phases 9, 13 and 14, the
    bytes a prefill and a decode step move by kind, each tile's parameter
@@ -349,7 +352,9 @@ QUERIES = (  # (label, k, corrected, nearest-neighbor node or None)
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    # one write a line: phase 16's cells log from a thread beside the build
+    sys.stdout.write(msg + "\n")
+    sys.stdout.flush()
 
 
 def fail(msg: str) -> None:
@@ -2045,7 +2050,7 @@ def phase_lm_kernels(torch, rows: list) -> dict:
         f"q ({nkv * grp},{s},{d}) k/v ({nkv},{s},{d}) bf16 causal, groups {grp}", check, tol_b,
         ms_f, plain_f, 4.0 * d * pairs, nbytes(q, kk, vv, q), lib, peak_ops=PEAK_BF16_OPS,
         forms=fforms, library_call="scaled_dot_product_attention(is_causal, enable_gqa)",
-        kernel_route="wgmma (bf16, D in {64, 128}); SIMT for fp32 and other D up to 256",
+        kernel_route="wgmma (bf16, D in {64, 128, 224}); SIMT for fp32 and other D up to 256",
         simt_kernel_ms=simt_ms, d224=d224, output_digests=digests))
     return {"wkv_ms": ms, "flash_attention_ms": ms_f}
 
@@ -2105,36 +2110,57 @@ def _flash_digests(torch, fa) -> dict:
 
 def _flash_d224(torch, fa, ref, randn, route, sdpa, tol: float) -> dict:
     """flash_attention at zamba2's shared-block prefill: q/k/v (4 x 32, 1024,
-    224) bf16, causal, groups 1, on the SIMT route; against the plain version,
-    twice bitwise, timed (events and device) beside SDPA and its bound."""
+    224) bf16, causal, groups 1, on the tensor-core route; against the plain
+    version, twice bitwise, ptxas's registers and spills of its instance (none
+    allowed), timed (events and device) beside the SIMT kernel on the same
+    inputs (the route's earlier design, through the library entry the wrapper
+    no longer sends bf16 D=224 to), SDPA and its bound."""
+    from repro_torch.kernels import _build
+
     bh, s, d = SERVE_BATCH * 32, SERVE_PROMPT, 224
     q, k, v = (randn(bh, s, d, dtype=torch.bfloat16) for _ in range(3))
     name = f"flash_attention ({bh},{s},{d}) bf16 causal"
+    usage = _build.ptxas_usage(_build.BUILD_INFO.get("log", ""), "flash_kernel_wgmmaILi224E")
+    if usage is None:
+        fail(f"{name}: the build log holds no ptxas report for flash_kernel_wgmma<224>")
+    if usage["spill_stores"] or usage["spill_loads"]:
+        fail(f"{name}: flash_kernel_wgmma<224> spills ({usage})")
     out, took = route(lambda: fa.flash_attention(q, k, v))
-    if took != "simt":
-        fail(f"{name}: took the {took} route, want the SIMT route")
+    if took != "wgmma":
+        fail(f"{name}: took the {took} route, want the tensor-core (wgmma) route")
     check = check_close(name, out, ref.flash_attention(q, k, v), tol)
     check_bitwise(torch, name, lambda: fa.flash_attention(q, k, v))
-    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v), reps=10)
-    dev_ms = kernel_device_ms(torch, lambda: fa.flash_attention(q, k, v), 10, ("flash_kernel",))
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v), reps=20)
+    dev_ms = kernel_device_ms(torch, lambda: fa.flash_attention(q, k, v), 20,
+                              ("flash_kernel_wgmma",))
     plain = time_ms(torch, lambda: ref.flash_attention(q, k, v), reps=2)
     q4, k4, v4 = (t.view(SERVE_BATCH, -1, s, d) for t in (q, k, v))
-    lib = time_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True), reps=10)
+    lib = time_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True), reps=20)
+    simt_out = torch.empty_like(q)
+    lib_fn = _build.library().rt_flash_attention
+
+    def simt():
+        _build.check(lib_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), simt_out.data_ptr(),
+                            bh, s, s, d, 1, 1, 0, 1.0 / d**0.5, 1, _build.stream_handle(q)),
+                     "flash_attention SIMT")
+
+    simt_ms = time_ms(torch, simt, reps=5)
+    simt_err, _ = check_close(f"{name} (SIMT kernel)", simt_out, out, tol)
     ops = 4.0 * d * bh * s * (s + 1) / 2  # the causal pairs' two products
-    # the bound takes the card's rate for bf16 operands; the SIMT route's own
-    # floor, the same products as fp32 FFMA, is kept beside it
     bms, by = bound_ms(ops, nbytes(q, k, v, q), PEAK_BF16_OPS)
-    fp32_floor = ops / PEAK_FP32_OPS * 1e3
-    log(f"[kernels] {name}: SIMT route; max_abs_err {check[0]:.3e} (tol {tol:g} x max|plain| "
-        f"{check[1]:.3e}), bitwise repeatable; {ms:.4f} ms (device {fmt_ms(dev_ms)}), plain "
-        f"{plain:.3f} ms, SDPA {lib:.4f} ms, bound {bms:.4f} ms ({by}: {ops / 1e9:.1f} GFLOP "
-        f"at {PEAK_BF16_OPS / 1e12:g} T/s bf16); as fp32 FFMA at {PEAK_FP32_OPS / 1e12:g} T/s "
-        f"the route's floor is {fp32_floor:.3f} ms")
-    return {"shape": f"q/k/v ({bh},{s},{d}) bf16 causal, groups 1", "route": "simt",
+    log(f"[kernels] {name}: wgmma route (flash_kernel_wgmma<224>: {usage['registers']} "
+        f"registers, {usage['spill_stores']} bytes of spill stores, {usage['spill_loads']} of "
+        f"spill loads); max_abs_err {check[0]:.3e} (tol {tol:g} x max|plain| {check[1]:.3e}), "
+        f"bitwise repeatable; {ms:.4f} ms (device {fmt_ms(dev_ms)}), the SIMT kernel on the "
+        f"same inputs {simt_ms:.4f} ms (its output within {simt_err:.3e} of the wgmma route's), "
+        f"plain {plain:.3f} ms, SDPA {lib:.4f} ms, bound {bms:.4f} ms ({by}: "
+        f"{ops / 1e9:.1f} GFLOP at {PEAK_BF16_OPS / 1e12:g} T/s bf16)")
+    return {"shape": f"q/k/v ({bh},{s},{d}) bf16 causal, groups 1", "route": took,
             "max_abs_err": check[0], "max_abs_plain": check[1], "tolerance": f"{tol:g} x max|plain|",
-            "ms": ms, "device_ms": dev_ms, "plain_ms": plain, "library_ms": lib,
+            "ms": ms, "device_ms": dev_ms, "simt_kernel_ms": simt_ms, "simt_vs_wgmma_err": simt_err,
+            "plain_ms": plain, "library_ms": lib,
             "library_call": "scaled_dot_product_attention(is_causal)", "bound_ms": bms,
-            "bound_by": by, "simt_fp32_floor_ms": fp32_floor}
+            "bound_by": by, "ptxas": usage}
 
 
 def device_split(torch, fn) -> dict:
@@ -2386,9 +2412,11 @@ def _attention_blocks(spec) -> int:
 
 def _flash_route(spec, fa) -> str:
     """The route the model's prefill attention takes on the card."""
+    import torch
+
     cfg = spec.cfg
     hd = 2 * cfg.d_model // cfg.n_heads if spec.has_shared_attn else cfg.hd
-    return ("wgmma" if cfg.compute_dtype == "bfloat16" and hd in fa.WGMMA_DIMS else "simt"), hd
+    return fa.kernel_route(getattr(torch, cfg.compute_dtype), hd), hd
 
 
 def _routing_card_vs_cpu(tag: str, card: list, cpu: list) -> list:
@@ -3270,40 +3298,68 @@ def _dryrun_anchor(torch, train: dict) -> dict:
     return out
 
 
-def phase_dryrun(torch, train: dict, grid: dict) -> dict:
-    """Phase 16: (a) ``dryrun --all --mesh both`` in a process a core and,
-    meanwhile, the 16x16 chain cell on meta, one ``[dryrun]`` line a
-    cell (per-tile GB against 80 GB), every cell ``ok``, the collective
-    bytes counted (the grid step on meta tiles) for DRYRUN_COLLECTIVE_CELLS
-    on the 16x16 grid only, each non-null and non-zero; (b)
-    :func:`_dryrun_anchor`; (c) the 2x2 chain at n=10512, d=6 on meta,
-    whose moved bytes times phase 11's chain builds equal phase 11's counter
-    readings on the card exactly, for cannon and summa; under
-    DRYRUN_BUDGET_S."""
-    from repro_torch import configs
+class DryrunCells:
+    """Phase 16 (a), started in a thread before the kernel build: ``dryrun
+    --all --mesh both`` in a process a core and, meanwhile, the 16x16 chain
+    cell on meta, one ``[dryrun]`` line a cell (per-tile GB against 80 GB).
+    Nothing of it needs the card.  ``join()`` returns (records, chain, the
+    cells' seconds) or raises what the work raised."""
+
+    def __init__(self):
+        self.box: dict = {}
+        self.thread = threading.Thread(target=self._run)
+
+    def _run(self):
+        from repro_torch import configs
+        from repro_torch.launch import dryrun
+
+        try:
+            t0 = time.perf_counter()
+            chain_thread = threading.Thread(target=self._chain)
+            chain_thread.start()
+            want = {(a, s, "single") for a, s in DRYRUN_COLLECTIVE_CELLS}
+            self.box["records"] = dryrun.run_cells(
+                configs.all_cells(), ["single", "multi"], str(OUT / "dryrun_torch"), log=log,
+                collectives=want)
+            self.box["seconds"] = time.perf_counter() - t0
+            chain_thread.join()
+        except Exception as e:  # re-raised by join(), in the main thread
+            self.box["error"] = e
+
+    def _chain(self):
+        from repro_torch.launch import dryrun
+
+        try:
+            self.box["chain"] = dryrun.dry_chain(65536, 6, log=log)
+        except Exception as e:
+            self.box["error"] = e
+
+    def start(self) -> "DryrunCells":
+        self.thread.start()
+        return self
+
+    def join(self) -> tuple:
+        self.thread.join()
+        if "error" in self.box:
+            raise self.box["error"]
+        return self.box["records"], self.box["chain"], self.box["seconds"]
+
+
+def phase_dryrun(torch, train: dict, grid: dict, cells: tuple) -> dict:
+    """Phase 16: (a) the cells and the 16x16 chain (``DryrunCells``'s
+    ``cells``, run beside the kernel build): every cell ``ok``, the
+    collective bytes counted (the grid step on meta tiles) for
+    DRYRUN_COLLECTIVE_CELLS on the 16x16 grid only, each non-null and
+    non-zero; (b) :func:`_dryrun_anchor`; (c) the 2x2 chain at n=10512, d=6
+    on meta, whose moved bytes times phase 11's chain builds equal phase
+    11's counter readings on the card exactly, for cannon and summa; (a)'s
+    seconds and these under DRYRUN_BUDGET_S."""
     from repro_torch.launch import dryrun
 
     t_phase = time.perf_counter()
     out_dir = OUT / "dryrun_torch"
     want = {(a, s, "single") for a, s in DRYRUN_COLLECTIVE_CELLS}
-    # the 16x16 chain in this process while the cells run in the workers
-    box: dict = {}
-
-    def chain_cell():
-        try:
-            box["chain"] = dryrun.dry_chain(65536, 6, log=log)
-        except Exception as e:  # re-raised below, in the phase's thread
-            box["error"] = e
-
-    chain_thread = threading.Thread(target=chain_cell)
-    chain_thread.start()
-    records = dryrun.run_cells(configs.all_cells(), ["single", "multi"], str(out_dir), log=log,
-                               collectives=want)
-    t_cells = time.perf_counter() - t_phase
-    chain_thread.join()
-    if "error" in box:
-        raise box["error"]
-    chain = box["chain"]
+    records, chain, t_cells = cells
     bad = [f"{r['arch']} {r['shape']} {r['mesh']}: {r['error']}" for r in records
            if r["status"] != "ok"]
     if bad:
@@ -3333,9 +3389,10 @@ def phase_dryrun(torch, train: dict, grid: dict) -> dict:
         log(f"[dryrun] chain n={N_MAIN} d=6 2x2 {sched}: "
             f"{r['collective_total_bytes'] / 1e9:.4f} GB moved a chain x {run['chain_builds']} "
             f"builds equals phase 11's counter on the card")
-    seconds = time.perf_counter() - t_phase
+    seconds = t_cells + time.perf_counter() - t_phase
     log(f"[dryrun] phase 16 in {seconds:.1f} s (the {len(records)} cells {t_cells:.1f} s in "
-        f"{dryrun.worker_count()} processes, slowest {slowest['arch']} {slowest['shape']} "
+        f"{dryrun.worker_count()} processes beside the kernel build, slowest {slowest['arch']} "
+        f"{slowest['shape']} "
         f"{slowest['mesh']['data']}-data {slowest['seconds']:.2f} s; the 16x16 chain "
         f"{chain['seconds']:.1f} s; limit {DRYRUN_BUDGET_S:.0f} s)")
     if seconds > DRYRUN_BUDGET_S:
@@ -5361,7 +5418,9 @@ def _famgrid_want(spec, kernel: str, n_tiles: int, counts: dict) -> dict:
     """The exact launches of one grid generate: every tile once a recurrent
     or attention call in prefill (seamless: the encoder, each decoder
     block's self- and cross-attention), none in decode; flash_attention on
-    the tensor-core route at D=64 (seamless), the SIMT one at D=224 (zamba2)."""
+    the tensor-core route at D=64 (seamless) and D=224 (zamba2)."""
+    from repro_torch.kernels import flash_attention as fa
+
     want = {name: 0 for name in counts}
     if kernel == "wkv":
         want["wkv"] = n_tiles * spec.layers().count("rwkv")
@@ -5369,7 +5428,7 @@ def _famgrid_want(spec, kernel: str, n_tiles: int, counts: dict) -> dict:
     n = (_attention_blocks(spec) if not spec.is_encdec
          else len(spec.enc_layers()) + 2 * len(spec.layers()))
     want["flash_attention"] = n_tiles * n
-    if spec.is_encdec:
+    if spec.is_encdec or _flash_route(spec, fa)[0] == "wgmma":
         want["flash_attention_wgmma"] = n_tiles * n
     return want
 
@@ -5791,6 +5850,7 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
+    dry_cells = DryrunCells().start()  # phase 16 (a), on meta, beside the build
     t0 = time.perf_counter()
     _build.library()
     info = _build.BUILD_INFO
@@ -5802,6 +5862,7 @@ def main() -> int:
     log(f"[build] {len(_build.SOURCES)} sources built with nvcc for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s (cached: {info.get('cached')}; {nvcc}); ptxas: "
         f"registers per kernel {regs}, {spills} bytes of spill stores in all")
+    cells = dry_cells.join()
 
     rows: list = []
     phase_kernels(torch, rows)
@@ -5838,7 +5899,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = phase_train(torch, rows)
     torch.cuda.empty_cache()
-    dry = phase_dryrun(torch, train, grid)
+    dry = phase_dryrun(torch, train, grid, cells)
     torch.cuda.empty_cache()
     lmgrid = phase_lmgrid(torch, serve)
     torch.cuda.empty_cache()

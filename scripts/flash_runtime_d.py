@@ -4,9 +4,10 @@
 run time (``FA_CMAX`` = 16 output columns a thread, masked past D).  This
 script builds a second library from ``csrc/flash_attention.cu`` with one
 more entry that always launches the run-time instance, and times it against
-the library's own dispatch on the same bf16 causal inputs (zamba2's shared
-block by default: q/k/v (4 x 32, 1024, 224)), in the order A B B A with CUDA
-events.  It prints both outputs' difference, each instance's registers and
+the SIMT entry's own dispatch (``rt_flash_attention``; the wrapper sends
+bf16 at D = 224 to the tensor-core route instead) on the same bf16 causal
+inputs (zamba2's shared block by default: q/k/v (4 x 32, 1024, 224)), in the
+order A B B A with CUDA events.  It prints both outputs' difference, each instance's registers and
 spills from ptxas, the card's name and power limit, and a JSON line.
 
     python3 scripts/flash_runtime_d.py [--d 224] [--reps 20] [--out FILE]
@@ -53,8 +54,9 @@ def build_variant(_build) -> tuple[ctypes.CDLL, str]:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{proc.stdout}")
     lib = ctypes.CDLL(str(so))
-    lib.rt_flash_attention_runtime_d.argtypes = list(_build.SIGNATURES["rt_flash_attention"])
-    lib.rt_flash_attention_runtime_d.restype = ctypes.c_int
+    for name in ("rt_flash_attention", "rt_flash_attention_runtime_d"):
+        getattr(lib, name).argtypes = list(_build.SIGNATURES["rt_flash_attention"])
+        getattr(lib, name).restype = ctypes.c_int
     return lib, proc.stdout
 
 
@@ -89,7 +91,6 @@ def main() -> int:
         print("flash_runtime_d: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import _build, ref
-    from repro_torch.kernels import flash_attention as fa
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           stdout=subprocess.PIPE, text=True).stdout.strip().splitlines()[0]
@@ -97,17 +98,19 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn(args.bh, args.s, args.d, device="cuda", generator=gen)
                .to(torch.bfloat16) for _ in range(3))
-    out_rt = torch.empty_like(q)
+    out_dc, out_rt = torch.empty_like(q), torch.empty_like(q)
+
+    def simt(entry, out):  # the SIMT kernel (bf16 at D = 224 takes wgmma in the wrapper)
+        _build.check(entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), args.bh,
+                           args.s, args.s, args.d, 1, 1, 0, 1.0 / args.d ** 0.5, 1,
+                           _build.stream_handle(q)), "flash_attention SIMT")
+        return out
 
     def dispatch():
-        return fa.flash_attention(q, k, v)
+        return simt(lib.rt_flash_attention, out_dc)
 
     def runtime_d():
-        _build.check(lib.rt_flash_attention_runtime_d(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out_rt.data_ptr(), args.bh, args.s,
-            args.s, args.d, 1, 1, 0, 1.0 / args.d ** 0.5, 1, _build.stream_handle(q)),
-            "flash_attention run-time D")
-        return out_rt
+        return simt(lib.rt_flash_attention_runtime_d, out_rt)
 
     def ms(fn) -> float:
         fn()

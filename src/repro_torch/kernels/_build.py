@@ -59,7 +59,26 @@ SIZES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-BUILD_INFO: dict = {}  # path, seconds, cached, ptxas log of the loaded library
+BUILD_INFO: dict = {}  # path, seconds, cached, ptxas log of the loaded library's build
+
+
+def ptxas_usage(log: str, kernel: str) -> dict | None:
+    """Registers and spill bytes that ptxas reported for the first entry
+    function whose mangled name contains ``kernel`` (e.g.
+    ``"flash_kernel_wgmmaILi224E"``), from a build log; None when the log
+    does not hold it."""
+    import re
+
+    for part in log.split("Compiling entry function '")[1:]:
+        if kernel not in part.split("'", 1)[0]:
+            continue
+        regs = re.search(r"Used (\d+) registers", part)
+        stores = re.search(r"(\d+) bytes spill stores", part)
+        loads = re.search(r"(\d+) bytes spill loads", part)
+        if regs and stores and loads:
+            return {"registers": int(regs.group(1)), "spill_stores": int(stores.group(1)),
+                    "spill_loads": int(loads.group(1))}
+    return None
 
 
 def build_dir() -> Path:
@@ -127,9 +146,14 @@ def library() -> ctypes.CDLL:
         out_dir = build_dir()
         out_dir.mkdir(parents=True, exist_ok=True)
         so = out_dir / f"librepro_torch_kernels_{_digest()}.so"
+        log_path = so.with_suffix(".log")  # the build's ptxas report, kept for a cached load
         t0 = time.perf_counter()
         cached = so.exists()
-        log = "" if cached else _compile(so)
+        if cached:
+            log = log_path.read_text() if log_path.exists() else ""
+        else:
+            log = _compile(so)
+            log_path.write_text(log)
         lib = ctypes.CDLL(str(so))
         for name, args in SIGNATURES.items():
             fn = getattr(lib, name)

@@ -11,18 +11,20 @@
 // the TPU kernel applied to K/V repeated per group, i.e. what the model's
 // `_chunked_flash` computes.
 //
-// Bound on an H100: operations.  Dense causal prefill of qwen2-1.5b (q
+// Bound on an H100: operations at D = 128 (bytes at zamba2's D = 224, see
+// below).  Dense causal prefill of qwen2-1.5b (q
 // 48 x 1024 x 128, k/v 8 x 1024 x 128, bf16) is ~12.9 GFLOP of products,
 // ~0.013 ms at the 989 TFLOP/s bf16 tensor-core rate, against ~17 MB of
 // operands (~0.005 ms of HBM).
 //
 // Two routes, a fixed dispatch on dtype and head dim (see the wrapper):
 //
-// * `flash_kernel_wgmma`, bf16 q/k/v with D in {64, 128} (the serve path's
-//   prefill): both products on the tensor cores.  One block per (q head,
+// * `flash_kernel_wgmma`, bf16 q/k/v with D in {64, 128, 224} (the serve
+//   path's prefill; 224 is zamba2's shared block, whose head is 2 x 3584 /
+//   32 wide): both products on the tensor cores.  One block per (q head,
 //   tile of 128 q rows): two consumer warpgroups of 64 rows and one producer
-//   warp.  The producer loads the Q tile once and K/V tiles of 64 keys into
-//   a ring of 2 stages by TMA (a 3-D map over (BH, S, D), so a ragged last
+//   warp (a warpgroup at D = 224, below).  The producer loads the Q tile
+//   once and K/V tiles of 64 keys into a ring of 2 stages by TMA (a 3-D map over (BH, S, D), so a ragged last
 //   tile is zero-filled per head; 128-byte swizzle, a head of 128 as two
 //   64-wide column blocks), each stage under a full and an empty mbarrier.
 //   A consumer computes S = Q K^T with wgmma m64n64k16 (both operands
@@ -37,11 +39,27 @@
 //   TPU kernel's fp32 P: at most one bf16 step of the output.  Causal tiles
 //   past a warpgroup's last row are skipped; the heaviest q tiles of every
 //   head are issued first.
-// * `flash_kernel`, fp32 or any other D <= 256: the SIMT kernel.  One block
-//   of 256 threads per (q head, tile of 64 q rows); the scaled Q tile and
-//   each 64-row K/V tile are widened to fp32 in shared memory (~113 KB at
-//   D = 128, 189,184 bytes at D = 224: zamba2's shared block, whose head is
-//   2 x 3584 / 32 wide); thread (ti, tj) owns q rows 4ti..4ti+3 and computes
+//   D = 224 is not a multiple of the 128-byte swizzle's 64 columns, so its
+//   tiles are seven 32-column boxes under the 64-byte swizzle (atoms of 8 x
+//   64 bytes, SBO 512 B, LBO 4 KB between V's column blocks): no padding, and
+//   each TMA box is written whole, so every expect_tx counts whole boxes.
+//   Shared memory: Q 2 x 7 x 4 KB + K and V 2 stages x 7 x 4 KB each =
+//   172,032 bytes (+ barriers and 1 KB of alignment slack).  P V is one
+//   wgmma m64n224k16 (112 fp32 accumulators a thread) over V's seven blocks.
+//   Registers: O 112 + S 32 + packed P 16 do not fit the 168 a thread that
+//   ptxas grants 288 threads (it rounds a block to whole warpgroups), and
+//   spilled 128 bytes; so at D = 224 the producer is a whole warpgroup that
+//   setmaxnreg drops to 40 registers, and the two consumer warpgroups rise to
+//   232.  ptxas -v: 168 registers at entry, 0 bytes of spill stores and loads.
+//   At zamba2's prefill (q/k/v 128 x 1024 x 224, causal) the products are
+//   60.2 GFLOP (0.0609 ms at 989 TFLOP/s) against 235 MB of q, k, v and o
+//   (0.0701 ms at 3.35 TB/s): (S + 1) / 4 ~ 256 operations a byte, below the
+//   card's ~295, so the bound is bytes.
+// * `flash_kernel`, fp32 at any D, or bf16 at any other D <= 256: the SIMT
+//   kernel.  One block of 256 threads per (q head, tile of 64 q rows); the
+//   scaled Q tile and each 64-row K/V tile are widened to fp32 in shared
+//   memory (~113 KB at D = 128, 189,184 bytes at D = 224); thread (ti, tj)
+//   owns q rows 4ti..4ti+3 and computes
 //   scores and ceil(D / 16) output columns with FFMA on CUDA cores (4 x 14
 //   fp32 accumulators a thread at D = 224); P goes through shared memory;
 //   rows and keys past S and T are masked; heavy causal tiles first.
@@ -225,7 +243,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int bhq, int 
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core route: bf16, D in {64, 128}.
+// Tensor-core route: bf16, D in {64, 128, 224}.
 // ---------------------------------------------------------------------------
 
 constexpr int TC_WG_ROWS = 64;                  // q rows of a consumer warpgroup
@@ -233,19 +251,48 @@ constexpr int TC_NWG = 2;                       // consumer warpgroups
 constexpr int TC_BQ = TC_WG_ROWS * TC_NWG;      // q rows of a block
 constexpr int TC_BK = 64;                       // keys of a K/V tile
 constexpr int TC_NST = 2;                       // K/V ring stages
-constexpr int TC_THREADS = 128 * TC_NWG + 32;   // + one producer warp
-constexpr int TC_BOX = 64 * 64;                 // bf16 of one 64-row x 64-column box (8 KB)
 constexpr float TC_LOG2E = 1.4426950408889634f;
+constexpr int TC_PRODUCER_REGS = 40;   // D = 224: the producer warpgroup's registers a thread
+constexpr int TC_CONSUMER_REGS = 232;  // and the consumers' (128 x 40 + 256 x 232 <= 65,536)
+
+// The shape of the route at head dim D.  A head's column blocks are each one
+// TMA box of 64 rows: 64 columns under the 128-byte swizzle where D is a
+// multiple of 64, else 32 columns under the 64-byte swizzle (D = 224: seven
+// blocks, no padding).  The producer is one warp at D 64 and 128; at 224 it
+// is a whole warpgroup, so that setmaxnreg can hand its registers to the
+// consumers (REG_SPLIT).
+template <int D>
+struct TcHead {
+  static constexpr int W = D % 64 == 0 ? 64 : 32;  // columns of a block
+  static constexpr int N = D / W;                  // blocks of a head
+  static constexpr int BOX = 64 * W;               // bf16 of one 64-row block
+  static constexpr uint32_t ATOM = 8 * W * 2;      // bytes of eight rows: a swizzle atom (SBO)
+  static constexpr int KSTEPS = W / 16;            // k16 slices of a block's row
+  static constexpr bool REG_SPLIT = D > 128;
+  static constexpr int THREADS = 128 * TC_NWG + (REG_SPLIT ? 128 : 32);
+  static_assert(D == 64 || D == 128 || D == 224, "the tensor-core route takes D 64, 128, 224");
+};
 
 template <int D>
 struct TcSmem {
-  __nv_bfloat16 q[TC_NWG][D / 64][TC_BOX];  // [warpgroup][column block][64 rows x 64]
-  __nv_bfloat16 k[TC_NST][D / 64][TC_BOX];  // [stage][column block][64 keys x 64]
-  __nv_bfloat16 v[TC_NST][D / 64][TC_BOX];
+  using C = TcHead<D>;
+  __nv_bfloat16 q[TC_NWG][C::N][C::BOX];  // [warpgroup][column block][64 rows x W]
+  __nv_bfloat16 k[TC_NST][C::N][C::BOX];  // [stage][column block][64 keys x W]
+  __nv_bfloat16 v[TC_NST][C::N][C::BOX];
   uint64_t q_full;
   uint64_t kv_full[TC_NST];
   uint64_t kv_empty[TC_NST];
 };
+
+// The wgmma descriptor of a block (the swizzle the TMA map wrote it with).
+template <int D>
+__device__ __forceinline__ uint64_t tc_desc(const __nv_bfloat16* p, uint32_t lbo_bytes) {
+  if constexpr (TcHead<D>::W == 64) {
+    return rt_desc_sw128(p, lbo_bytes, TcHead<D>::ATOM);
+  } else {
+    return rt_desc_sw64(p, lbo_bytes, TcHead<D>::ATOM);
+  }
+}
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
@@ -254,18 +301,22 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 
 template <int D>
 __device__ __forceinline__ void pv_mma(float (&acc)[D / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (D == 128) {
+  if constexpr (D == 64) {
+    rt_wgmma_m64n64k16_bf16_rs_tb(acc, a, db, 1);
+  } else if constexpr (D == 128) {
     rt_wgmma_m64n128k16_bf16_rs_tb(acc, a, db, 1);
   } else {
-    rt_wgmma_m64n64k16_bf16_rs_tb(acc, a, db, 1);
+    static_assert(D == 224, "P V has a product for D 64, 128 and 224 only");
+    rt_wgmma_m64n224k16_bf16_rs_tb(acc, a, db, 1);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(TC_THREADS, 1)
+__global__ void __launch_bounds__(TcHead<D>::THREADS, 1)
 flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
                    int s_len, int t_len, int groups, int causal, int q_offset, float scale) {
+  using C = TcHead<D>;
   extern __shared__ uint8_t smem_raw[];
   TcSmem<D>& sm = *reinterpret_cast<TcSmem<D>*>(rt_smem_align1024(smem_raw));
   const int h = blockIdx.x;
@@ -285,24 +336,27 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
   }
   __syncthreads();
 
-  if (warp == 4 * TC_NWG) {  // producer
-    if (lane == 0) {
-      rt_mbar_expect_tx(&sm.q_full, TC_BQ * D * sizeof(__nv_bfloat16));
+  if (warp >= 4 * TC_NWG) {  // producer
+    if constexpr (C::REG_SPLIT) rt_setmaxnreg_dec<TC_PRODUCER_REGS>();
+    if (warp == 4 * TC_NWG && lane == 0) {
+      // the bytes TMA writes: whole boxes, zero-filled rows past S or T included
+      rt_mbar_expect_tx(&sm.q_full, sizeof(sm.q));
       for (int w = 0; w < TC_NWG; ++w)
-        for (int c = 0; c < D / 64; ++c)
-          rt_tma_load_3d(sm.q[w][c], &tq, &sm.q_full, 64 * c, q0 + TC_WG_ROWS * w, h);
+        for (int c = 0; c < C::N; ++c)
+          rt_tma_load_3d(sm.q[w][c], &tq, &sm.q_full, C::W * c, q0 + TC_WG_ROWS * w, h);
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it % TC_NST;
         if (it >= TC_NST) rt_mbar_wait(&sm.kv_empty[st], ((it / TC_NST) - 1) & 1);
-        rt_mbar_expect_tx(&sm.kv_full[st], 2 * TC_BK * D * sizeof(__nv_bfloat16));
-        for (int c = 0; c < D / 64; ++c) {
-          rt_tma_load_3d(sm.k[st][c], &tk, &sm.kv_full[st], 64 * c, it * TC_BK, hk);
-          rt_tma_load_3d(sm.v[st][c], &tv, &sm.kv_full[st], 64 * c, it * TC_BK, hk);
+        rt_mbar_expect_tx(&sm.kv_full[st], sizeof(sm.k[st]) + sizeof(sm.v[st]));
+        for (int c = 0; c < C::N; ++c) {
+          rt_tma_load_3d(sm.k[st][c], &tk, &sm.kv_full[st], C::W * c, it * TC_BK, hk);
+          rt_tma_load_3d(sm.v[st][c], &tv, &sm.kv_full[st], C::W * c, it * TC_BK, hk);
         }
       }
     }
     return;
   }
+  if constexpr (C::REG_SPLIT) rt_setmaxnreg_inc<TC_CONSUMER_REGS>();
 
   const int wg = warp / 4;
   const int wq0 = q0 + TC_WG_ROWS * wg;  // the warpgroup's first q row
@@ -332,9 +386,10 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
       rt_fence_regs(s);
       rt_wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {  // 16 bf16 = 32 bytes of a 128-byte row
-        const uint64_t da = rt_desc_sw128(&sm.q[wg][kk / 4][0] + 16 * (kk % 4), 16, 1024);
-        const uint64_t db = rt_desc_sw128(&sm.k[st][kk / 4][0] + 16 * (kk % 4), 16, 1024);
+      for (int kk = 0; kk < D / 16; ++kk) {  // 16 bf16 = 32 bytes of a block's row
+        const int cb = kk / C::KSTEPS, k16 = 16 * (kk % C::KSTEPS);
+        const uint64_t da = tc_desc<D>(&sm.q[wg][cb][0] + k16, 16);
+        const uint64_t db = tc_desc<D>(&sm.k[st][cb][0] + k16, 16);
         rt_wgmma_m64n64k16_bf16_ss(s, da, db, kk > 0);
       }
       rt_wgmma_commit();
@@ -393,9 +448,9 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
       rt_fence_regs(acc);
       rt_wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < TC_BK / 16; ++kk) {  // 16 keys = 16 rows of 128 bytes
-        const uint64_t db = rt_desc_sw128(&sm.v[st][0][0] + 16 * 64 * kk,
-                                          TC_BOX * sizeof(__nv_bfloat16), 1024);
+      for (int kk = 0; kk < TC_BK / 16; ++kk) {  // 16 keys = 16 rows of every block
+        const uint64_t db = tc_desc<D>(&sm.v[st][0][0] + 16 * C::W * kk,
+                                       C::BOX * sizeof(__nv_bfloat16));
         pv_mma<D>(acc, pa[kk], db);
       }
       rt_wgmma_commit();
@@ -431,22 +486,24 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int bhq, 
   const cuuint64_t kv_dims[3] = {D, (cuuint64_t)t_len, (cuuint64_t)(bhq / groups)};
   const cuuint64_t q_str[2] = {row, row * s_len};
   const cuuint64_t kv_str[2] = {row, row * t_len};
-  const cuuint32_t q_box[3] = {64, TC_WG_ROWS, 1};
-  const cuuint32_t kv_box[3] = {64, TC_BK, 1};
+  constexpr int W = TcHead<D>::W;
+  const cuuint32_t q_box[3] = {W, TC_WG_ROWS, 1};
+  const cuuint32_t kv_box[3] = {W, TC_BK, 1};
+  const CUtensorMapSwizzle swz = W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   CUtensorMap mq, mk, mv;
-  cudaError_t err =
-      rt_encode_sw128(&mq, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, q, q_dims, q_str, q_box);
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  cudaError_t err = rt_encode_swizzled(&mq, bf16, 3, q, q_dims, q_str, q_box, swz);
   if (err == cudaSuccess)
-    err = rt_encode_sw128(&mk, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, k, kv_dims, kv_str, kv_box);
+    err = rt_encode_swizzled(&mk, bf16, 3, k, kv_dims, kv_str, kv_box, swz);
   if (err == cudaSuccess)
-    err = rt_encode_sw128(&mv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, v, kv_dims, kv_str, kv_box);
+    err = rt_encode_swizzled(&mv, bf16, 3, v, kv_dims, kv_str, kv_box, swz);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = sizeof(TcSmem<D>) + 1024;
   err = cudaFuncSetAttribute(flash_kernel_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(bhq, (s_len + TC_BQ - 1) / TC_BQ);
-  flash_kernel_wgmma<D><<<grid, TC_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  flash_kernel_wgmma<D><<<grid, TcHead<D>::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), s_len, t_len, groups, causal, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -465,7 +522,7 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, v
                          stream);
 }
 
-// Grid (BHq, ceil(S / 128)).  bf16 q/k/v with d in {64, 128}, each base
+// Grid (BHq, ceil(S / 128)).  bf16 q/k/v with d in {64, 128, 224}, each base
 // 16-byte aligned; the wrapper checks every shape and type.
 extern "C" int rt_flash_attention_wgmma(const void* q, const void* k, const void* v, void* o,
                                         int bhq, int s_len, int t_len, int d, int groups,
@@ -476,5 +533,8 @@ extern "C" int rt_flash_attention_wgmma(const void* q, const void* k, const void
   if (d == 64)
     return launch_wgmma<64>(q, k, v, o, bhq, s_len, t_len, groups, causal, q_offset, scale,
                             stream);
+  if (d == 224)
+    return launch_wgmma<224>(q, k, v, o, bhq, s_len, t_len, groups, causal, q_offset, scale,
+                             stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,7 +1,7 @@
 // Hopper building blocks shared by the tensor-core kernels (flash_attention.cu,
 // block_matmul.cu), in raw PTX: TMA descriptors and loads, mbarriers, and
 // warpgroup MMA (wgmma) with operands in shared memory laid out by TMA's
-// 128-byte swizzle.  sm_90a only.
+// 128- or 64-byte swizzle.  sm_90a only.
 //
 // Shared-memory operand layout.  Every tile is a stack of 128-byte rows (64
 // bf16 or 32 fp32), written by a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
@@ -13,6 +13,11 @@
 //     address + 32 k (the hardware applies the swizzle to the address bits);
 //   MN-major (bf16 only, the transpose flag set): SBO = 1024 B (next eight
 //     rows along K), LBO = the byte stride between 64-wide column blocks.
+// The 64-byte swizzle is the same with rows of 64 bytes (32 bf16): an atom
+// of eight rows is 512 B (SBO), a K-major row holds two k16 slices (start +
+// 32 k), and MN-major column blocks are 32 wide (LBO between them).  A head
+// that is a multiple of 32 but not of 64 (224) splits into such blocks with
+// no padding.
 #pragma once
 
 #include <cuda.h>
@@ -33,12 +38,13 @@ typedef CUresult (*rt_encode_tiled_fn)(CUtensorMap*, CUtensorMapDataType, cuuint
                                        CUtensorMapSwizzle, CUtensorMapL2promotion,
                                        CUtensorMapFloatOOBfill);
 
-// A tiled, 128-byte-swizzled map of a row-major tensor: dims innermost first,
-// strides in bytes of dims 1.., box in elements.  Out-of-bounds elements of a
-// box are filled with zeros.
-static inline cudaError_t rt_encode_sw128(CUtensorMap* map, CUtensorMapDataType type, int rank,
-                                          const void* base, const cuuint64_t* dims,
-                                          const cuuint64_t* strides, const cuuint32_t* box) {
+// A tiled, swizzled map of a row-major tensor: dims innermost first, strides
+// in bytes of dims 1.., box in elements (its inner extent at most the swizzle
+// span).  Out-of-bounds elements of a box are filled with zeros.
+static inline cudaError_t rt_encode_swizzled(CUtensorMap* map, CUtensorMapDataType type,
+                                             int rank, const void* base, const cuuint64_t* dims,
+                                             const cuuint64_t* strides, const cuuint32_t* box,
+                                             CUtensorMapSwizzle swizzle) {
   static rt_encode_tiled_fn fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;
@@ -56,9 +62,16 @@ static inline cudaError_t rt_encode_sw128(CUtensorMap* map, CUtensorMapDataType 
   }
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box,
-                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+static inline cudaError_t rt_encode_sw128(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                                          const void* base, const cuuint64_t* dims,
+                                          const cuuint64_t* strides, const cuuint32_t* box) {
+  return rt_encode_swizzled(map, type, rank, base, dims, strides, box,
+                            CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // ---------------------------------------------------------------------------
@@ -135,14 +148,25 @@ __device__ __forceinline__ void rt_tma_load_3d(void* dst, const CUtensorMap* map
 // Device: wgmma.
 // ---------------------------------------------------------------------------
 
-// Descriptor of a 128-byte-swizzled shared-memory operand (see the top of the file).
-__device__ __forceinline__ uint64_t rt_desc_sw128(const void* smem, uint32_t lbo_bytes,
-                                                  uint32_t sbo_bytes) {
+// Descriptor of a swizzled shared-memory operand (see the top of the file);
+// layout type 1 is the 128-byte swizzle, 2 the 64-byte one.
+__device__ __forceinline__ uint64_t rt_desc_swizzled(const void* smem, uint32_t lbo_bytes,
+                                                     uint32_t sbo_bytes, uint64_t layout) {
   uint64_t d = (uint64_t)((rt_smem_u32(smem) & 0x3FFFFu) >> 4);
   d |= (uint64_t)((lbo_bytes >> 4) & 0x3FFFu) << 16;
   d |= (uint64_t)((sbo_bytes >> 4) & 0x3FFFu) << 32;
-  d |= (uint64_t)1 << 62;  // layout type 1: 128-byte swizzle
+  d |= layout << 62;
   return d;
+}
+
+__device__ __forceinline__ uint64_t rt_desc_sw128(const void* smem, uint32_t lbo_bytes,
+                                                  uint32_t sbo_bytes) {
+  return rt_desc_swizzled(smem, lbo_bytes, sbo_bytes, 1);
+}
+
+__device__ __forceinline__ uint64_t rt_desc_sw64(const void* smem, uint32_t lbo_bytes,
+                                                 uint32_t sbo_bytes) {
+  return rt_desc_swizzled(smem, lbo_bytes, sbo_bytes, 2);
 }
 
 __device__ __forceinline__ void rt_wgmma_fence() {
@@ -154,6 +178,18 @@ __device__ __forceinline__ void rt_wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void rt_wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Moves registers between warpgroups: every thread of a warpgroup executes
+// it, the count a multiple of 8 in [24, 256].  ptxas honours it only where
+// the warpgroups' paths never rejoin.
+template <int N>
+__device__ __forceinline__ void rt_setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void rt_setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
 }
 
 // Keeps the compiler from moving accesses of wgmma accumulators across the
@@ -246,6 +282,47 @@ __device__ __forceinline__ void rt_wgmma_m64n128k16_bf16_rs_tb(float (&d)[64],
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// N = 224: a head of 224 as one product (112 accumulators a thread).
+__device__ __forceinline__ void rt_wgmma_m64n224k16_bf16_rs_tb(float (&d)[112],
+    const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %117, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111"
+      "}, {%112, %113, %114, %115}, %116, p, 1, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 

@@ -7,16 +7,15 @@ attention as one integer: q head ``h`` reads KV head ``h // groups``.  A CPU
 (:func:`repro_torch.kernels.ref.flash_attention`, the materialized softmax);
 a CUDA tensor launches a kernel or raises.
 
-On the card the route is a fixed dispatch on dtype and head dim, not a
-fallback:
+On the card the route is a fixed dispatch on dtype and head dim
+(:func:`kernel_route`), not a fallback:
 
-* bf16 q/k/v with D in {64, 128} (the serve path's prefill) take the
-  tensor-core kernel (``flash_kernel_wgmma``: TMA, ``wgmma``, P rounded to
-  bf16 for the P V product); it needs 16-byte aligned operands and raises
-  otherwise;
-* fp32, or any other D up to 256, take the SIMT kernel (``flash_kernel``,
-  FFMA in fp32): zamba2's shared block attends at D = 224.  A wider head
-  raises.
+* bf16 q/k/v with D in {64, 128, 224} (the serve path's prefill; 224 is
+  zamba2's shared block) take the tensor-core kernel
+  (``flash_kernel_wgmma``: TMA, ``wgmma``, P rounded to bf16 for the P V
+  product); it needs 16-byte aligned operands and raises otherwise;
+* fp32 at any D, and bf16 at any other D up to 256, take the SIMT kernel
+  (``flash_kernel``, FFMA in fp32).  A wider head raises.
 
 ``launches`` counts both routes; ``wgmma_launches`` the tensor-core route
 alone, ``offset_launches`` the launches with ``q_offset > 0`` (a sequence
@@ -39,8 +38,14 @@ wgmma_launches = 0  # of which on the tensor-core route
 offset_launches = 0  # of which with q_offset > 0
 
 D_MAX = 256  # widest head the SIMT kernel takes (register accumulators per thread)
-WGMMA_DIMS = (64, 128)  # head dims of the tensor-core route (bf16 only)
+WGMMA_DIMS = (64, 128, 224)  # head dims of the tensor-core route (bf16 only)
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kernel_route(dtype: torch.dtype, d: int) -> str:
+    """The kernel a CUDA call at ``dtype`` and head dim ``d`` launches:
+    ``"wgmma"`` (the tensor-core route) or ``"simt"``."""
+    return "wgmma" if dtype == torch.bfloat16 and d in WGMMA_DIMS else "simt"
 
 
 def flash_attention(q, k, v, *, causal: bool = True, groups: int = 1,
@@ -86,7 +91,7 @@ def flash_attention(q, k, v, *, causal: bool = True, groups: int = 1,
     lib = _build.library()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     scale = 1.0 / (d**0.5)
-    if q.dtype == torch.bfloat16 and d in WGMMA_DIMS:
+    if kernel_route(q.dtype, d) == "wgmma":
         if any(p % 16 for p in ptrs):
             raise ValueError("flash_attention: the tensor-core route needs 16-byte aligned "
                              "q, k, v")

@@ -647,7 +647,7 @@ def test_flash_attention_kernel(dev, bhkv, groups, s, t, d, causal, dtype):
     _rel_close(got, want, 1e-4 if dtype == torch.float32 else 2.0**-7)
     assert torch.equal(got, flash.flash_attention(q, k, v, causal=causal, groups=groups))
     assert kernels.launch_counts()["flash_attention"] == 2
-    tc = dtype == torch.bfloat16 and d in flash.WGMMA_DIMS
+    tc = flash.kernel_route(dtype, d) == "wgmma"
     assert kernels.launch_counts()["flash_attention_wgmma"] == (2 if tc else 0)
 
 
@@ -655,10 +655,11 @@ def test_flash_attention_kernel(dev, bhkv, groups, s, t, d, causal, dtype):
                                  (65, 17), (1000, 333)])
 @pytest.mark.parametrize("groups", [1, 6])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 224])
 def test_flash_attention_wgmma_route(dev, s, t, groups, causal, d):
-    """The tensor-core route (bf16, D in {64, 128}) against the plain version:
-    ragged S and T (zero-filled TMA tiles), T != S, GQA, causal or not."""
+    """The tensor-core route (bf16, D in {64, 128, 224}) against the plain
+    version: ragged S and T (zero-filled TMA tiles), T != S, GQA, causal or
+    not; at 224 the seven 32-column blocks under the 64-byte swizzle."""
     rng = np.random.default_rng(s * 7 + t + d + groups)
     q = _arr(rng, (2 * groups, s, d), dev).to(torch.bfloat16)
     k, v = (_arr(rng, (2, t, d), dev).to(torch.bfloat16) for _ in range(2))
@@ -670,15 +671,15 @@ def test_flash_attention_wgmma_route(dev, s, t, groups, causal, d):
 
 
 def test_flash_attention_kernel_at_zamba2_head_dim(dev):
-    """zamba2's shared block: D = 224, groups 1, bf16 causal on the SIMT route,
-    two whole 64-row tiles and a ragged one."""
+    """zamba2's shared block: D = 224, groups 1, bf16 causal on the tensor-core
+    route, seven whole 128-row tiles and a ragged one."""
     rng = np.random.default_rng(224)
     q, k, v = (_arr(rng, (6, 1000, 224), dev).to(torch.bfloat16) for _ in range(3))
     got = flash.flash_attention(q, k, v, causal=True)
     _rel_close(got, ref.flash_attention(q, k, v, causal=True), 2.0**-7)
     assert torch.equal(got, flash.flash_attention(q, k, v, causal=True))
     counts = kernels.launch_counts()
-    assert counts["flash_attention"] == 2 and counts["flash_attention_wgmma"] == 0
+    assert counts["flash_attention"] == counts["flash_attention_wgmma"] == 2
 
 
 def test_lm_kernels_refuse_what_they_cannot_take(dev):
@@ -1179,11 +1180,11 @@ def test_train_step_on_card_matches_cpu(dev, arch, kernel, per_layer):
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128), (torch.bfloat16, 64),
                                      (torch.float32, 64), (torch.bfloat16, 224)])
 @pytest.mark.parametrize("off,s,t,groups", [(256, 256, 512, 2), (100, 60, 300, 1),
-                                            (64, 130, 194, 3)])
+                                            (64, 130, 194, 3), (512, 512, 1024, 1)])
 def test_flash_attention_q_offset(dev, dtype, d, off, s, t, groups):
     """A tile of queries at positions [off, off + S) against all T keys: the
-    kernel (either route) against the plain version, and against the rows of
-    the whole sequence's attention where S + off = T."""
+    kernel (the route ``kernel_route`` names) against the plain version, and
+    against the rows of the whole sequence's attention where S + off = T."""
     rng = np.random.default_rng(off + s + t + d)
     q = _arr(rng, (2 * groups, s, d), dev).to(dtype)
     k, v = _arr(rng, (2, t, d), dev).to(dtype), _arr(rng, (2, t, d), dev).to(dtype)
@@ -1198,6 +1199,9 @@ def test_flash_attention_q_offset(dev, dtype, d, off, s, t, groups):
         qq = torch.cat([_arr(rng, (2 * groups, off, d), dev).to(dtype), q], dim=1)
         whole = flash.flash_attention(qq, k, v, causal=True, groups=groups)
         assert float((whole[:, off:].float() - got.float()).abs().max()) <= tol * scale
+    counts = kernels.launch_counts()
+    tc = flash.kernel_route(dtype, d) == "wgmma"
+    assert counts["flash_attention_wgmma"] == (counts["flash_attention"] if tc else 0)
 
 
 def test_flash_attention_q_offset_zero_is_the_default(dev):

@@ -190,10 +190,11 @@ def test_wkv_reference_matches_jax():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("s,d", [(128, 64), (256, 128), (64, 32)])
+@pytest.mark.parametrize("s,d", [(128, 64), (256, 128), (64, 32), (128, 224)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_flash_matches_pallas(s, d, causal):
-    """tests/test_kernels.py::test_flash_attention's shapes, 1e-4."""
+    """tests/test_kernels.py::test_flash_attention's shapes and zamba2's
+    shared-block head dim 224, 1e-4."""
     rng = np.random.default_rng(s + d)
     q, k, v = (_normal(rng, (2, s, d)) for _ in range(3))
     want = np.asarray(jops.flash_attention(*(jnp.asarray(x) for x in (q, k, v)), causal=causal,
@@ -202,6 +203,42 @@ def test_plain_flash_matches_pallas(s, d, causal):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got.numpy(), np.asarray(jref.flash_attention(q, k, v, causal=causal)),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 224, "wgmma"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"), (torch.float32, 224, "simt"),
+    (torch.float32, 256, "simt"), (torch.bfloat16, 32, "simt"), (torch.bfloat16, 200, "simt"),
+    (torch.bfloat16, 256, "simt")])
+def test_flash_kernel_route_table(dtype, d, want):
+    """The card's fixed dispatch, as the wrapper reads it: bf16 at D 64, 128
+    and 224 on the tensor cores; fp32 at any D and bf16 at any other D on the
+    SIMT kernel."""
+    assert tflash.kernel_route(dtype, d) == want
+
+
+_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118flash_kernel_wgmmaILi128EEEvP' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118flash_kernel_wgmmaILi128EEEvP
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 147 registers, used 1 barriers, 360 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118flash_kernel_wgmmaILi224EEEvP' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118flash_kernel_wgmmaILi224EEEvP
+    128 bytes stack frame, 128 bytes spill stores, 124 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 360 bytes cmem[0]
+"""
+
+
+@pytest.mark.parametrize("kernel,want", [
+    ("flash_kernel_wgmmaILi128E", {"registers": 147, "spill_stores": 0, "spill_loads": 0}),
+    ("flash_kernel_wgmmaILi224E", {"registers": 168, "spill_stores": 128, "spill_loads": 124}),
+    ("flash_kernel_wgmmaILi64E", None)])
+def test_ptxas_usage_reads_one_kernel(kernel, want):
+    """The build log's registers and spills of one entry function, as
+    chip_smoke.py reads them for the D = 224 instance; None when absent."""
+    from repro_torch.kernels import _build
+
+    assert _build.ptxas_usage(_PTXAS_LOG, kernel) == want
 
 
 def _attn_cfg(**kw):
